@@ -25,6 +25,18 @@ class BlockSpec:
     def num_tokens(self) -> int:
         return self.resolution[0] * self.resolution[1]
 
+    @property
+    def window_shift(self) -> Tuple[int, int]:
+        return effective_window(self.resolution, self.window_size, self.shift_size)
+
+
+def effective_window(resolution: Tuple[int, int], window: int, shift: int) -> Tuple[int, int]:
+    """(window, shift) a Swin block uses: the window shrinks to the grid, and
+    the shift drops to 0, when the grid is not larger than the window."""
+    if min(resolution) <= window:
+        return min(resolution), 0
+    return window, shift
+
 
 def swin_stage_specs(
     embed_dim: int,

@@ -32,21 +32,12 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "common.cuh"
+
 namespace {
 
-using bf16 = __nv_bfloat16;
+using namespace avmoe;
 using namespace nvcuda;
-
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(bf16 x) { return __bfloat162float(x); }
-
-template <typename T> __device__ __forceinline__ T from_float(float x);
-template <> __device__ __forceinline__ float from_float<float>(float x) { return x; }
-template <> __device__ __forceinline__ bf16 from_float<bf16>(float x) { return __float2bfloat16(x); }
-
-__device__ __forceinline__ float gelu_erf(float x) {
-  return 0.5f * x * (1.f + erff(x * 0.70710678118654752f));
-}
 
 template <int ACT>
 __device__ __forceinline__ float epilogue(float acc, float b) {

@@ -31,6 +31,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "common.cuh"
+
 namespace {
 
 constexpr int kWarps = 4;
@@ -39,26 +41,7 @@ constexpr int kMaxN = 256;
 constexpr int kMaxD = 64;
 constexpr int kKeysPerLane = kMaxN / 32;
 
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T> __device__ __forceinline__ T from_float(float x);
-template <> __device__ __forceinline__ float from_float<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
-  return v;
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
-}
+using namespace avmoe;
 
 size_t shared_bytes(int N, int D) {
   // Ks[N][D+1], Vs[N][D], per-warp q row [D] and probability row [N]
@@ -169,6 +152,6 @@ extern "C" int window_attention_fwd(const void* q, const void* k, const void* v,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* b = static_cast<const float*>(bias);
   if (dtype == 0) return launch<float>(q, k, v, b, out, BW, H, N, D, nW, s);
-  if (dtype == 1) return launch<__nv_bfloat16>(q, k, v, b, out, BW, H, N, D, nW, s);
+  if (dtype == 1) return launch<bf16>(q, k, v, b, out, BW, H, N, D, nW, s);
   return (int)cudaErrorInvalidValue;
 }

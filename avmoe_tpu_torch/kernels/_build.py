@@ -2,7 +2,8 @@
 
 Each `csrc/<name>.cu` is compiled by `nvcc -shared` for sm_90a into
 `_build/lib<name>-<hash>.so` at first use and loaded with ctypes. The hash
-covers the source and the flags, so an edited source rebuilds. Builds of
+covers the source, the local headers it includes (`csrc/*.cuh`) and the
+flags, so an edited source or header rebuilds. Builds of
 several sources run as parallel `nvcc` processes (`build`).
 """
 
@@ -11,6 +12,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -41,10 +43,28 @@ def nvcc_path() -> str:
     return found
 
 
+_LOCAL_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+
+
+def sources(name: str) -> List[Path]:
+    """`csrc/<name>.cu` and every local header it includes, transitively
+    (`#include "..."`, resolved against the including file's directory)."""
+    todo, seen = [CSRC_DIR / f"{name}.cu"], []
+    while todo:
+        path = todo.pop()
+        if path in seen:
+            continue
+        seen.append(path)
+        todo += [path.parent / inc.decode() for inc in _LOCAL_INCLUDE.findall(path.read_bytes())]
+    return seen
+
+
 def library_path(name: str) -> Path:
-    src = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
+    """The library of `name`; its hash covers the sources, headers and flags."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in sorted(sources(name)):
+        h.update(path.name.encode() + b"\0" + path.read_bytes())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(names: Iterable[str]) -> float:

@@ -35,9 +35,11 @@ from avmoe_tpu_torch.ops.swin import WindowAttentionV1, WindowAttentionV2
 
 class AVEModel(nn.Module):
     def __init__(self, cfg: AVEConfig, dtype: torch.dtype = torch.float32,
-                 device="cuda", seed: Optional[int] = 0):
+                 device="cuda", seed: Optional[int] = 0, block_chains: bool = False):
         """Build on `device` (default the card; raises if it is absent) and,
-        unless seed is None, initialize the parameters from `seed`."""
+        unless seed is None, initialize the parameters from `seed`.
+        `block_chains` runs the backbones' blocks through K3 chains
+        (`moe/injection.py`)."""
         super().__init__()
         dev = resolve_device(device)
         if not cfg.is_cmbs or not cfg.is_temporal_att:
@@ -45,7 +47,7 @@ class AVEModel(nn.Module):
         self.cfg = cfg
         with torch.device(dev):
             self.encoder = LockstepEncoder(cfg.swin, cfg.htsat, cfg.moe, cfg.injection,
-                                           dtype=dtype)
+                                           dtype=dtype, block_chains=block_chains)
             self.temporal_attn = TemporalAttention(
                 video_input_dim=cfg.swin.num_features,
                 audio_input_dim=cfg.htsat.num_features, d_model=cfg.d_model)

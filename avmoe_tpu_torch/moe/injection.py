@@ -7,6 +7,16 @@ Where the visual stage is deeper, audio block k rides visual block
 r*k + (r-1). At each site the p1 adapters read the pre-block features of
 both modalities; the visual block splits at its attention/MLP seam while
 the audio block runs whole between the p1 and p2 adapters.
+
+`plan_stages` is the static walk both paths take: per stage, runs of whole
+adapter-free blocks and the adapter sites between them. With
+`block_chains=True` (the JAX package's fused-blocks configuration,
+experiments/pallas/fused_block.py) every run goes through K3 chains
+(`kernels/block_chain.py`, one chain per maximal same-(window, shift) run),
+each site's visual attention sub-block is a K=1 'attn' chain and its audio
+block a K=1 'full' chain; the visual MLP sub-block stays on K2.
+`chain_calls` and `kernel_launches` give the K3 calls and the launches per
+forward from the configs alone.
 """
 
 from __future__ import annotations
@@ -18,10 +28,11 @@ from typing import Dict, List, Optional, Tuple
 import torch
 from torch import nn
 
-from avmoe_tpu_torch.backbones.geometry import stage_boundaries, swin_stage_specs
+from avmoe_tpu_torch.backbones.geometry import BlockSpec, stage_boundaries, swin_stage_specs
 from avmoe_tpu_torch.backbones.htsat import HTSATEncoder
 from avmoe_tpu_torch.backbones.swin_v2 import SwinV2Encoder
 from avmoe_tpu_torch.config import HTSATConfig, InjectionConfig, MoEConfig, SwinV2Config
+from avmoe_tpu_torch.kernels.block_chain import ChainGeom, chain_groups, run_chain
 from avmoe_tpu_torch.moe.adapter import MoEAdapter
 
 
@@ -51,45 +62,139 @@ def pair_stage_blocks(n_vis: int, n_aud: int) -> List[Tuple[int, Optional[int]]]
 
 def plan_injection(swin_cfg: SwinV2Config, htsat_cfg: HTSATConfig,
                    inj: InjectionConfig) -> List[AdapterSite]:
-    """Static injection plan."""
-    v_specs = swin_stage_specs(swin_cfg.embed_dim, swin_cfg.depths, swin_cfg.num_heads,
-                               swin_cfg.patches_resolution, swin_cfg.window_size)
-    a_specs = swin_stage_specs(htsat_cfg.embed_dim, htsat_cfg.depths, htsat_cfg.num_heads,
-                               htsat_cfg.patches_resolution, htsat_cfg.window_size)
+    """Static injection plan: the sites of `plan_stages`, with their widths."""
+    specs = _specs(swin_cfg, htsat_cfg)
+    sites: List[AdapterSite] = []
+    for stage, steps in enumerate(plan_stages(swin_cfg, htsat_cfg, inj)):
+        for st in steps:
+            if st.kind != "site":
+                continue
+            vs, as_ = specs["swin"][st.vis[0]], specs["htsat"][st.aud[0]]
+            sites.append(AdapterSite(
+                site_index=st.site, stage=stage, vis_block=st.vis[0], aud_block=st.aud[0],
+                vis_dim=vs.dim, aud_dim=as_.dim, vis_tokens=vs.num_tokens,
+                aud_tokens=as_.num_tokens))
+    return sites
+
+
+@dataclass(frozen=True)
+class Step:
+    """One step of a stage: whole adapter-free blocks of each backbone
+    (kind 'run'), or one adapter site (kind 'site', one block of each)."""
+
+    kind: str
+    vis: Tuple[int, ...]          # flat Swin-V2 block indices
+    aud: Tuple[int, ...]          # flat HTS-AT block indices
+    site: int = -1
+
+
+def plan_stages(swin_cfg: SwinV2Config, htsat_cfg: HTSATConfig,
+                inj: InjectionConfig) -> List[List[Step]]:
+    """Per stage, the runs of adapter-free blocks and the sites, in order."""
     v_ranges = stage_boundaries(swin_cfg.depths)
     a_ranges = stage_boundaries(htsat_cfg.depths)
-    sites: List[AdapterSite] = []
+    stages: List[List[Step]] = []
+    site = 0
     for stage in range(len(swin_cfg.depths)):
-        if inj.num_skip > 1 and (stage + 1) % inj.num_skip == 0:
-            continue
-        vlo, vhi = v_ranges[stage]
-        alo, ahi = a_ranges[stage]
+        skipped = inj.num_skip > 1 and (stage + 1) % inj.num_skip == 0
+        (vlo, vhi), (alo, ahi) = v_ranges[stage], a_ranges[stage]
+        steps: List[Step] = []
+        vis: List[int] = []
+        aud: List[int] = []
         for v_off, a_off in pair_stage_blocks(vhi - vlo, ahi - alo):
-            if a_off is None:
+            if a_off is None or skipped:
+                vis.append(vlo + v_off)
+                if a_off is not None:
+                    aud.append(alo + a_off)
                 continue
-            vs, as_ = v_specs[vlo + v_off], a_specs[alo + a_off]
-            sites.append(AdapterSite(
-                site_index=len(sites), stage=stage, vis_block=vlo + v_off,
-                aud_block=alo + a_off, vis_dim=vs.dim, aud_dim=as_.dim,
-                vis_tokens=vs.num_tokens, aud_tokens=as_.num_tokens))
-    return sites
+            if vis or aud:
+                steps.append(Step("run", tuple(vis), tuple(aud)))
+                vis, aud = [], []
+            steps.append(Step("site", (vlo + v_off,), (alo + a_off,), site))
+            site += 1
+        if vis or aud:
+            steps.append(Step("run", tuple(vis), tuple(aud)))
+        stages.append(steps)
+    return stages
+
+
+def _specs(swin_cfg: SwinV2Config, htsat_cfg: HTSATConfig) -> Dict[str, List[BlockSpec]]:
+    return {"swin": swin_stage_specs(swin_cfg.embed_dim, swin_cfg.depths, swin_cfg.num_heads,
+                                     swin_cfg.patches_resolution, swin_cfg.window_size),
+            "htsat": swin_stage_specs(htsat_cfg.embed_dim, htsat_cfg.depths,
+                                      htsat_cfg.num_heads, htsat_cfg.patches_resolution,
+                                      htsat_cfg.window_size)}
+
+
+@dataclass(frozen=True)
+class ChainCall:
+    """One K3 launch of the chain path: a backbone's blocks and their geometry."""
+
+    backbone: str                 # 'swin' | 'htsat'
+    stage: int
+    blocks: Tuple[int, ...]
+    geom: ChainGeom
+
+
+def chain_calls(swin_cfg: SwinV2Config, htsat_cfg: HTSATConfig,
+                inj: InjectionConfig) -> List[ChainCall]:
+    """The K3 calls of one chain-path forward, in order, from the configs alone."""
+    specs = _specs(swin_cfg, htsat_cfg)
+    meta = {"swin": ("v2", swin_cfg.mlp_ratio), "htsat": ("v1", htsat_cfg.mlp_ratio)}
+    calls: List[ChainCall] = []
+
+    def add(backbone: str, stage: int, idx: Tuple[int, ...], part: str) -> None:
+        version, ratio = meta[backbone]
+        spec = specs[backbone]
+        for grp in chain_groups(list(idx), key=lambda i: spec[i].window_shift):
+            s0 = spec[grp[0]]
+            geom = ChainGeom(version=version, H=s0.resolution[0], W=s0.resolution[1],
+                             C=s0.dim, num_heads=s0.num_heads, window=s0.window_shift[0],
+                             shifts=tuple(spec[i].window_shift[1] for i in grp),
+                             mlp_hidden=int(s0.dim * ratio), part=part)
+            calls.append(ChainCall(backbone, stage, tuple(grp), geom))
+
+    for stage, steps in enumerate(plan_stages(swin_cfg, htsat_cfg, inj)):
+        for st in steps:
+            if st.kind == "run":
+                add("swin", stage, st.vis, "full")
+                add("htsat", stage, st.aud, "full")
+            else:
+                add("swin", stage, st.vis, "attn")
+                add("htsat", stage, st.aud, "full")
+    return calls
+
+
+def kernel_launches(swin_cfg: SwinV2Config, htsat_cfg: HTSATConfig, inj: InjectionConfig,
+                    block_chains: bool) -> Dict[str, int]:
+    """Launches of K1 (window attention), K2 (MLP block) and K3 (block chain)
+    per forward."""
+    blocks = sum(swin_cfg.depths) + sum(htsat_cfg.depths)
+    if not block_chains:
+        return {"K1": blocks, "K2": blocks, "K3": 0}
+    sites = len(plan_injection(swin_cfg, htsat_cfg, inj))
+    return {"K1": 0, "K2": sites, "K3": len(chain_calls(swin_cfg, htsat_cfg, inj))}
 
 
 class LockstepEncoder(nn.Module):
     """Dual-backbone lock-step encoder with per-site MoE adapters.
 
     forward(wave (B', L), images (B', H, W, 3)) -> (f_v (B', C_v),
-    f_a (B', C_a), telemetry); B' = clips * segments.
+    f_a (B', C_a), telemetry); B' = clips * segments. `block_chains` runs
+    the blocks through K3 chains (see the module docstring).
     """
 
     def __init__(self, swin_cfg: SwinV2Config, htsat_cfg: HTSATConfig, moe_cfg: MoEConfig,
-                 injection_cfg: InjectionConfig, dtype: torch.dtype = torch.float32):
+                 injection_cfg: InjectionConfig, dtype: torch.dtype = torch.float32,
+                 block_chains: bool = False):
         super().__init__()
         self.swin_cfg, self.htsat_cfg = swin_cfg, htsat_cfg
         self.moe_cfg, self.injection_cfg = moe_cfg, injection_cfg
+        self.block_chains = block_chains
         self.swin = SwinV2Encoder(swin_cfg, dtype=dtype)
         self.htsat = HTSATEncoder(htsat_cfg, dtype=dtype)
         self.sites = plan_injection(swin_cfg, htsat_cfg, injection_cfg)
+        self.plan = plan_stages(swin_cfg, htsat_cfg, injection_cfg)
         self.adapters: Dict[str, List[MoEAdapter]] = {}
         inj = injection_cfg
         kinds = []
@@ -138,31 +243,31 @@ class LockstepEncoder(nn.Module):
                 lb_losses.append(aux["lb_loss"])
             return out, aux["gating_probs"]
 
-        site = 0
-        for stage in range(len(self.swin_cfg.depths)):
-            vlo, vhi = swin.stage_ranges[stage]
-            alo, ahi = htsat.stage_ranges[stage]
-            skipped = inj.num_skip > 1 and (stage + 1) % inj.num_skip == 0
-            for v_off, a_off in pair_stage_blocks(vhi - vlo, ahi - alo):
-                blk_v = swin.blocks[vlo + v_off]
-                if a_off is None:
-                    f_v = blk_v(f_v)
+        def blocks(mods, idx, x, part="full"):
+            mods = [mods[i] for i in idx]
+            if self.block_chains and mods:
+                return run_chain(mods, x, part)
+            for b in mods:
+                x = b.attn_state(x) if part == "attn" else b(x)
+            return x
+
+        for stage, steps in enumerate(self.plan):
+            for st in steps:
+                if st.kind == "run":
+                    f_v = blocks(swin.blocks, st.vis, f_v)
+                    f_a = blocks(htsat.blocks, st.aud, f_a)
                     continue
-                blk_a = htsat.blocks[alo + a_off]
-                if skipped:
-                    f_v = blk_v(f_v)
-                    f_a = blk_a(f_a)
-                    continue
+                site = st.site
                 # p1: adapters on the pre-block features
                 if inj.audio_adapter_p1:
                     f_a_res, p = run("audio_moe_p1", site, f_a, f_v)
                     tele["audio_p1"].append(p)
                     f_v_res, p = run("vis_moe_p1", site, f_v, f_a)
                     tele["video_p1"].append(p)
-                f_v = blk_v.attn_state(f_v)
+                f_v = blocks(swin.blocks, st.vis, f_v, "attn")
                 if inj.audio_adapter_p1:
                     f_v = f_v + f_v_res
-                f_a = blk_a(f_a)  # whole audio block between the seams
+                f_a = blocks(htsat.blocks, st.aud, f_a)  # whole audio block between the seams
                 if inj.audio_adapter_p1:
                     f_a = f_a + f_a_res
                 # p2: adapters around the visual MLP sub-block
@@ -171,11 +276,10 @@ class LockstepEncoder(nn.Module):
                     tele["audio_p2"].append(p)
                     f_v_res2, p = run("vis_moe_p2", site, f_v, f_a)
                     tele["video_p2"].append(p)
-                f_v = blk_v.mlp_state(f_v)
+                f_v = swin.blocks[st.vis[0]].mlp_state(f_v)
                 if inj.audio_adapter_p2:
                     f_v = f_v + f_v_res2
                     f_a = f_a + f_a_res2
-                site += 1
             if stage < len(swin.downsamples):
                 f_v = swin.downsamples[stage](f_v)
             if stage < len(htsat.downsamples):

@@ -23,6 +23,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from avmoe_tpu_torch.backbones.geometry import effective_window
 from avmoe_tpu_torch.kernels.mlp_block import mlp_block
 from avmoe_tpu_torch.kernels.window_attention import window_attention
 from avmoe_tpu_torch.ops.norm import LayerNorm
@@ -339,11 +340,7 @@ class SwinBlock(nn.Module):
                              persistent=False)
 
     def _geometry(self) -> Tuple[int, int]:
-        window, shift = self.window_size, self.shift_size
-        if min(self.input_resolution) <= window:
-            window = min(self.input_resolution)
-            shift = 0
-        return window, shift
+        return effective_window(self.input_resolution, self.window_size, self.shift_size)
 
     def _windowed_attn(self, x: torch.Tensor) -> torch.Tensor:
         H, W = self.input_resolution

@@ -3,26 +3,35 @@
     python3 chip_smoke.py
 
 Runs from the root of a checkout, needs one card and no network, and imports
-nothing of JAX. Phases (any failed check raises, and the script exits
-non-zero without printing the result line):
+nothing of JAX. It drives two paths of the AVE eval forward: the default
+path (K1 window attention + K2 MLP block in every Swin block) and the chain
+path, `AVEModel(cfg, block_chains=True)` (K3 block chains, K2 at the adapter
+seams). Phases (any failed check raises, and the script exits non-zero
+without printing the result line):
 
   1. card: nvidia-smi name and power limit, torch / CUDA versions;
-  2. build: both CUDA sources with nvcc (one process each, in parallel);
+  2. build: the three CUDA sources with nvcc (one process each, in parallel);
   3. window-attention kernel vs its plain version at every main-path shape,
      float32 (rtol 1e-4, atol 1e-5) and bfloat16 (|d| <= 2e-2 (1 + |ref|)
      against the float32 plain version of the same bf16 inputs);
   4. MLP-block kernel vs its plain version, the same way (TF32 off);
-  5. tiny AVE model in float32: card (kernels) vs CPU (plain versions) on the
-     same weights, rtol 1e-3, atol 1e-4;
-  6. full AVEConfig() in bfloat16 at batch 4 and 1 clips, seeded weights with
-     non-zero gates: output shapes, finiteness, gating probs summing to 1,
-     36 + 36 kernel launches per forward, cosine >= 0.99 of the logits
-     against a float32 forward of the same weights;
-  7. times (reported, not claimed): eval clips/s at batch 4, batch-1 p50,
-     and per kernel and shape the kernel, plain-version and bound times
-     (and for window attention the time of scaled_dot_product_attention);
-  8. profile: device time per batch-4 forward by kernel (torch.profiler)
-     and the device's idle share of the forward's wall time.
+  5. block-chain kernel vs its plain version at every chain geometry of the
+     chain path (seeded blocks), float32 (|d| <= 1e-4 + 1e-4 |ref|) and
+     bfloat16 (|d| <= K3_BF16_TOL (1 + |ref|) against the float32 plain
+     version of the same bf16 inputs);
+  6. tiny AVE model in float32, both paths: card (kernels) vs CPU (plain
+     versions) on the same weights, rtol 1e-3, atol 1e-4;
+  7. full AVEConfig() in bfloat16 at batch 4 and 1 clips, both paths, seeded
+     weights with non-zero gates: output shapes, finiteness, gating probs
+     summing to 1, K1 / K2 / K3 launches per forward as the injection plan
+     gives them, cosine >= 0.99 of the logits against a float32 forward of
+     the same path and weights, and of the chain path against the default;
+  8. times (reported, not claimed): per path eval clips/s at batch 4 and
+     batch-1 p50; per kernel and shape the kernel, plain-version and bound
+     times (and for window attention the time of
+     scaled_dot_product_attention);
+  9. profile, per path: device time per batch-4 forward by kernel
+     (torch.profiler) and the device's idle share of the forward's wall time.
 
 The line before the last is a JSON object with the per-kernel summary; the
 last line is {"ok": true, "device": {...}}.
@@ -43,6 +52,13 @@ import torch.nn.functional as F
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM, NVIDIA data sheet
 BF16_FLOPS = 989e12              # dense bf16 tensor-core peak
 BATCH = 4                        # clips; B' = BATCH * 10 frames
+# bf16 K3 vs the float32 plain version of the same bf16 inputs. A K=2 chain
+# rounds the inputs of 8 tensor-core products to bf16 (the qkv, proj, fc1
+# and fc2 A operands of each block), and the V2 post-norm rescales every
+# sub-block's output to unit size, so K3 lands above the 2e-2 of K1 and K2
+# at the Swin-V2 stage-2/3 chains, though it rounds less than the Pallas
+# body does (measured errors in PERF.md)
+K3_BF16_TOL = 4e-2
 
 
 def log(*a):
@@ -131,7 +147,7 @@ def phase_card():
 def phase_build():
     from avmoe_tpu_torch.kernels import _build
 
-    secs = _build.build(["window_attention", "mlp_block"])
+    secs = _build.build(["window_attention", "mlp_block", "block_chain"])
     regs = []
     for name, text in sorted(_build.BUILD_LOGS.items()):
         regs += [f"{name}: {ln.split(':', 1)[1].strip()}" for ln in text.splitlines()
@@ -210,6 +226,97 @@ def phase_k2(gen):
     return max_err, tot
 
 
+def k3_shapes():
+    """(geom, calls per forward) for every chain geometry of the chain path."""
+    from avmoe_tpu_torch.config import AVEConfig
+    from avmoe_tpu_torch.moe.injection import chain_calls
+
+    cfg = AVEConfig()
+    rows = {}
+    for c in chain_calls(cfg.swin, cfg.htsat, cfg.injection):
+        rows[c.geom] = rows.get(c.geom, 0) + 1
+    return list(rows.items())
+
+
+def _chain_blocks(geom, gen):
+    """Seeded SwinBlocks of one chain geometry on the card (biases and norms noised)."""
+    from avmoe_tpu_torch.models.ave import init_parameters
+    from avmoe_tpu_torch.ops.swin import SwinBlock
+
+    blocks = torch.nn.ModuleList(
+        SwinBlock(geom.C, (geom.H, geom.W), geom.num_heads, geom.window, shift,
+                  version=geom.version, mlp_ratio=geom.mlp_hidden / geom.C,
+                  pretrained_window=geom.window if geom.version == "v2" else 0)
+        for shift in geom.shifts).to("cuda")
+    init_parameters(blocks, gen)
+    with torch.no_grad():
+        for p in blocks.parameters():
+            if p.dim() == 1:
+                p.add_(0.1 * torch.randn(p.shape, generator=gen, device="cuda"))
+    return list(blocks)
+
+
+def k3_cost(geom, G: int):
+    """(bytes, operations) of one chain call: the stream read and written
+    once in bf16, the weights its part reads (bf16) with the float32 bias
+    table and, when shifted, mask; fused_block.py:289-302's count."""
+    C, N, K, Hd, nH = geom.C, geom.N, geom.K, geom.mlp_hidden, geom.num_heads
+    full = geom.part == "full"
+    ops = 2 * G * N * (4 * C * C + (2 * C * Hd if full else 0)) * K + 4 * G * N * N * C * K
+    w = (4 * C * C + 4 * C + (2 * C * Hd + Hd + 3 * C if full else 0)) * 2 + nH * N * N * 4
+    nbytes = 2 * G * N * C * 2 + K * w + (geom.nW * N * N * 4 if geom.shifts[0] else 0)
+    return nbytes, ops
+
+
+def phase_k3(gen):
+    from avmoe_tpu_torch.kernels.block_chain import block_chain, block_chain_plain, stack_chain
+    from avmoe_tpu_torch.ops.swin import partition_windows
+
+    frames = BATCH * 10
+    max_err = 0.0
+    failed = []
+    tot = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, bytes=0.0, ops=0.0)
+    for geom, calls in k3_shapes():
+        G = frames * geom.nW
+        blocks = _chain_blocks(geom, gen)
+        x = torch.randn(frames, geom.H * geom.W, geom.C, device="cuda", generator=gen)
+        xw = partition_windows(x, geom.H, geom.W, geom.window, geom.shifts[0]).contiguous()
+        shape = (geom.version, geom.part, f"K={geom.K}", f"G={G}", f"N={geom.N}",
+                 f"C={geom.C}", f"shift={geom.shifts[0]}")
+        ops32, _ = stack_chain(blocks, geom.part, torch.float32)
+        ref32 = block_chain_plain(xw, ops32, geom)
+        d32 = (block_chain.windows(xw, ops32, geom) - ref32).abs()
+        if not bool((d32 <= 1e-4 + 1e-4 * ref32.abs()).all()):
+            failed.append(f"K3 f32 {shape}: max |d| {d32.max().item():.3e}")
+        ops, _ = stack_chain(blocks, geom.part, torch.bfloat16)
+        x16 = xw.bfloat16()
+        ref = block_chain_plain(x16.float(), {k: v.float() for k, v in ops.items()}, geom)
+        out = block_chain.windows(x16, ops, geom)
+        d = (out.float() - ref).abs()
+        rel = (d / (1.0 + ref.abs())).max().item()
+        # the plain version in bf16 rounds where the Pallas body rounds
+        rel_plain = ((block_chain_plain(x16, ops, geom).float() - ref).abs()
+                     / (1.0 + ref.abs())).max().item()
+        err = d.max().item()
+        if not (rel <= K3_BF16_TOL and math.isfinite(err)):
+            failed.append(f"K3 bf16 {shape}: max |d| / (1 + |ref|) {rel:.3e} > {K3_BF16_TOL}")
+        max_err = max(max_err, err)
+        ms = time_ms(lambda: block_chain.windows(x16, ops, geom))
+        plain_ms = time_ms(lambda: block_chain_plain(x16, ops, geom))
+        nbytes, nops = k3_cost(geom, G)
+        b_ms, b_by = bound(nbytes, nops, BF16_FLOPS)
+        log(f"[K3] {' '.join(shape)} x{calls}/fwd  bf16 {ms:.4f} ms  plain {plain_ms:.4f} ms  "
+            f"bound {b_ms:.4f} ms ({b_by})  max |d| {err:.2e}, /(1+|ref|) {rel:.2e} "
+            f"(plain bf16 {rel_plain:.2e})")
+        for key, val in (("ms", ms), ("plain_ms", plain_ms), ("bound_ms", b_ms),
+                         ("bytes", nbytes), ("ops", nops)):
+            tot[key] += calls * val
+        del blocks, ops, ops32, x, xw, x16, ref, ref32, out, d, d32
+        torch.cuda.empty_cache()
+    check(not failed, "K3 kernel disagrees with its plain version:\n" + "\n".join(failed))
+    return max_err, tot
+
+
 def _nonzero_gates_(model, seed: int) -> None:
     """Adapter gates (zero at init) and BN running stats made non-trivial."""
     g = torch.Generator(device="cpu")
@@ -242,28 +349,36 @@ def _inputs(cfg, clips: int, seed: int, device):
 
 def phase_tiny():
     from avmoe_tpu_torch.config import tiny_ave_config
+    from avmoe_tpu_torch.kernels.block_chain import block_chain
     from avmoe_tpu_torch.models.ave import AVEModel
 
     cfg = tiny_ave_config()
     cpu = AVEModel(cfg, device="cpu", seed=0)
     _nonzero_gates_(cpu, 1)
-    gpu = AVEModel(cfg, device="cuda", seed=None)
-    gpu.load_state_dict(cpu.state_dict())
     wave, imgs = _inputs(cfg, 2, 2, "cpu")
-    ref = cpu(wave, imgs)
-    out = gpu(wave.cuda(), imgs.cuda())
-    torch.cuda.synchronize()
-    worst = 0.0
-    for key in ("is_event_logits", "event_logits", "av_score"):
-        a, b = out[key].cpu(), ref[key]
-        worst = max(worst, (a - b).abs().max().item())
-        check(torch.allclose(a, b, rtol=1e-3, atol=1e-4), f"tiny {key}: card vs CPU "
-              f"max |d| {(a - b).abs().max().item():.3e}")
-    for key in ("audio_p1", "audio_p2", "video_p1", "video_p2"):
-        a, b = out["telemetry"][key].cpu(), ref["telemetry"][key]
-        check(torch.allclose(a, b, rtol=1e-3, atol=1e-4), f"tiny gating {key}: card vs CPU")
-    log(f"[tiny] AVE fp32 card (kernels) vs CPU (plain): max |d| {worst:.3e} "
-        f"(rtol 1e-3, atol 1e-4)")
+    for chains in (False, True):
+        label = "chain path" if chains else "default path"
+        cpu.encoder.block_chains = chains
+        ref = cpu(wave, imgs)
+        gpu = AVEModel(cfg, device="cuda", seed=None, block_chains=chains)
+        gpu.load_state_dict(cpu.state_dict())
+        block_chain.launches = 0
+        out = gpu(wave.cuda(), imgs.cuda())
+        torch.cuda.synchronize()
+        check((block_chain.launches > 0) == chains, f"tiny {label}: K3 launches "
+              f"{block_chain.launches}")
+        worst = 0.0
+        for key in ("is_event_logits", "event_logits", "av_score"):
+            a, b = out[key].cpu(), ref[key]
+            worst = max(worst, (a - b).abs().max().item())
+            check(torch.allclose(a, b, rtol=1e-3, atol=1e-4), f"tiny {label} {key}: card vs "
+                  f"CPU max |d| {(a - b).abs().max().item():.3e}")
+        for key in ("audio_p1", "audio_p2", "video_p1", "video_p2"):
+            a, b = out["telemetry"][key].cpu(), ref["telemetry"][key]
+            check(torch.allclose(a, b, rtol=1e-3, atol=1e-4),
+                  f"tiny {label} gating {key}: card vs CPU")
+        log(f"[tiny] AVE fp32 {label}, card (kernels) vs CPU (plain): max |d| {worst:.3e} "
+            f"(rtol 1e-3, atol 1e-4)")
 
 
 def _logits(out) -> torch.Tensor:
@@ -271,54 +386,46 @@ def _logits(out) -> torch.Tensor:
                       out["event_logits"].float().flatten()])
 
 
-def phase_full():
-    from avmoe_tpu_torch.config import AVEConfig
+def _counters():
+    from avmoe_tpu_torch.kernels.block_chain import block_chain
     from avmoe_tpu_torch.kernels.mlp_block import mlp_block
     from avmoe_tpu_torch.kernels.window_attention import window_attention
-    from avmoe_tpu_torch.models.ave import AVEModel
 
-    cfg = AVEConfig()
-    t0 = time.perf_counter()
-    model = AVEModel(cfg, dtype=torch.bfloat16, device="cuda", seed=0)
-    _nonzero_gates_(model, 1)
-    torch.cuda.synchronize()
-    n_params = sum(p.numel() for p in model.parameters())
-    log(f"[full] AVEConfig() bf16 built in {time.perf_counter() - t0:.1f} s, "
-        f"{n_params} parameters")
-    wave, imgs = _inputs(cfg, BATCH, 3, "cuda")
+    return {"K1": window_attention, "K2": mlp_block, "K3": block_chain}
 
-    results = {}
+
+def _drive(model, label: str, want, wave, imgs):
+    """Batch BATCH and 1 through `model`, each with the kernels' counts set to
+    0 just before and read just after: launches per forward as the injection
+    plan gives them, output shapes, finiteness, gating sums."""
+    counters = _counters()
+    outs = {}
     for clips in (BATCH, 1):
-        w, i = wave[:clips], imgs[:clips]
-        window_attention.launches = 0
-        mlp_block.launches = 0
-        out = model(w, i)
+        for c in counters.values():
+            c.launches = 0
+        out = model(wave[:clips], imgs[:clips])
         torch.cuda.synchronize()
-        k1, k2 = window_attention.launches, mlp_block.launches
-        check(k1 == 36 and k2 == 36, f"launches per forward: K1 {k1}, K2 {k2} (want 36, 36)")
+        got = {k: c.launches for k, c in counters.items()}
+        check(got == want, f"{label} batch {clips}: launches per forward {got}, want {want}")
         check(tuple(out["is_event_logits"].shape) == (clips, 10)
               and tuple(out["event_logits"].shape) == (clips, 28)
-              and tuple(out["av_score"].shape) == (clips, 28), "output shapes")
+              and tuple(out["av_score"].shape) == (clips, 28), f"{label}: output shapes")
         for key in ("is_event_logits", "event_logits", "av_score"):
-            check(bool(torch.isfinite(out[key]).all()), f"{key} not finite")
+            check(bool(torch.isfinite(out[key]).all()), f"{label}: {key} not finite")
         for key in ("audio_p1", "audio_p2", "video_p1", "video_p2"):
             p = out["telemetry"][key]
-            check(tuple(p.shape) == (8, clips * 10, 2), f"{key} shape {tuple(p.shape)}")
-            check(bool(((p.sum(-1) - 1.0).abs() <= 1e-3).all()), f"{key} probs do not sum to 1")
-        results[clips] = (out, k1, k2)
-        log(f"[full] batch {clips}: shapes ok, finite, gating sums ok, launches K1 {k1} K2 {k2}")
+            check(tuple(p.shape) == (8, clips * 10, 2), f"{label}: {key} shape {tuple(p.shape)}")
+            check(bool(((p.sum(-1) - 1.0).abs() <= 1e-3).all()),
+                  f"{label}: {key} probs do not sum to 1")
+        outs[clips] = out
+        log(f"[full] {label} batch {clips}: shapes ok, finite, gating sums ok, launches "
+            + " ".join(f"{k} {v}" for k, v in got.items()))
+    return outs, got
 
-    f32 = AVEModel(cfg, dtype=torch.float32, device="cuda", seed=None)
-    f32.load_state_dict(model.state_dict())
-    ref = f32(wave, imgs)
-    torch.cuda.synchronize()
-    cos = F.cosine_similarity(_logits(results[BATCH][0]), _logits(ref), dim=0).item()
-    check(cos >= 0.99, f"bf16 vs fp32 logits cosine {cos:.5f} < 0.99")
-    log(f"[full] bf16 vs fp32 logits cosine {cos:.6f} (>= 0.99)")
-    del f32, ref
-    torch.cuda.empty_cache()
 
-    # times: batch-4 throughput (3 warm-ups, 20 iterations) and batch-1 p50
+def _times(model, label: str, wave, imgs) -> float:
+    """Batch-4 throughput (3 warm-ups, 20 iterations) and batch-1 p50."""
+    torch.cuda.reset_peak_memory_stats()
     for _ in range(3):
         model(wave, imgs)
     torch.cuda.synchronize()
@@ -327,7 +434,6 @@ def phase_full():
         model(wave, imgs)
     torch.cuda.synchronize()
     fwd_s = (time.perf_counter() - t0) / 20
-    clips_per_s = BATCH / fwd_s
     w1, i1 = wave[:1], imgs[:1]
     for _ in range(3):
         model(w1, i1)
@@ -339,14 +445,58 @@ def phase_full():
         torch.cuda.synchronize()
         lat.append(time.perf_counter() - t1)
     p50 = float(np.percentile(lat, 50)) * 1e3
-    log(f"[time] eval batch {BATCH}: {fwd_s * 1e3:.2f} ms/forward, {clips_per_s:.3f} clips/s; "
-        f"batch-1 p50 {p50:.2f} ms; peak memory "
+    log(f"[time] {label} eval batch {BATCH}: {fwd_s * 1e3:.2f} ms/forward, "
+        f"{BATCH / fwd_s:.3f} clips/s; batch-1 p50 {p50:.2f} ms; peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    phase_profile(model, wave, imgs, fwd_s * 1e3)
-    return results[BATCH][1], results[BATCH][2], fwd_s * 1e3
+    return fwd_s * 1e3
 
 
-def phase_profile(model, wave, imgs, fwd_ms: float, iters: int = 3) -> None:
+def phase_full():
+    from avmoe_tpu_torch.config import AVEConfig
+    from avmoe_tpu_torch.models.ave import AVEModel
+    from avmoe_tpu_torch.moe.injection import kernel_launches
+
+    cfg = AVEConfig()
+    t0 = time.perf_counter()
+    model = AVEModel(cfg, dtype=torch.bfloat16, device="cuda", seed=0)
+    _nonzero_gates_(model, 1)
+    chain = AVEModel(cfg, dtype=torch.bfloat16, device="cuda", seed=None, block_chains=True)
+    chain.load_state_dict(model.state_dict())
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"[full] AVEConfig() bf16 built in {time.perf_counter() - t0:.1f} s (both paths), "
+        f"{n_params} parameters")
+    wave, imgs = _inputs(cfg, BATCH, 3, "cuda")
+    paths = {"default path": model, "chain path": chain}
+    outs, launches = {}, {}
+    for label, m in paths.items():
+        want = kernel_launches(cfg.swin, cfg.htsat, cfg.injection, m.encoder.block_chains)
+        outs[label], launches[label] = _drive(m, label, want, wave, imgs)
+
+    f32 = AVEModel(cfg, dtype=torch.float32, device="cuda", seed=None)
+    f32.load_state_dict(model.state_dict())
+    for label, m in paths.items():
+        f32.encoder.block_chains = m.encoder.block_chains
+        ref = f32(wave, imgs)
+        torch.cuda.synchronize()
+        cos = F.cosine_similarity(_logits(outs[label][BATCH]), _logits(ref), dim=0).item()
+        check(cos >= 0.99, f"{label}: bf16 vs fp32 logits cosine {cos:.5f} < 0.99")
+        log(f"[full] {label}: bf16 vs fp32 logits cosine {cos:.6f} (>= 0.99)")
+    del f32, ref
+    torch.cuda.empty_cache()
+    cos = F.cosine_similarity(_logits(outs["chain path"][BATCH]),
+                              _logits(outs["default path"][BATCH]), dim=0).item()
+    check(cos >= 0.99, f"bf16 chain path vs default path logits cosine {cos:.5f} < 0.99")
+    log(f"[full] bf16 chain path vs default path logits cosine {cos:.6f} (>= 0.99)")
+
+    fwd_ms = {}
+    for label, m in paths.items():
+        fwd_ms[label] = _times(m, label, wave, imgs)
+        phase_profile(m, label, wave, imgs, fwd_ms[label])
+    return launches, fwd_ms
+
+
+def phase_profile(model, label: str, wave, imgs, fwd_ms: float, iters: int = 3) -> None:
     """Device time per forward by kernel (torch.profiler), and the share of
     the forward's wall time in which the device was idle."""
     from torch.profiler import ProfilerActivity, profile
@@ -368,26 +518,37 @@ def phase_profile(model, wave, imgs, fwd_ms: float, iters: int = 3) -> None:
             by_name[e.key] = by_name.get(e.key, 0.0) + us / 1e3 / iters
     busy = sum(by_name.values())
     if busy == 0:
-        log("[profile] device time not measured (the profiler saw no CUDA kernels)")
+        log(f"[profile] {label}: device time not measured (the profiler saw no CUDA kernels)")
         return
     # first matching group wins
-    rules = (("K1 window_attention", ("window_attention_kernel",)),
+    rules = (("K3 block_chain", ("block_chain_kernel",)),
+             ("K1 window_attention", ("window_attention_kernel",)),
              ("K2 mlp_block", ("gemm_nt_", "rows_kernel")),
              ("library GEMM", ("gemm", "xmma", "cutlass", "sm90_")),
              ("softmax/reductions", ("softmax", "reduce")),
              ("copies/casts", ("copy", "Memcpy", "Memset", "cat")),
              ("elementwise", ("elementwise",)))
-    groups = {label: 0.0 for label, _ in rules}
+    groups = {group: 0.0 for group, _ in rules}
     groups["other"] = 0.0
     for name, ms in by_name.items():
-        label = next((lb for lb, keys in rules if any(k in name for k in keys)), "other")
-        groups[label] += ms
-    log(f"[profile] batch {BATCH}: device busy {busy:.2f} ms of {fwd_ms:.2f} ms wall per "
+        group = next((g for g, keys in rules if any(k in name for k in keys)), "other")
+        groups[group] += ms
+    log(f"[profile] {label} batch {BATCH}: device busy {busy:.2f} ms of {fwd_ms:.2f} ms wall per "
         f"forward (idle share {max(0.0, 1.0 - busy / fwd_ms):.3f}); "
         + ", ".join(f"{k} {v:.2f} ms" for k, v in groups.items()))
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
     for name, ms in top:
-        log(f"[profile]   {ms:8.3f} ms  {100 * ms / busy:5.1f}%  {name[:110]}")
+        log(f"[profile] {label}  {ms:8.3f} ms  {100 * ms / busy:5.1f}%  {name[:100]}")
+
+
+def _kernel_entry(name: str, source: str, replaces: str, launches: int, err: float, tot,
+                  library_ms):
+    return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": launches, "max_abs_err": err, "ms": tot["ms"],
+            "plain_ms": tot["plain_ms"], "bound_ms": tot["bound_ms"],
+            "bound_by": "bytes" if tot["bytes"] / HBM_BYTES_PER_S
+            >= tot["ops"] / BF16_FLOPS else "operations",
+            "library_ms": library_ms}
 
 
 def main():
@@ -397,28 +558,25 @@ def main():
     gen.manual_seed(0)
     k1_err, k1_tot = phase_k1(gen)
     k2_err, k2_tot = phase_k2(gen)
+    k3_err, k3_tot = phase_k3(gen)
     phase_tiny()
-    k1_launches, k2_launches, fwd_ms = phase_full()
-    log(f"[time] per batch-{BATCH} forward: K1 {k1_tot['ms']:.3f} ms over 36 calls "
-        f"(bound {k1_tot['bound_ms']:.3f}), K2 {k2_tot['ms']:.3f} ms over 36 calls "
-        f"(bound {k2_tot['bound_ms']:.3f}), whole forward {fwd_ms:.3f} ms")
+    launches, fwd_ms = phase_full()
+    default, chain = launches["default path"], launches["chain path"]
+    log(f"[time] per batch-{BATCH} forward: K1 {k1_tot['ms']:.3f} ms over {default['K1']} calls "
+        f"(bound {k1_tot['bound_ms']:.3f}), K2 {k2_tot['ms']:.3f} ms over {default['K2']} calls "
+        f"(bound {k2_tot['bound_ms']:.3f}), whole default forward {fwd_ms['default path']:.3f} "
+        f"ms; K3 {k3_tot['ms']:.3f} ms over {chain['K3']} calls (bound "
+        f"{k3_tot['bound_ms']:.3f}), whole chain forward {fwd_ms['chain path']:.3f} ms")
     kernels = [
-        {"name": "window_attention", "route": "cuda",
-         "source": "avmoe_tpu_torch/csrc/window_attention.cu",
-         "replaces": "experiments/pallas/window_attn.py:55",
-         "launches": k1_launches, "max_abs_err": k1_err, "ms": k1_tot["ms"],
-         "plain_ms": k1_tot["plain_ms"], "bound_ms": k1_tot["bound_ms"],
-         "bound_by": "bytes" if k1_tot["bytes"] / HBM_BYTES_PER_S
-         >= k1_tot["ops"] / BF16_FLOPS else "operations",
-         "library_ms": k1_tot["library_ms"]},
-        {"name": "mlp_block", "route": "cuda",
-         "source": "avmoe_tpu_torch/csrc/mlp_block.cu",
-         "replaces": "experiments/pallas/fused_block.py:315",
-         "launches": k2_launches, "max_abs_err": k2_err, "ms": k2_tot["ms"],
-         "plain_ms": k2_tot["plain_ms"], "bound_ms": k2_tot["bound_ms"],
-         "bound_by": "bytes" if k2_tot["bytes"] / HBM_BYTES_PER_S
-         >= k2_tot["ops"] / BF16_FLOPS else "operations",
-         "library_ms": None},
+        _kernel_entry("window_attention", "avmoe_tpu_torch/csrc/window_attention.cu",
+                      "experiments/pallas/window_attn.py:55", default["K1"], k1_err, k1_tot,
+                      k1_tot["library_ms"]),
+        _kernel_entry("mlp_block", "avmoe_tpu_torch/csrc/mlp_block.cu",
+                      "experiments/pallas/fused_block.py:315", default["K2"], k2_err, k2_tot,
+                      None),
+        _kernel_entry("block_chain", "avmoe_tpu_torch/csrc/block_chain.cu",
+                      "experiments/pallas/fused_block.py:237", chain["K3"], k3_err, k3_tot,
+                      None),
     ]
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

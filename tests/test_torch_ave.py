@@ -70,6 +70,33 @@ def test_tiny_ave_gating_probs_match_jax(ave, key):
     assert np.abs(ours - 0.5).max() > 1e-3
 
 
+@pytest.fixture(scope="module")
+def chain_out(ave):
+    """The chain path (AVEModel(..., block_chains=True)) on the same weights."""
+    from avmoe_tpu_torch.config import tiny_ave_config
+    from avmoe_tpu_torch.kernels.block_chain import block_chain
+    from avmoe_tpu_torch.models.ave import AVEModel
+
+    pm = AVEModel(tiny_ave_config(), device="cpu", seed=None, block_chains=True)
+    pm.load_state_dict(ave["model"].state_dict())
+    before = block_chain.launches
+    out = pm(torch.from_numpy(ave["wave"]), torch.from_numpy(ave["imgs"]))
+    assert block_chain.launches == before      # CPU tensors take the plain version
+    return out
+
+
+@pytest.mark.parametrize("key", ["is_event_logits", "event_logits", "av_score",
+                                 "audio_p1", "audio_p2", "video_p1", "video_p2"])
+def test_tiny_ave_block_chains_match_jax_and_default_path(ave, chain_out, key):
+    tele = key not in ("is_event_logits", "event_logits", "av_score")
+    ours = (chain_out["telemetry"] if tele else chain_out)[key].numpy()
+    ref = (ave["ref"]["telemetry"] if tele else ave["ref"])[key]
+    default = (ave["out"]["telemetry"] if tele else ave["out"])[key].numpy()
+    assert ours.shape == ref.shape
+    np.testing.assert_allclose(ours, ref, **AVE_TOL)
+    np.testing.assert_allclose(ours, default, rtol=1e-4, atol=1e-4)
+
+
 def test_eval_fn_accuracy_matches_jax(ave):
     from avmoe_tpu.metrics.ave import ave_accuracy as jax_accuracy
 

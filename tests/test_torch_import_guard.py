@@ -30,6 +30,7 @@ def _imported_roots(tree: ast.AST):
 def test_sources_found():
     assert len(SOURCES) > 20
     assert (ROOT / "avmoe_tpu_torch" / "models" / "ave.py") in SOURCES
+    assert (ROOT / "avmoe_tpu_torch" / "kernels" / "block_chain.py") in SOURCES
 
 
 @pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(ROOT)))
