@@ -279,8 +279,15 @@ class BlockChain:
         yw = self.windows(xw, ops, geom)
         return unpartition_windows(yw, geom.H, geom.W, geom.window, shift)
 
-    def windows(self, xw: torch.Tensor, ops, geom: ChainGeom) -> torch.Tensor:
-        """Run the chain (part 'full' or 'attn') over windowed tokens (G, N, C)."""
+    def windows(self, xw: torch.Tensor, ops, geom: ChainGeom,
+                cluster_windows: int = 0) -> torch.Tensor:
+        """Run the chain (part 'full' or 'attn') over windowed tokens (G, N, C).
+
+        cluster_windows: windows per thread-block cluster; 0 lets the kernel
+        pick (the tests force it, to reach a ragged last cluster, and
+        tools/k3_phase_ablation.py, to time one window per cluster)."""
+        if cluster_windows < 0:
+            raise ValueError(f"cluster_windows must be >= 0, got {cluster_windows}")
         if geom.part == "mlp":
             raise ValueError("part 'mlp' runs on flat tokens through K2; call block_chain()")
         if xw.dim() != 3 or tuple(xw.shape[1:]) != (geom.N, geom.C) or xw.shape[0] % geom.nW:
@@ -307,7 +314,7 @@ class BlockChain:
                                                   for t in tensors))
         dims = [G, N, C, geom.num_heads, geom.mlp_hidden, geom.K, geom.nW,
                 int(geom.version == "v2"), int(full), int(geom.shifts[0] > 0),
-                _DTYPE_CODE[xw.dtype]]
+                _DTYPE_CODE[xw.dtype], int(cluster_windows)]
         stream = torch.cuda.current_stream(xw.device).cuda_stream
         err = lib.block_chain_fwd(ptrs, (ctypes.c_int * len(dims))(*dims), EPS, stream)
         if err != 0:

@@ -10,7 +10,9 @@ Contract (that of the TPU kernel):
            scaled (V1: D**-0.5; V2: row-normalized times the logit scale)
   bias     (nW, H, N, N) float32, contiguous; window bw uses bias[bw % nW]
   returns  (BW, H, N, D) in q's dtype; logits, softmax and the PV sum are
-           float32
+           float32 (in bf16 the kernel runs q kᵀ and p v on the tensor cores
+           and rounds p to bf16 for p v, as the JAX package's XLA attention
+           does)
 """
 
 from __future__ import annotations

@@ -11,6 +11,8 @@ without printing the result line):
 
   1. card: nvidia-smi name and power limit, torch / CUDA versions;
   2. build: the three CUDA sources with nvcc (one process each, in parallel);
+     the tensor-core instructions (HMMA) in the SASS of K1 and K3, which
+     must be there (their bf16 code runs on mma.sync);
   3. window-attention kernel vs its plain version at every main-path shape,
      float32 (rtol 1e-4, atol 1e-5) and bfloat16 (|d| <= 2e-2 (1 + |ref|)
      against the float32 plain version of the same bf16 inputs);
@@ -44,6 +46,7 @@ import math
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -54,10 +57,10 @@ BF16_FLOPS = 989e12              # dense bf16 tensor-core peak
 BATCH = 4                        # clips; B' = BATCH * 10 frames
 # bf16 K3 vs the float32 plain version of the same bf16 inputs. A K=2 chain
 # rounds the inputs of 8 tensor-core products to bf16 (the qkv, proj, fc1
-# and fc2 A operands of each block), and the V2 post-norm rescales every
-# sub-block's output to unit size, so K3 lands above the 2e-2 of K1 and K2
-# at the Swin-V2 stage-2/3 chains, though it rounds less than the Pallas
-# body does (measured errors in PERF.md)
+# and fc2 A operands of each block), runs its attention on TF32 operands,
+# and the V2 post-norm rescales every sub-block's output to unit size, so K3
+# lands above the 2e-2 of K1 and K2 at the Swin-V2 stage-2/3 chains, though
+# it rounds less than the Pallas body does (measured errors in PERF.md)
 K3_BF16_TOL = 4e-2
 
 
@@ -153,6 +156,14 @@ def phase_build():
         regs += [f"{name}: {ln.split(':', 1)[1].strip()}" for ln in text.splitlines()
                  if "Used" in ln and "registers" in ln]
     log(f"[build] {secs:.1f} s; ptxas: " + " | ".join(regs))
+    cuobjdump = Path(_build.nvcc_path()).with_name("cuobjdump")
+    hmma = {}
+    for name in ("window_attention", "block_chain"):
+        sass = subprocess.run([str(cuobjdump), "-sass", str(_build.library_path(name))],
+                              capture_output=True, text=True, check=True, timeout=300).stdout
+        hmma[name] = sum(1 for ln in sass.splitlines() if "HMMA" in ln)
+    log("[build] HMMA instructions in the SASS: " + ", ".join(f"{k} {v}" for k, v in hmma.items()))
+    check(all(v > 0 for v in hmma.values()), f"no tensor-core instructions in {hmma}")
 
 
 def phase_k1(gen):
@@ -522,7 +533,7 @@ def phase_profile(model, label: str, wave, imgs, fwd_ms: float, iters: int = 3) 
         return
     # first matching group wins
     rules = (("K3 block_chain", ("block_chain_kernel",)),
-             ("K1 window_attention", ("window_attention_kernel",)),
+             ("K1 window_attention", ("window_attention_",)),
              ("K2 mlp_block", ("gemm_nt_", "rows_kernel")),
              ("library GEMM", ("gemm", "xmma", "cutlass", "sm90_")),
              ("softmax/reductions", ("softmax", "reduce")),

@@ -9,9 +9,11 @@ it also runs on a machine without it:
 Tolerances: float32 rtol 1e-4, atol 1e-5 (sums in another order; the
 block chain, several blocks deep, atol 1e-4); bfloat16 |d| <= 2e-2 (1 + |ref|)
 against the float32 plain version of the same bf16 inputs (one bf16 rounding
-of the output and of the MLP's hidden activations), 4e-2 (1 + |ref|) for the
-block chain, whose chains round the inputs of four products per block and
-whose V2 post-norm rescales each sub-block's output to unit size.
+of the output, of the attention probabilities and of the MLP's hidden
+activations), 4e-2 (1 + |ref|) (chip_smoke.K3_BF16_TOL) for the block chain,
+whose chains round the inputs of four products per block, run attention on
+TF32 operands, and whose V2 post-norm rescales each sub-block's output to
+unit size.
 """
 
 from __future__ import annotations
@@ -56,9 +58,17 @@ def cuda_device():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_cuda_window_attention_matches_plain(cuda_device, dtype):
+@pytest.mark.parametrize("nW,B,H,N,D", [
+    (16, 3, 6, 144, 32),
+    # the main path's (N, D) and the contract's largest, with 7 windows of
+    # one class or 3 in each of 4: the bf16 kernel's runs of windows per
+    # block, and its heads, do not come out even
+    *((nW, B, H, N, D) for N, D in ((144, 32), (36, 32), (64, 24), (256, 64))
+      for nW, B, H in ((1, 7, 5), (4, 3, 3))),
+])
+def test_cuda_window_attention_matches_plain(cuda_device, dtype, nW, B, H, N, D):
     q, k, v, bias = (torch.from_numpy(a).to(cuda_device)
-                     for a in attn_inputs(16, 3, 6, 144, 32, seed=1))
+                     for a in attn_inputs(nW, B, H, N, D, seed=1))
     q, k, v = q.to(dtype), k.to(dtype), v.to(dtype)
     before = window_attention.launches
     out = window_attention(q, k, v, bias)
@@ -136,6 +146,74 @@ def test_cuda_block_chain_matches_plain(cuda_device, dtype, version, res, window
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("version,res,window,frames,cluster_windows", [
+    ("v2", 18, 6, 1, 4),      # N=36, 9 windows a frame: clusters of 4, 4, 1; shifts 0 and 3
+    ("v1", 8, 8, 5, 2),       # N=64, G=5: clusters of 2, 2, 1
+    ("v1", 24, 8, 1, 2),      # N=64, 9 windows a frame: clusters of 2 x 4, 1; shifts 0 and 4
+])
+def test_cuda_block_chain_several_windows_per_cluster(cuda_device, dtype, version, res, window,
+                                                      frames, cluster_windows):
+    blocks = _chain_blocks(version, res, window, 2, cuda_device)
+    g = torch.Generator(device=cuda_device).manual_seed(5)
+    x = torch.randn(frames, res * res, blocks[0].dim, generator=g, device=cuda_device)
+    groups = chain_groups(blocks)
+    assert len(groups) == 2 or res == window      # an unshifted and a shifted chain
+    for grp in groups:
+        ops, geom = stack_chain(grp, "full", dtype)
+        xw = partition_windows(x, geom.H, geom.W, geom.window, geom.shifts[0]).to(dtype)
+        assert xw.shape[0] % cluster_windows               # the last cluster is ragged
+        ref = block_chain_plain(xw.float(), {k: v.float() for k, v in ops.items()}, geom)
+        for w in (cluster_windows, 0):                     # forced, and the kernel's pick
+            out = block_chain.windows(xw, ops, geom, cluster_windows=w)
+            torch.cuda.synchronize()
+            if dtype == torch.float32:
+                torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-4)
+            else:
+                _check(out, ref, dtype, bf16_tol=4e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_block_chain_swin_v2_stage3_g10(cuda_device, dtype):
+    # Swin-V2-L stage 3 at batch 1 (10 frames, one 6 x 6 window each, C=1536):
+    # four windows a cluster leave a last cluster of two
+    blocks = [SwinBlock(1536, (6, 6), 48, 6, 0, version="v2", pretrained_window=6)
+              for _ in range(2)]
+    blocks = torch.nn.ModuleList(blocks).to(cuda_device)
+    g = torch.Generator(device=cuda_device).manual_seed(6)
+    init_parameters(blocks, g)
+    ops, geom = stack_chain(list(blocks), "full", dtype)
+    xw = torch.randn(10, 36, 1536, generator=g, device=cuda_device).to(dtype)
+    ref = block_chain_plain(xw.float(), {k: v.float() for k, v in ops.items()}, geom)
+    out = block_chain.windows(xw, ops, geom, cluster_windows=4)
+    torch.cuda.synchronize()
+    if dtype == torch.float32:
+        torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-4)
+    else:
+        _check(out, ref, dtype, bf16_tol=4e-2)
+
+
+@pytest.mark.cuda
+def test_cuda_block_chain_bf16_error_within_chip_smoke_budget(cuda_device):
+    # the K=2 chains (Swin-V2 stages 2 and 3, HTS-AT stage 3) at full width
+    # and two frames, seeded as chip_smoke.py seeds them
+    import chip_smoke
+
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    for geom, _ in chip_smoke.k3_shapes():
+        if geom.K < 2:
+            continue
+        blocks = chip_smoke._chain_blocks(geom, gen)
+        ops, _ = stack_chain(blocks, geom.part, torch.bfloat16)
+        xw = torch.randn(2 * geom.nW, geom.N, geom.C, device="cuda", generator=gen).bfloat16()
+        ref = block_chain_plain(xw.float(), {k: v.float() for k, v in ops.items()}, geom)
+        out = block_chain.windows(xw, ops, geom)
+        rel = ((out.float() - ref).abs() / (1.0 + ref.abs())).max().item()
+        assert rel <= chip_smoke.K3_BF16_TOL, (geom, rel)
+
+
+@pytest.mark.cuda
 def test_cuda_block_chain_raises_instead_of_falling_back(cuda_device):
     blocks = _chain_blocks("v1", 8, 8, 1, cuda_device)
     ops, geom = stack_chain(blocks)
@@ -144,3 +222,6 @@ def test_cuda_block_chain_raises_instead_of_falling_back(cuda_device):
         block_chain(x, dict(ops, fc1_bias=ops["fc1_bias"].cpu()), geom)
     with pytest.raises(ValueError, match="float32 or bfloat16"):
         block_chain(x.half(), ops, geom)
+    xw = partition_windows(x, geom.H, geom.W, geom.window, 0)
+    with pytest.raises(ValueError, match="cluster_windows"):
+        block_chain.windows(xw, ops, geom, cluster_windows=-1)
