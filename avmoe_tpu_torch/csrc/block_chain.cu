@@ -83,6 +83,7 @@
 
 #include "attention_mma.cuh"
 #include "common.cuh"
+#include "cp_async.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -177,16 +178,6 @@ __device__ __forceinline__ void store_epi_pair(void* out, size_t idx, float v0, 
 // n < Nout split in 128-column tiles over the cluster's CTAs. A (M, Kd) and
 // W (Kd, Nout) are row-major.
 // ---------------------------------------------------------------------------
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool ok) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem),
-               "r"(ok ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int N> __device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
 
 template <int EPI>
 __device__ void gemm_bf16(const bf16* A, int M, int Kd, const bf16* W, int Nout,

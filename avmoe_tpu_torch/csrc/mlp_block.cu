@@ -13,121 +13,258 @@
 // the tensor cores, not device memory, are the limit at every main-path
 // shape (989 TFLOP/s bf16; float32 runs on the CUDA cores).
 //
-// What the design does about that. The bf16 products run on the tensor
-// cores through WMMA (16x16x16 bf16 fragments, float32 accumulators): a
-// block of 8 warps computes a 128x128 output tile from 128x32 A and B
-// tiles in shared memory, each warp a 32x64 sub-tile. The bias and GELU
-// are the epilogue of fc1, the bias that of fc2, so the products' outputs
-// are written once. The LayerNorms and the residual add are row kernels,
-// one warp per row, with float32 statistics (mean of squares minus squared
-// mean, as the TPU kernel). float32 inputs take a CUDA-core tiled product
-// (64x64 tiles, 4x4 outputs per thread) so that float32 stays float32.
-// This first version is simple and right: there is no cp.async / TMA
-// pipelining and no wgmma yet, and the hidden (R, Hd) activations make one
-// round trip through device memory. Both are later work.
+// What the design does about that. Both bf16 products are one NT kernel,
+// C[m, n] = epi(sum_k A[m, k] B[n, k] + bias[n]), on mma.sync m16n8k16 (bf16
+// operands, float32 accumulators). A CTA of 8 warps owns a 128 x BN output
+// tile and walks k in 64-deep steps through a 3-stage cp.async ring, so the
+// loads of step s + 2 are in flight while step s is multiplied; two CTAs
+// share an SM (at most 128 registers a thread). Both operands are
+// k-contiguous in shared memory (rows padded by 8 elements, so ldmatrix's
+// eight 16-byte row reads hit distinct banks) and reach the warps by
+// ldmatrix.x4, without .trans for B (the nn.Linear weight is (N, K)). BN is
+// 128 (warps 2 x 4 of 64 x 32: an A fragment serves 4 MMAs, a B fragment 4)
+// or 96 (warps 4 x 2 of 32 x 48: 6 and 2); the wrapper picks it per product
+// (kernels/mlp_block.py `pick_tile`) from the SM count, the SMs' load and
+// the operand bytes through L2, which bound these products (PERF.md). The
+// epilogues add the bias, on fc1 the exact-erf GELU, stage the tile in
+// shared memory as float32 and store 16-byte chunks of bf16 rows; fc2 adds
+// b2, and on V1 also the residual x there, writing `out` directly. Every
+// output rounds to bf16 once (fc1's hidden activations too). V2's LayerNorm
+// needs whole rows of fc2's output, so it stays a row pass (x + LN(f)), as
+// does V1's pre-norm; the row passes move 16 bytes a lane and keep float32
+// statistics (mean of squares minus squared mean, as the TPU kernel).
+// float32 inputs take a CUDA-core tiled product (64x64 tiles, 4x4 outputs
+// per thread) so that float32 stays float32. The hidden (R, Hd) activations
+// make one round trip through device memory (about 1 ms per forward at
+// 3.35 TB/s); keeping them on chip is later work.
+//
+// The bf16 path requires C % 8 == 0 and 16-byte aligned x, w1, w2 (every
+// row of every operand then starts on a 16-byte boundary); the wrapper
+// checks it and raises otherwise.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
-#include <mma.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "attention_mma.cuh"
 #include "common.cuh"
+#include "cp_async.cuh"
 
 namespace {
 
 using namespace avmoe;
-using namespace nvcuda;
 
-template <int ACT>
-__device__ __forceinline__ float epilogue(float acc, float b) {
-  const float v = acc + b;
-  return ACT ? gelu_erf(v) : v;
-}
+// epilogues of a product: + bias; GELU(+ bias); + bias + residual
+constexpr int kEpiBias = 0, kEpiGelu = 1, kEpiResid = 2;
 
 // ---------------------------------------------------------------------------
-// bf16 product on the tensor cores: C[m, n] = act(sum_k A[m, k] B[n, k] + bias[n])
+// bf16 product on the tensor cores: C[m, n] = epi(sum_k A[m, k] B[n, k] + bias[n])
+// A (M, K), B (N, K), resid and C (M, N), all row-major; K % 8 == 0, N % 8 == 0.
 // ---------------------------------------------------------------------------
 
-constexpr int kBM = 128, kBN = 128, kBK = 32, kLd = kBK + 8;
-constexpr int kGemmThreads = 256;
+constexpr int kBK = 64, kLd = kBK + 8, kStages = 3;
+constexpr int kChunksK = kBK / 8;  // 16-byte chunks in a row of a k-step
 
-__device__ __forceinline__ void load_chunk8(bf16* dst, const bf16* __restrict__ src, int row,
-                                            int rows, int k, int K, bool vec) {
-  if (row < rows && vec && k + 8 <= K) {
-    *reinterpret_cast<uint4*>(dst) =
-        *reinterpret_cast<const uint4*>(src + (size_t)row * K + k);
-  } else {
-#pragma unroll
-    for (int t = 0; t < 8; ++t)
-      dst[t] = (row < rows && k + t < K) ? src[(size_t)row * K + k + t] : __float2bfloat16(0.f);
-  }
+// A CTA tile: warps WARPS_M x WARPS_N, each MF 16-row fragments by NF
+// 8-column tiles; BM x BN outputs, THREADS threads
+template <int WM, int WN, int MF_, int NF_> struct Tile {
+  static constexpr int WARPS_M = WM, WARPS_N = WN, MF = MF_, NF = NF_;
+  static constexpr int BM = WM * MF_ * 16, BN = WN * NF_ * 8, THREADS = 32 * WM * WN;
+  static constexpr size_t SMEM = (size_t)kStages * (BM + BN) * kLd * sizeof(bf16);
+};
+// the tile of each output width (pick_tile's TILE_WIDTHS)
+template <int BN> struct TileShape;
+template <> struct TileShape<128> : Tile<2, 4, 4, 4> {};
+template <> struct TileShape<96> : Tile<4, 2, 2, 6> {};
+
+template <int EPI> __device__ __forceinline__ float act(float v) {
+  return EPI == kEpiGelu ? gelu_erf(v) : v;
 }
 
-template <int ACT>
-__global__ void __launch_bounds__(kGemmThreads)
-gemm_nt_bf16(const bf16* __restrict__ A, const bf16* __restrict__ B,
-             const float* __restrict__ bias, bf16* __restrict__ C, int M, int N, int K,
-             int vec) {
-  __shared__ __align__(128) bf16 As[kBM * kLd];
-  __shared__ __align__(128) bf16 Bs[kBN * kLd];
-  __shared__ __align__(128) float Cs[8][16 * 16];
-
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5, lane = tid & 31;
-  const int wm = warp >> 1;  // 4 warp rows of 32
-  const int wn = warp & 1;   // 2 warp columns of 64
-  const int m0 = blockIdx.x * kBM;
-  const int n0 = blockIdx.y * kBN;
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][4];
+template <int BN, int EPI>
+__global__ void __launch_bounds__(TileShape<BN>::THREADS, 2)
+mlp_gemm_bf16(const bf16* __restrict__ A, const bf16* __restrict__ B,
+              const float* __restrict__ bias, const bf16* __restrict__ resid,
+              bf16* __restrict__ C, int M, int N, int K) {
+  using S = TileShape<BN>;
+  constexpr int MF = S::MF, NF = S::NF, BM = S::BM, THREADS = S::THREADS;
+  static_assert(S::BN == BN && NF % 2 == 0 && THREADS % kChunksK == 0,
+                "warp tiles must cover the CTA tile");
+  // a pass of the CTA's threads copies ROWS rows of a k-step, 16 bytes each
+  constexpr int ROWS = THREADS / kChunksK;
+  constexpr int A_PASSES = (BM + ROWS - 1) / ROWS, B_PASSES = (BN + ROWS - 1) / ROWS;
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* As = reinterpret_cast<bf16*>(smem);  // [kStages][BM][kLd]
+  bf16* Bs = As + kStages * BM * kLd;        // [kStages][BN][kLd]
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
+  const int wm = warp / S::WARPS_N, wn = warp % S::WARPS_N;
+  // N tiles vary fastest over the grid: neighbouring CTAs share their A rows
+  const int n0 = blockIdx.x * BN, m0 = blockIdx.y * BM;
+  const int nk = (K + kBK - 1) / kBK;
+  // ldmatrix row addresses of this lane. A (x4): rows 0-15, k 0 / 8. B (x4,
+  // two n8 tiles): matrices (n 0-7, k 0), (n 0-7, k 8), (n 8-15, k 0),
+  // (n 8-15, k 8), the b0 / b1 registers of n tile 0, then of n tile 1
+  const int a_off = (wm * MF * 16 + (lane & 15)) * kLd + (lane >> 4) * 8;
+  const int b_off = (wn * NF * 8 + (lane & 7) + (lane >> 4) * 8) * kLd + ((lane >> 3) & 1) * 8;
+  // this thread's copies: row cr + ROWS i of each tile, k chunk kc; bit i of
+  // a_rows / b_rows says that row lies inside the matrix
+  const int cr = tid / kChunksK, kc = (tid % kChunksK) * 8;
+  const bf16* a_src = A + (size_t)(m0 + cr) * K + kc;
+  const bf16* b_src = B + (size_t)(n0 + cr) * K + kc;
+  unsigned a_rows = 0, b_rows = 0;
 #pragma unroll
-  for (int i = 0; i < 2; ++i)
+  for (int i = 0; i < A_PASSES; ++i) a_rows |= (unsigned)(m0 + cr + ROWS * i < M) << i;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) wmma::fill_fragment(acc[i][j], 0.f);
+  for (int i = 0; i < B_PASSES; ++i) b_rows |= (unsigned)(n0 + cr + ROWS * i < N) << i;
 
-  for (int k0 = 0; k0 < K; k0 += kBK) {
-    for (int c = tid; c < kBM * kBK / 8; c += kGemmThreads) {
-      const int r = c >> 2;
-      const int kc = (c & 3) * 8;
-      load_chunk8(As + r * kLd + kc, A, m0 + r, M, k0 + kc, K, vec);
-      load_chunk8(Bs + r * kLd + kc, B, n0 + r, N, k0 + kc, K, vec);
+  float acc[MF][NF][4];
+#pragma unroll
+  for (int i = 0; i < MF; ++i)
+#pragma unroll
+    for (int j = 0; j < NF; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+
+  // one commit group per k-step: its A and B tiles, zero-filled past M, N, K
+  auto load = [&](int buf, int kt) {
+    const int k0 = kt * kBK;
+    const bool kok = k0 + kc < K;
+    bf16* as = As + buf * BM * kLd + cr * kLd + kc;
+    bf16* bs = Bs + buf * BN * kLd + cr * kLd + kc;
+#pragma unroll
+    for (int i = 0; i < A_PASSES; ++i) {
+      if (BM % ROWS && cr + ROWS * i >= BM) break;
+      const bool ok = kok && (a_rows >> i & 1);
+      cp_async16(as + ROWS * i * kLd, ok ? a_src + (size_t)ROWS * i * K + k0 : A, ok);
     }
+#pragma unroll
+    for (int i = 0; i < B_PASSES; ++i) {
+      if (BN % ROWS && cr + ROWS * i >= BN) break;
+      const bool ok = kok && (b_rows >> i & 1);
+      cp_async16(bs + ROWS * i * kLd, ok ? b_src + (size_t)ROWS * i * K + k0 : B, ok);
+    }
+    cp_async_commit();
+  };
+
+  // kStages - 1 steps in flight ahead of the one in use; a group is
+  // committed for every step, empty past the end, so that the count of
+  // pending groups says which step has landed
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < nk) load(s, s);
+    else cp_async_commit();
+  }
+  for (int kt = 0; kt < nk; ++kt) {
+    cp_async_wait<kStages - 2>();
+    // step kt has landed, and every warp is done with step kt - 1, whose
+    // buffer the next load refills
     __syncthreads();
+    const int next = kt + kStages - 1;
+    if (next < nk) load(next % kStages, next);
+    else cp_async_commit();
+    const bf16* as = As + (kt % kStages) * BM * kLd + a_off;
+    const bf16* bs = Bs + (kt % kStages) * BN * kLd + b_off;
 #pragma unroll
     for (int kk = 0; kk < kBK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a[2];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> b[4];
+      unsigned a[MF][4], b[NF / 2][4];
 #pragma unroll
-      for (int i = 0; i < 2; ++i)
-        wmma::load_matrix_sync(a[i], As + (wm * 32 + i * 16) * kLd + kk, kLd);
+      for (int i = 0; i < MF; ++i) mma::ldsm_x4(a[i], as + i * 16 * kLd + kk);
 #pragma unroll
-      for (int j = 0; j < 4; ++j)
-        wmma::load_matrix_sync(b[j], Bs + (wn * 64 + j * 16) * kLd + kk, kLd);
+      for (int j = 0; j < NF / 2; ++j) mma::ldsm_x4(b[j], bs + j * 16 * kLd + kk);
 #pragma unroll
-      for (int i = 0; i < 2; ++i)
+      for (int i = 0; i < MF; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) wmma::mma_sync(acc[i][j], a[i], b[j], acc[i][j]);
+        for (int j = 0; j < NF / 2; ++j) {
+          mma::mma_bf16(acc[i][2 * j], a[i], b[j][0], b[j][1]);
+          mma::mma_bf16(acc[i][2 * j + 1], a[i], b[j][2], b[j][3]);
+        }
     }
-    __syncthreads();
   }
 
-  float* cs = Cs[warp];
+  // epilogue: the tile goes through the ring's shared memory as float32
+  // (bias and GELU added), so that each thread then stores whole 16-byte
+  // chunks of a row, adding the residual there: every output rounds to bf16
+  // once
+  constexpr int LDC = BN + 8;  // float2 stores of a half-warp hit 32 banks
+  static_assert((size_t)BM * LDC * sizeof(float) <= S::SMEM, "the tile must fit the ring");
+  cp_async_wait<0>();
+  __syncthreads();  // every warp is done with the ring
+  float* cs = reinterpret_cast<float*>(smem);
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
+  for (int j = 0; j < NF; ++j) {
+    const int cl = (wn * NF + j) * 8 + 2 * t;
+    const float2 bb = n0 + cl < N ? *reinterpret_cast<const float2*>(bias + n0 + cl)
+                                  : make_float2(0.f, 0.f);
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      wmma::store_matrix_sync(cs, acc[i][j], 16, wmma::mem_row_major);
-      __syncwarp();
-      for (int e = lane; e < 256; e += 32) {
-        const int gm = m0 + wm * 32 + i * 16 + (e >> 4);
-        const int gn = n0 + wn * 64 + j * 16 + (e & 15);
-        if (gm < M && gn < N)
-          C[(size_t)gm * N + gn] = __float2bfloat16(epilogue<ACT>(cs[e], bias[gn]));
-      }
-      __syncwarp();
+    for (int i = 0; i < MF; ++i) {
+      const int rl = (wm * MF + i) * 16 + g;
+      *reinterpret_cast<float2*>(cs + rl * LDC + cl) =
+          make_float2(act<EPI>(acc[i][j][0] + bb.x), act<EPI>(acc[i][j][1] + bb.y));
+      *reinterpret_cast<float2*>(cs + (rl + 8) * LDC + cl) =
+          make_float2(act<EPI>(acc[i][j][2] + bb.x), act<EPI>(acc[i][j][3] + bb.y));
     }
   }
+  __syncthreads();
+  constexpr int CHUNKS = BN / 8;
+#pragma unroll
+  for (int c = tid; c < BM * CHUNKS; c += THREADS) {
+    const int rl = c / CHUNKS, cl = (c % CHUNKS) * 8;
+    if (m0 + rl >= M || n0 + cl >= N) continue;
+    const float4 lo = *reinterpret_cast<const float4*>(cs + rl * LDC + cl);
+    const float4 hi = *reinterpret_cast<const float4*>(cs + rl * LDC + cl + 4);
+    float v[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
+    const size_t idx = (size_t)(m0 + rl) * N + n0 + cl;
+    if (EPI == kEpiResid) {
+      const uint4 x = *reinterpret_cast<const uint4*>(resid + idx);
+      const __nv_bfloat162* xp = reinterpret_cast<const __nv_bfloat162*>(&x);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float2 f = __bfloat1622float2(xp[e]);
+        v[2 * e] += f.x;
+        v[2 * e + 1] += f.y;
+      }
+    }
+    uint4 o;
+    unsigned* op = reinterpret_cast<unsigned*>(&o);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) op[e] = mma::pack_bf16(v[2 * e], v[2 * e + 1]);
+    *reinterpret_cast<uint4*>(C + idx) = o;
+  }
+}
+
+template <int BN, int EPI>
+int launch_bf16(const bf16* A, const bf16* B, const float* bias, const bf16* resid, bf16* C,
+                int M, int N, int K, cudaStream_t stream) {
+  const int mtiles = (M + TileShape<BN>::BM - 1) / TileShape<BN>::BM;
+  if (mtiles > 65535) return (int)cudaErrorInvalidValue;
+  constexpr size_t smem = TileShape<BN>::SMEM;
+  // the shared-memory limit is set once per kernel: the forward is
+  // host-bound, and the call would run on every launch
+  static bool smem_set = false;
+  if (!smem_set) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        mlp_gemm_bf16<BN, EPI>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    smem_set = true;
+  }
+  dim3 grid((N + BN - 1) / BN, mtiles);
+  mlp_gemm_bf16<BN, EPI><<<grid, TileShape<BN>::THREADS, smem, stream>>>(A, B, bias, resid, C,
+                                                                         M, N, K);
+  return (int)cudaGetLastError();
+}
+
+template <int EPI>
+int gemm_bf16(int tile_n, const void* A, const void* B, const float* bias, const void* resid,
+              void* C, int M, int N, int K, cudaStream_t s) {
+  const bf16 *a = static_cast<const bf16*>(A), *b = static_cast<const bf16*>(B);
+  const bf16* r = static_cast<const bf16*>(resid);
+  bf16* c = static_cast<bf16*>(C);
+  switch (tile_n) {
+    case 128: return launch_bf16<128, EPI>(a, b, bias, r, c, M, N, K, s);
+    case 96: return launch_bf16<96, EPI>(a, b, bias, r, c, M, N, K, s);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 // ---------------------------------------------------------------------------
@@ -136,10 +273,11 @@ gemm_nt_bf16(const bf16* __restrict__ A, const bf16* __restrict__ B,
 
 constexpr int kSBM = 64, kSBN = 64, kSBK = 16;
 
-template <int ACT>
+template <int EPI>
 __global__ void __launch_bounds__(256)
-gemm_nt_f32(const float* __restrict__ A, const float* __restrict__ B,
-            const float* __restrict__ bias, float* __restrict__ C, int M, int N, int K) {
+mlp_gemm_f32(const float* __restrict__ A, const float* __restrict__ B,
+             const float* __restrict__ bias, const float* __restrict__ resid,
+             float* __restrict__ C, int M, int N, int K) {
   __shared__ float As[kSBK][kSBM + 4];
   __shared__ float Bs[kSBK][kSBN + 4];
   const int tid = threadIdx.x;
@@ -194,111 +332,167 @@ gemm_nt_f32(const float* __restrict__ A, const float* __restrict__ B,
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const int gn = n0 + tx * 4 + j;
-      if (gm < M && gn < N) C[(size_t)gm * N + gn] = epilogue<ACT>(acc[i][j], bias[gn]);
+      if (gm >= M || gn >= N) continue;
+      const size_t idx = (size_t)gm * N + gn;
+      float v = acc[i][j] + bias[gn];
+      if (EPI == kEpiGelu) v = gelu_erf(v);
+      if (EPI == kEpiResid) v += resid[idx];
+      C[idx] = v;
     }
   }
 }
 
+template <int EPI>
+int gemm_f32(const void* A, const void* B, const float* bias, const void* resid, void* C,
+             int M, int N, int K, cudaStream_t stream) {
+  dim3 grid((M + kSBM - 1) / kSBM, (N + kSBN - 1) / kSBN);
+  mlp_gemm_f32<EPI><<<grid, 256, 0, stream>>>(
+      static_cast<const float*>(A), static_cast<const float*>(B), bias,
+      static_cast<const float*>(resid), static_cast<float*>(C), M, N, K);
+  return (int)cudaGetLastError();
+}
+
 // ---------------------------------------------------------------------------
-// Row kernels, one warp per row:
-//   MODE 0: out = LN(src)            (V1 pre-norm; src = x)
-//   MODE 1: out = x + src            (V1 residual; src = fc2 output)
-//   MODE 2: out = x + LN(src)        (V2 post-norm + residual; src = fc2 output)
+// Row pass, one warp per row, V elements (16 bytes where the row allows) a
+// lane per step:
+//   RESID false: out = LN(src)        (V1 pre-norm; src = x)
+//   RESID true:  out = x + LN(src)    (V2 post-norm + residual; src = fc2 output)
 // ---------------------------------------------------------------------------
 
 constexpr int kRowThreads = 256;
 
-template <typename T, int MODE>
+template <int V, typename T>
+__device__ __forceinline__ void load_vec(float (&v)[V], const T* p) {
+  if constexpr (V * sizeof(T) == 16) {
+    const uint4 u = *reinterpret_cast<const uint4*>(p);
+    const T* e = reinterpret_cast<const T*>(&u);
+#pragma unroll
+    for (int i = 0; i < V; ++i) v[i] = to_float(e[i]);
+  } else {
+#pragma unroll
+    for (int i = 0; i < V; ++i) v[i] = to_float(p[i]);
+  }
+}
+
+template <int V, typename T>
+__device__ __forceinline__ void store_vec(T* p, const float (&v)[V]) {
+  if constexpr (V * sizeof(T) == 16) {
+    uint4 u;
+    T* e = reinterpret_cast<T*>(&u);
+#pragma unroll
+    for (int i = 0; i < V; ++i) e[i] = from_float<T>(v[i]);
+    *reinterpret_cast<uint4*>(p) = u;
+  } else {
+#pragma unroll
+    for (int i = 0; i < V; ++i) p[i] = from_float<T>(v[i]);
+  }
+}
+
+template <typename T, bool RESID, int V>
 __global__ void __launch_bounds__(kRowThreads)
-rows_kernel(const T* __restrict__ x, const T* __restrict__ src,
-            const float* __restrict__ w, const float* __restrict__ b, T* __restrict__ out,
-            int R, int C, float eps) {
+mlp_rows(const T* __restrict__ x, const T* __restrict__ src, const float* __restrict__ w,
+         const float* __restrict__ b, T* __restrict__ out, int R, int C, float eps) {
   const int row = (blockIdx.x * kRowThreads + threadIdx.x) >> 5;
   const int lane = threadIdx.x & 31;
   if (row >= R) return;
-  const T* s = src + (size_t)row * C;
-  float mean = 0.f, inv = 1.f;
-  if (MODE != 1) {
-    float sum = 0.f, sq = 0.f;
-    for (int c = lane; c < C; c += 32) {
-      const float v = to_float(s[c]);
-      sum += v;
-      sq += v * v;
-    }
+  const size_t base = (size_t)row * C;
+  float sum = 0.f, sq = 0.f;
+  for (int c = lane * V; c < C; c += 32 * V) {
+    float v[V];
+    load_vec<V>(v, src + base + c);
 #pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      sum += __shfl_xor_sync(0xffffffffu, sum, off);
-      sq += __shfl_xor_sync(0xffffffffu, sq, off);
+    for (int i = 0; i < V; ++i) {
+      sum += v[i];
+      sq += v[i] * v[i];
     }
-    mean = sum / C;
-    const float var = fmaxf(sq / C - mean * mean, 0.f);
-    inv = rsqrtf(var + eps);
   }
-  for (int c = lane; c < C; c += 32) {
-    float v = to_float(s[c]);
-    if (MODE != 1) v = (v - mean) * inv * w[c] + b[c];
-    if (MODE != 0) v += to_float(x[(size_t)row * C + c]);
-    out[(size_t)row * C + c] = from_float<T>(v);
+  sum = warp_sum(sum);
+  sq = warp_sum(sq);
+  const float mean = sum / C;
+  const float inv = rsqrtf(fmaxf(sq / C - mean * mean, 0.f) + eps);
+  for (int c = lane * V; c < C; c += 32 * V) {
+    float v[V];
+    load_vec<V>(v, src + base + c);
+#pragma unroll
+    for (int i = 0; i < V; ++i) v[i] = (v[i] - mean) * inv * w[c + i] + b[c + i];
+    if (RESID) {
+      float r[V];
+      load_vec<V>(r, x + base + c);
+#pragma unroll
+      for (int i = 0; i < V; ++i) v[i] += r[i];
+    }
+    store_vec<V>(out + base + c, v);
   }
 }
 
-template <typename T, int MODE>
+bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
+
+template <typename T, bool RESID>
 int launch_rows(const void* x, const void* src, const float* w, const float* b, void* out,
                 int R, int C, float eps, cudaStream_t stream) {
-  const int rows_per_block = kRowThreads / 32;
-  const int grid = (R + rows_per_block - 1) / rows_per_block;
-  rows_kernel<T, MODE><<<grid, kRowThreads, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(src), w, b, static_cast<T*>(out), R, C,
-      eps);
+  constexpr int V = 16 / sizeof(T);
+  const int grid = (R + kRowThreads / 32 - 1) / (kRowThreads / 32);
+  const T* xs = static_cast<const T*>(x);
+  const T* ss = static_cast<const T*>(src);
+  T* o = static_cast<T*>(out);
+  if (C % V == 0 && aligned16(x) && aligned16(src) && aligned16(out))
+    mlp_rows<T, RESID, V><<<grid, kRowThreads, 0, stream>>>(xs, ss, w, b, o, R, C, eps);
+  else
+    mlp_rows<T, RESID, 1><<<grid, kRowThreads, 0, stream>>>(xs, ss, w, b, o, R, C, eps);
   return (int)cudaGetLastError();
 }
 
-template <int ACT>
-int launch_gemm(int dtype, const void* A, const void* B, const float* bias, void* C, int M,
-                int N, int K, cudaStream_t stream) {
-  if (dtype == 1) {
-    const bool vec = (K % 8 == 0) && (reinterpret_cast<uintptr_t>(A) % 16 == 0) &&
-                     (reinterpret_cast<uintptr_t>(B) % 16 == 0);
-    dim3 grid((M + kBM - 1) / kBM, (N + kBN - 1) / kBN);
-    gemm_nt_bf16<ACT><<<grid, kGemmThreads, 0, stream>>>(
-        static_cast<const bf16*>(A), static_cast<const bf16*>(B), bias, static_cast<bf16*>(C),
-        M, N, K, vec ? 1 : 0);
-  } else {
-    dim3 grid((M + kSBM - 1) / kSBM, (N + kSBN - 1) / kSBN);
-    gemm_nt_f32<ACT><<<grid, 256, 0, stream>>>(static_cast<const float*>(A),
-                                               static_cast<const float*>(B), bias,
-                                               static_cast<float*>(C), M, N, K);
-  }
-  return (int)cudaGetLastError();
+template <int EPI>
+int gemm(int dtype, int tile_n, const void* A, const void* B, const float* bias,
+         const void* resid, void* C, int M, int N, int K, cudaStream_t s) {
+  if (dtype == 1) return gemm_bf16<EPI>(tile_n, A, B, bias, resid, C, M, N, K, s);
+  return gemm_f32<EPI>(A, B, bias, resid, C, M, N, K, s);
 }
 
 template <typename T>
 int mlp_block(const void* x, const float* ln_w, const float* ln_b, const void* w1,
               const float* b1, const void* w2, const float* b2, void* h_ln, void* hid,
-              void* f, void* out, int R, int C, int Hd, int pre_norm, int dtype, float eps,
-              cudaStream_t s) {
+              void* f, void* out, int R, int C, int Hd, int pre_norm, int dtype, int tile1,
+              int tile2, float eps, cudaStream_t s) {
   int err;
-  const void* a1 = x;
   if (pre_norm) {
-    if ((err = launch_rows<T, 0>(x, x, ln_w, ln_b, h_ln, R, C, eps, s))) return err;
-    a1 = h_ln;
+    if ((err = launch_rows<T, false>(x, x, ln_w, ln_b, h_ln, R, C, eps, s))) return err;
+    if ((err = gemm<kEpiGelu>(dtype, tile1, h_ln, w1, b1, nullptr, hid, R, Hd, C, s)))
+      return err;
+    return gemm<kEpiResid>(dtype, tile2, hid, w2, b2, x, out, R, C, Hd, s);
   }
-  if ((err = launch_gemm<1>(dtype, a1, w1, b1, hid, R, Hd, C, s))) return err;
-  if ((err = launch_gemm<0>(dtype, hid, w2, b2, f, R, C, Hd, s))) return err;
-  if (pre_norm) return launch_rows<T, 1>(x, f, ln_w, ln_b, out, R, C, eps, s);
-  return launch_rows<T, 2>(x, f, ln_w, ln_b, out, R, C, eps, s);
+  if ((err = gemm<kEpiGelu>(dtype, tile1, x, w1, b1, nullptr, hid, R, Hd, C, s))) return err;
+  if ((err = gemm<kEpiBias>(dtype, tile2, hid, w2, b2, nullptr, f, R, C, Hd, s))) return err;
+  return launch_rows<T, true>(x, f, ln_w, ln_b, out, R, C, eps, s);
+}
+
+template <int BN>
+int ctas_per_sm(int* ctas) {
+  cudaError_t e = cudaFuncSetAttribute(mlp_gemm_bf16<BN, kEpiGelu>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       (int)TileShape<BN>::SMEM);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(ctas, mlp_gemm_bf16<BN, kEpiGelu>,
+                                                      TileShape<BN>::THREADS,
+                                                      TileShape<BN>::SMEM);
+  return (int)e;
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. h_ln (R, C) is scratch for the V1
-// pre-norm (may be null when pre_norm is 0), hid (R, Hd) and f (R, C) are
-// scratch for the two products. Returns a cudaError_t (0 on success).
+// pre-norm (null when pre_norm is 0), hid (R, Hd) for fc1's output, f (R, C)
+// for V2's fc2 output (null when pre_norm is 1). tile1 / tile2: the output
+// tile width (128 or 96) of fc1 and fc2 in bf16, ignored in float32.
+// Returns a cudaError_t (0 on success).
 extern "C" int mlp_block_fwd(const void* x, const void* ln_w, const void* ln_b,
                              const void* w1, const void* b1, const void* w2, const void* b2,
                              void* h_ln, void* hid, void* f, void* out, int R, int C, int Hd,
-                             int pre_norm, int dtype, float eps, void* stream) {
-  if (R < 1 || C < 1 || Hd < 1 || (pre_norm && h_ln == nullptr))
+                             int pre_norm, int dtype, int tile1, int tile2, float eps,
+                             void* stream) {
+  if (R < 1 || C < 1 || Hd < 1 || (pre_norm ? h_ln == nullptr : f == nullptr))
+    return (int)cudaErrorInvalidValue;
+  if (dtype == 1 && (C % 8 || Hd % 8 || !aligned16(x) || !aligned16(w1) || !aligned16(w2)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* lw = static_cast<const float*>(ln_w);
@@ -307,9 +501,37 @@ extern "C" int mlp_block_fwd(const void* x, const void* ln_w, const void* ln_b,
   const float* fb2 = static_cast<const float*>(b2);
   if (dtype == 0)
     return mlp_block<float>(x, lw, lb, w1, fb1, w2, fb2, h_ln, hid, f, out, R, C, Hd,
-                            pre_norm, 0, eps, s);
+                            pre_norm, 0, tile1, tile2, eps, s);
   if (dtype == 1)
     return mlp_block<bf16>(x, lw, lb, w1, fb1, w2, fb2, h_ln, hid, f, out, R, C, Hd,
-                           pre_norm, 1, eps, s);
+                           pre_norm, 1, tile1, tile2, eps, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// One bf16 product of the block alone, C = epi(A B^T + bias) with epi 0
+// (+ bias), 1 (GELU) or 2 (+ bias + resid), at output tile width tile_n:
+// the same kernel the block launches, exported to time the products apart
+// from the row passes.
+extern "C" int mlp_block_gemm_bf16(const void* A, const void* B, const void* bias,
+                                   const void* resid, void* C, int M, int N, int K, int epi,
+                                   int tile_n, void* stream) {
+  if (M < 1 || N < 1 || K < 1 || K % 8 || N % 8 || (epi == kEpiResid && resid == nullptr) ||
+      !aligned16(A) || !aligned16(B) || !aligned16(C) || (resid && !aligned16(resid)))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* b = static_cast<const float*>(bias);
+  if (epi == kEpiBias) return gemm_bf16<kEpiBias>(tile_n, A, B, b, resid, C, M, N, K, s);
+  if (epi == kEpiGelu) return gemm_bf16<kEpiGelu>(tile_n, A, B, b, resid, C, M, N, K, s);
+  if (epi == kEpiResid) return gemm_bf16<kEpiResid>(tile_n, A, B, b, resid, C, M, N, K, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// CTAs of the fc1 (GELU) product kernel at tile width tile_n that one SM
+// holds at once (cudaOccupancyMaxActiveBlocksPerMultiprocessor).
+extern "C" int mlp_block_ctas_per_sm(int tile_n, int* ctas) {
+  switch (tile_n) {
+    case 128: return ctas_per_sm<128>(ctas);
+    case 96: return ctas_per_sm<96>(ctas);
+  }
   return (int)cudaErrorInvalidValue;
 }

@@ -42,6 +42,7 @@
 
 #include "attention_mma.cuh"
 #include "common.cuh"
+#include "cp_async.cuh"
 
 namespace {
 
@@ -172,15 +173,6 @@ int launch_f32(const void* q, const void* k, const void* v, const float* bias, v
 // ---------------------------------------------------------------------------
 
 template <int KT16> __host__ __device__ constexpr int ring_buffers() { return KT16 <= 9 ? 3 : 2; }
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool ok) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(mma::smem_addr(smem)),
-               "l"(gmem), "r"(ok ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int N> __device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
 
 template <int KT16, int KD>
 __global__ void __launch_bounds__(32 * KT16)

@@ -11,12 +11,16 @@ without printing the result line):
 
   1. card: nvidia-smi name and power limit, torch / CUDA versions;
   2. build: the three CUDA sources with nvcc (one process each, in parallel);
-     the tensor-core instructions (HMMA) in the SASS of K1 and K3, which
+     the tensor-core instructions (HMMA) in the SASS of K1, K2 and K3, which
      must be there (their bf16 code runs on mma.sync);
   3. window-attention kernel vs its plain version at every main-path shape,
      float32 (rtol 1e-4, atol 1e-5) and bfloat16 (|d| <= 2e-2 (1 + |ref|)
      against the float32 plain version of the same bf16 inputs);
-  4. MLP-block kernel vs its plain version, the same way (TF32 off);
+  4. MLP-block kernel vs its plain version, the same way (TF32 off); per
+     shape also its two products alone at each output tile width (the one
+     the wrapper picks marked) and, as a products-only yardstick, two
+     cuBLAS bf16 products (F.linear fc1, F.linear fc2: no GELU, no LN, no
+     residual, so not a call that computes the block);
   5. block-chain kernel vs its plain version at every chain geometry of the
      chain path (seeded blocks), float32 (|d| <= 1e-4 + 1e-4 |ref|) and
      bfloat16 (|d| <= K3_BF16_TOL (1 + |ref|) against the float32 plain
@@ -158,7 +162,7 @@ def phase_build():
     log(f"[build] {secs:.1f} s; ptxas: " + " | ".join(regs))
     cuobjdump = Path(_build.nvcc_path()).with_name("cuobjdump")
     hmma = {}
-    for name in ("window_attention", "block_chain"):
+    for name in ("window_attention", "mlp_block", "block_chain"):
         sass = subprocess.run([str(cuobjdump), "-sass", str(_build.library_path(name))],
                               capture_output=True, text=True, check=True, timeout=300).stdout
         hmma[name] = sum(1 for ln in sass.splitlines() if "HMMA" in ln)
@@ -201,11 +205,17 @@ def phase_k1(gen):
 
 
 def phase_k2(gen):
-    from avmoe_tpu_torch.kernels.mlp_block import mlp_block, mlp_block_plain
+    from avmoe_tpu_torch.kernels.mlp_block import (
+        TILE_WIDTHS, busiest_sm_tiles, ctas_per_sm, mlp_block, mlp_block_plain, pick_tile,
+        product_bf16, sm_count)
 
     dev = "cuda"
+    sms = sm_count(torch.cuda.current_device())
+    log(f"[K2] {sms} SMs; CTAs per SM of the product kernel by tile width: "
+        + ", ".join(f"{w}: {ctas_per_sm(w)}" for w in TILE_WIDTHS))
     max_err = 0.0
-    tot = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, bytes=0.0, ops=0.0)
+    tot = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, products_ms=0.0, cublas_ms=0.0,
+               bytes=0.0, ops=0.0)
     for R, C, pre, calls in k2_shapes(BATCH * 10):
         Hd = 4 * C
         x32 = torch.randn(R, C, device=dev, generator=gen)
@@ -226,14 +236,37 @@ def phase_k2(gen):
         max_err = max(max_err, err)
         ms = time_ms(lambda: mlp_block(x, lw, lb, w1h, b1, w2h, b2, pre_norm=pre))
         plain_ms = time_ms(lambda: mlp_block_plain(x, lw, lb, w1h, b1, w2h, b2, pre_norm=pre))
+        cublas_ms = time_ms(lambda: F.linear(F.linear(x, w1h), w2h))
+        # the products alone, fc1 (GELU) then fc2 (+ b2, + x on V1), at each width
+        picks = (pick_tile(R, Hd, C, sms), pick_tile(R, C, Hd, sms))
+        hid = product_bf16(x, w1h, b1, epi=1, tile=picks[0])
+        by_width = []
+        for w in TILE_WIDTHS:
+            fc1 = time_ms(lambda: product_bf16(x, w1h, b1, epi=1, tile=w))
+            fc2 = time_ms(lambda: product_bf16(hid, w2h, b2, epi=2 if pre else 0, tile=w,
+                                               resid=x if pre else None))
+            by_width.append((w, fc1, fc2))
+        products_ms = (next(t for w, t, _ in by_width if w == picks[0])
+                       + next(t for w, _, t in by_width if w == picks[1]))
         nbytes = 2 * R * C * 2 + 2 * C * Hd * 2 + (Hd + 3 * C) * 4
         ops = 4 * R * C * Hd
         b_ms, b_by = bound(nbytes, ops, BF16_FLOPS)
         log(f"[K2] rows,C={shape} x{calls}/fwd  bf16 {ms:.4f} ms  plain {plain_ms:.4f} ms  "
-            f"bound {b_ms:.4f} ms ({b_by})  err {err:.2e}")
+            f"bound {b_ms:.4f} ms ({b_by})  err {err:.2e}  tiles fc1 {picks[0]} fc2 "
+            f"{picks[1]}: products alone {products_ms:.4f} ms "
+            f"({ops / products_ms / 1e9:.1f} TFLOP/s)  cuBLAS products only (no GELU, LN, "
+            f"residual) {cublas_ms:.4f} ms")
+        log("[K2]   products alone by tile width, ms (busiest SM's tiles): " + "; ".join(
+            f"{w}: fc1 {f1:.4f} ({busiest_sm_tiles(R, Hd, w, sms)}) fc2 {f2:.4f} "
+            f"({busiest_sm_tiles(R, C, w, sms)})" for w, f1, f2 in by_width))
         for key, val in (("ms", ms), ("plain_ms", plain_ms), ("bound_ms", b_ms),
+                         ("products_ms", products_ms), ("cublas_ms", cublas_ms),
                          ("bytes", nbytes), ("ops", ops)):
             tot[key] += calls * val
+        del x32, x, hid, ref
+    log(f"[K2] per forward: {tot['ms']:.3f} ms, of which products alone {tot['products_ms']:.3f} "
+        f"ms; plain {tot['plain_ms']:.3f} ms; cuBLAS products only {tot['cublas_ms']:.3f} ms; "
+        f"bound {tot['bound_ms']:.3f} ms")
     return max_err, tot
 
 
@@ -534,7 +567,7 @@ def phase_profile(model, label: str, wave, imgs, fwd_ms: float, iters: int = 3) 
     # first matching group wins
     rules = (("K3 block_chain", ("block_chain_kernel",)),
              ("K1 window_attention", ("window_attention_",)),
-             ("K2 mlp_block", ("gemm_nt_", "rows_kernel")),
+             ("K2 mlp_block", ("mlp_gemm_", "mlp_rows")),
              ("library GEMM", ("gemm", "xmma", "cutlass", "sm90_")),
              ("softmax/reductions", ("softmax", "reduce")),
              ("copies/casts", ("copy", "Memcpy", "Memset", "cat")),
@@ -553,13 +586,13 @@ def phase_profile(model, label: str, wave, imgs, fwd_ms: float, iters: int = 3) 
 
 
 def _kernel_entry(name: str, source: str, replaces: str, launches: int, err: float, tot,
-                  library_ms):
+                  library_ms, **extra):
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches, "max_abs_err": err, "ms": tot["ms"],
             "plain_ms": tot["plain_ms"], "bound_ms": tot["bound_ms"],
             "bound_by": "bytes" if tot["bytes"] / HBM_BYTES_PER_S
             >= tot["ops"] / BF16_FLOPS else "operations",
-            "library_ms": library_ms}
+            "library_ms": library_ms, **extra}
 
 
 def main():
@@ -582,9 +615,12 @@ def main():
         _kernel_entry("window_attention", "avmoe_tpu_torch/csrc/window_attention.cu",
                       "experiments/pallas/window_attn.py:55", default["K1"], k1_err, k1_tot,
                       k1_tot["library_ms"]),
+        # no PyTorch call computes the block; its two cuBLAS products alone
+        # (no GELU, LN or residual) are a yardstick under a key of their own
         _kernel_entry("mlp_block", "avmoe_tpu_torch/csrc/mlp_block.cu",
                       "experiments/pallas/fused_block.py:315", default["K2"], k2_err, k2_tot,
-                      None),
+                      None, products_ms=k2_tot["products_ms"],
+                      cublas_products_only_ms=k2_tot["cublas_ms"]),
         _kernel_entry("block_chain", "avmoe_tpu_torch/csrc/block_chain.cu",
                       "experiments/pallas/fused_block.py:237", chain["K3"], k3_err, k3_tot,
                       None),

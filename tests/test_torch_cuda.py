@@ -24,7 +24,8 @@ from torch_port_harness import attn_inputs
 
 from avmoe_tpu_torch.kernels.block_chain import (
     block_chain, block_chain_plain, chain_groups, stack_chain)
-from avmoe_tpu_torch.kernels.mlp_block import mlp_block, mlp_block_plain
+from avmoe_tpu_torch.kernels.mlp_block import (
+    TILE_WIDTHS, mlp_block, mlp_block_plain, pick_tile, product_bf16)
 from avmoe_tpu_torch.models.ave import init_parameters
 from avmoe_tpu_torch.ops.swin import SwinBlock, partition_windows
 from avmoe_tpu_torch.kernels.window_attention import window_attention, window_attention_plain
@@ -77,11 +78,19 @@ def test_cuda_window_attention_matches_plain(cuda_device, dtype, nW, B, H, N, D)
     _check(out, window_attention_plain(q.float(), k.float(), v.float(), bias), dtype)
 
 
+# (R, C): every main-path width with R not a multiple of the 128-row tile;
+# (1450, 1536) is full depth (K = 6144 in fc2) at about Swin-V2 stage 3's
+# batch-4 rows; (777, 200) a width whose K is no multiple of the 32-deep step
+_MLP_CASES = [(1000, 96), (2900, 192), (1700, 384), (700, 768), (300, 1536), (1450, 1536),
+              (777, 200)]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("pre_norm", [True, False])
-def test_cuda_mlp_block_matches_plain(cuda_device, dtype, pre_norm):
-    x, lw, lb, w1, b1, w2, b2 = (t.to(cuda_device) for t in _mlp_args(R=1000, C=96))
+@pytest.mark.parametrize("R,C", _MLP_CASES)
+def test_cuda_mlp_block_matches_plain(cuda_device, dtype, pre_norm, R, C):
+    x, lw, lb, w1, b1, w2, b2 = (t.to(cuda_device) for t in _mlp_args(R=R, C=C))
     before = mlp_block.launches
     out = mlp_block(x.to(dtype), lw, lb, w1.to(dtype), b1, w2.to(dtype), b2,
                     pre_norm=pre_norm)
@@ -92,6 +101,36 @@ def test_cuda_mlp_block_matches_plain(cuda_device, dtype, pre_norm):
     _check(out, ref, dtype)
 
 
+def test_mlp_block_cases_reach_every_tile_width():
+    # on an H100's 132 SMs the picks of test_cuda_mlp_block_matches_plain's
+    # cases (fc1: N = 4C, fc2: N = C) take every width the kernel has
+    picked = {pick_tile(R, n, k, 132) for R, C in _MLP_CASES
+              for n, k in ((4 * C, C), (C, 4 * C))}
+    assert picked == set(TILE_WIDTHS)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("epi", [0, 1, 2])
+@pytest.mark.parametrize("width", TILE_WIDTHS)
+def test_cuda_mlp_product_matches_plain_at_every_tile_width(cuda_device, width, epi):
+    # M, N and K ragged against the 128-row tile, every width and the
+    # 32-deep step
+    g = torch.Generator().manual_seed(8)
+    M, N, K = 1000, 200, 392
+    a = torch.randn(M, K, generator=g).bfloat16().to(cuda_device)
+    w = (torch.randn(N, K, generator=g) / K ** 0.5).bfloat16().to(cuda_device)
+    bias = (0.1 * torch.randn(N, generator=g)).to(cuda_device)
+    resid = torch.randn(M, N, generator=g).bfloat16().to(cuda_device)
+    out = product_bf16(a, w, bias, epi=epi, tile=width, resid=resid if epi == 2 else None)
+    torch.cuda.synchronize()
+    ref = a.float() @ w.float().t() + bias
+    if epi == 1:
+        ref = torch.nn.functional.gelu(ref, approximate="none")
+    if epi == 2:
+        ref = ref + resid.float()
+    _check(out, ref, torch.bfloat16)
+
+
 @pytest.mark.cuda
 def test_cuda_wrappers_raise_instead_of_falling_back(cuda_device):
     q = torch.zeros(1, 1, 300, 8, device=cuda_device)
@@ -100,6 +139,25 @@ def test_cuda_wrappers_raise_instead_of_falling_back(cuda_device):
     x, lw, lb, w1, b1, w2, b2 = (t.to(cuda_device) for t in _mlp_args(R=8, C=16))
     with pytest.raises(ValueError, match="on cpu"):
         mlp_block(x, lw.cpu(), lb, w1, b1, w2, b2, pre_norm=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pre_norm", [True, False])
+def test_cuda_mlp_block_bf16_raises_on_rows_the_kernel_cannot_load(cuda_device, pre_norm):
+    # the bf16 kernel loads 16-byte chunks: C % 8 != 0, or x off a 16-byte
+    # boundary, is refused with a ValueError and runs nothing else
+    bf = torch.bfloat16
+    x, lw, lb, w1, b1, w2, b2 = (t.to(cuda_device) for t in _mlp_args(R=8, C=12))
+    before = mlp_block.launches
+    with pytest.raises(ValueError, match="C % 8"):
+        mlp_block(x.to(bf), lw, lb, w1.to(bf), b1, w2.to(bf), b2, pre_norm=pre_norm)
+    x, lw, lb, w1, b1, w2, b2 = (t.to(cuda_device) for t in _mlp_args(R=8, C=16))
+    flat = torch.zeros(8 * 16 + 1, dtype=bf, device=cuda_device)
+    shifted = flat[1:].view(8, 16)               # contiguous, 2 bytes off the boundary
+    shifted.copy_(x.to(bf))
+    with pytest.raises(ValueError, match="16-byte"):
+        mlp_block(shifted, lw, lb, w1.to(bf), b1, w2.to(bf), b2, pre_norm=pre_norm)
+    assert mlp_block.launches == before
 
 
 def _chain_blocks(version, res, window, depth, device):

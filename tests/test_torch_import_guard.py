@@ -1,6 +1,6 @@
-"""The port imports no JAX: no module under avmoe_tpu_torch/ and not
-chip_smoke.py imports jax, flax, optax or the JAX package avmoe_tpu
-(avmoe_tpu_torch itself is allowed)."""
+"""The port imports no JAX: no module under avmoe_tpu_torch/, not
+chip_smoke.py and not the port's chip tools under tools/ import jax, flax,
+optax or the JAX package avmoe_tpu (avmoe_tpu_torch itself is allowed)."""
 
 from __future__ import annotations
 
@@ -11,7 +11,9 @@ import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "avmoe_tpu"}
-SOURCES = sorted((ROOT / "avmoe_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+SOURCES = sorted((ROOT / "avmoe_tpu_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py", ROOT / "tools" / "k2_tile_variants.py",
+    ROOT / "tools" / "k3_phase_ablation.py"]
 
 
 def _imported_roots(tree: ast.AST):

@@ -1,13 +1,18 @@
 """chip_smoke.py's per-shape plans add up to the launches the injection plan
 gives one forward, so the per-forward kernel totals it reports (and PERF.md
-quotes) cannot drift from the model. CPU only, no kernel is built."""
+quotes) cannot drift from the model; K2's output-tile pick at those shapes.
+CPU only, no kernel is built."""
 
 from __future__ import annotations
+
+import math
 
 import pytest
 
 import chip_smoke
 from avmoe_tpu_torch.config import AVEConfig
+from avmoe_tpu_torch.kernels.mlp_block import (
+    TILE_ROWS, TILE_WIDTHS, busiest_sm_tiles, pick_tile, product_seconds)
 from avmoe_tpu_torch.moe.injection import kernel_launches
 
 _FRAMES = chip_smoke.BATCH * 10
@@ -22,3 +27,21 @@ def test_chip_smoke_shapes_sum_to_the_planned_launches(kernel, chains, calls, wa
     cfg = AVEConfig()
     planned = kernel_launches(cfg.swin, cfg.htsat, cfg.injection, chains)[kernel]
     assert sum(calls()) == planned == want
+
+
+@pytest.mark.parametrize("sms", [132, 114])
+def test_k2_tile_pick_covers_the_output_and_loads_no_sm_more_than_128_wide_tiles(sms):
+    # every bf16 product of the main path (fc1: N = 4C, K = C; fc2: N = C,
+    # K = 4C) on an H100 SXM (132 SMs) and PCIe (114 SMs)
+    for R, C, _, _ in chip_smoke.k2_shapes(_FRAMES):
+        for N, K in ((4 * C, C), (C, 4 * C)):
+            w = pick_tile(R, N, K, sms)
+            assert w in TILE_WIDTHS
+            rows, cols = math.ceil(R / TILE_ROWS), math.ceil(N / w)
+            assert rows * TILE_ROWS >= R and cols * w >= N
+            assert (rows - 1) * TILE_ROWS < R and (cols - 1) * w < N
+            # the output columns the busiest SM computes
+            assert (busiest_sm_tiles(R, N, w, sms) * w
+                    <= busiest_sm_tiles(R, N, 128, sms) * 128), (R, N, w)
+            assert (product_seconds(R, N, K, w, sms)
+                    <= product_seconds(R, N, K, 128, sms)), (R, N, K, w)
