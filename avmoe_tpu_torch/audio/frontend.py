@@ -1,19 +1,22 @@
 """Audio front end: waveform -> log-mel -> HTS-AT spectrogram image.
 
-Counterpart of `avmoe_tpu/audio/frontend.py` (eval path). The constant
-matrices are built once on the host with numpy (own copies of the JAX
-package's builders); the transforms are GEMMs against them:
+Counterpart of `avmoe_tpu/audio/frontend.py`. The constant matrices are
+built once on the host with numpy (own copies of the JAX package's
+builders); the transforms are GEMMs against them:
 
   * STFT as frames @ windowed real-DFT basis (center=True, reflect pad);
   * Slaney mel filterbank as a matmul, then power_to_db;
   * torch-compatible bicubic (align_corners=True) time stretch as a matmul,
-    then the HTS-AT frequency fold as reshapes.
+    then the HTS-AT frequency fold as reshapes;
+  * train-time augmentation: SpecAugment stripes and batch mixup. The random
+    draws (`stripe_mask`, `get_mix_lambda`) take an explicit generator; the
+    ops themselves (`apply_spec_augment`, `mixup`) take the masks and λ.
 """
 
 from __future__ import annotations
 
 import functools
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -154,3 +157,52 @@ def reshape_wav2img(spec: torch.Tensor, spec_size: int, freq_ratio: int) -> torc
     x = x.transpose(2, 3)
     x = x.reshape(B, freq_ratio * target_f, spec_size)
     return x[..., None]
+
+
+def stripe_mask(generator: torch.Generator, batch: int, width: int, drop_width: int,
+                num_stripes: int, device) -> torch.Tensor:
+    """(batch, width) bool keep-mask with `num_stripes` zero stripes per row,
+    each of a width drawn from [0, drop_width) at a start drawn from
+    [0, width - stripe width] (torchlibrosa DropStripes)."""
+    dist = torch.randint(0, drop_width, (batch, num_stripes), generator=generator,
+                         device=device)
+    u = torch.rand((batch, num_stripes), generator=generator, device=device)
+    bgn = torch.floor(u * (width - dist + 1).float()).long()
+    pos = torch.arange(width, device=device)[None, None, :]
+    dropped = (pos >= bgn[..., None]) & (pos < (bgn + dist)[..., None])
+    return ~dropped.any(dim=1)
+
+
+def apply_spec_augment(spec: torch.Tensor, tmask: torch.Tensor,
+                       fmask: torch.Tensor) -> torch.Tensor:
+    """(B, T, F) log-mel with time stripes tmask (B, T) and frequency
+    stripes fmask (B, F) zeroed."""
+    return spec * tmask[:, :, None].to(spec.dtype) * fmask[:, None, :].to(spec.dtype)
+
+
+def spec_augment(generator: torch.Generator, spec: torch.Tensor,
+                 cfg: AudioFrontendConfig) -> torch.Tensor:
+    """SpecAugment time / frequency stripes on (B, T, F) log-mel (train only)."""
+    B, T, Fq = spec.shape
+    tmask = stripe_mask(generator, B, T, cfg.time_drop_width, cfg.time_stripes_num,
+                        spec.device)
+    fmask = stripe_mask(generator, B, Fq, cfg.freq_drop_width, cfg.freq_stripes_num,
+                        spec.device)
+    return apply_spec_augment(spec, tmask, fmask)
+
+
+def mixup(x: torch.Tensor, lam: torch.Tensor) -> torch.Tensor:
+    """Batch mixup against the flipped batch: x λ + flip(x) (1 − λ), λ (B,)."""
+    lam = lam.reshape((-1,) + (1,) * (x.dim() - 1)).to(x.dtype)
+    return x * lam + torch.flip(x, dims=(0,)) * (1.0 - lam)
+
+
+def get_mix_lambda(generator: torch.Generator, alpha: float, batch: int,
+                   device: Optional[torch.device] = None) -> torch.Tensor:
+    """(batch,) float32 Beta(alpha, alpha) mixing weights. torch's Beta
+    sampler takes no generator, so the draw is numpy's, seeded from
+    `generator`."""
+    seed = int(torch.randint(0, 2**31 - 1, (1,), generator=generator,
+                             device=generator.device).item())
+    lam = np.random.default_rng(seed).beta(alpha, alpha, batch).astype(np.float32)
+    return torch.from_numpy(lam).to(device if device is not None else generator.device)

@@ -1,7 +1,8 @@
-"""HTS-AT audio encoder (eval path).
+"""HTS-AT audio encoder.
 
 Counterpart of `avmoe_tpu/backbones/htsat.py`: waveform -> log-mel ->
-per-mel-bin BatchNorm (`bn0`) -> wav2img frequency fold -> patch embed ->
+per-mel-bin BatchNorm (`bn0`) -> [train: SpecAugment, mixup] -> wav2img
+frequency fold -> patch embed ->
 4 stages of Swin-V1 blocks with PatchMergingV1 downsamples, driven block
 by block by the lock-step engine (`moe/injection.py`). The encoder's
 `norm`, `tscam_conv` and `head` (standalone audio tagging) are not on the
@@ -10,7 +11,7 @@ AVE path and are not built; `load_jax_variables` skips those leaves.
 
 from __future__ import annotations
 
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
 import torch
 from torch import nn
@@ -20,6 +21,7 @@ from avmoe_tpu_torch.backbones.geometry import BlockSpec, stage_boundaries, swin
 from avmoe_tpu_torch.config import HTSATConfig
 from avmoe_tpu_torch.ops.norm import BatchNorm
 from avmoe_tpu_torch.ops.swin import PatchEmbed, PatchMergingV1, SwinBlock
+from avmoe_tpu_torch.utils.runtime import dropout_det
 
 
 class HTSATEncoder(nn.Module):
@@ -37,7 +39,9 @@ class HTSATEncoder(nn.Module):
         self.blocks: List[SwinBlock] = []
         for s in self.block_specs:
             blk = SwinBlock(s.dim, s.resolution, s.num_heads, s.window_size, s.shift_size,
-                            version="v1", mlp_ratio=cfg.mlp_ratio, qkv_bias=cfg.qkv_bias)
+                            version="v1", mlp_ratio=cfg.mlp_ratio, qkv_bias=cfg.qkv_bias,
+                            drop=cfg.drop_rate, attn_drop=cfg.attn_drop_rate,
+                            drop_path=s.drop_path)
             self.add_module(f"block_{s.stage}_{s.index_in_stage}", blk)
             self.blocks.append(blk)
         self.downsamples: List[PatchMergingV1] = []
@@ -57,13 +61,27 @@ class HTSATEncoder(nn.Module):
     def stage_ranges(self) -> List[Tuple[int, int]]:
         return stage_boundaries(self.cfg.depths)
 
-    def spectrogram_image(self, wave: torch.Tensor) -> torch.Tensor:
-        """(B, L) wave -> (B, S, S, 1) folded, bn0-normalized log-mel image."""
+    def spectrogram_image(self, wave: torch.Tensor, *, train: bool = False,
+                          mixup_lambda: Optional[torch.Tensor] = None,
+                          generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """(B, L) wave -> (B, S, S, 1) folded, bn0-normalized log-mel image.
+        In train bn0 takes batch statistics (and updates its running ones,
+        though its scale and bias are frozen), SpecAugment runs unless
+        dropout_det, and mixup runs when λ is given."""
         c = self.cfg
         spec = fe.log_mel_spectrogram(wave.float(), c.frontend)
-        spec = self.bn0(spec)
+        spec = self.bn0(spec, train=train)
+        if train and not dropout_det(train):
+            if generator is None:
+                raise ValueError("SpecAugment in train mode needs a torch.Generator")
+            spec = fe.spec_augment(generator, spec, c.frontend)
+        if train and mixup_lambda is not None:
+            spec = fe.mixup(spec, mixup_lambda)
         return fe.reshape_wav2img(spec, c.spec_size, c.freq_ratio).to(self.dtype)
 
-    def embed(self, wave: torch.Tensor) -> torch.Tensor:
+    def embed(self, wave: torch.Tensor, *, train: bool = False,
+              mixup_lambda: Optional[torch.Tensor] = None,
+              generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """wave -> (B, N0, embed_dim) patch tokens (lock-step entry point)."""
-        return self.patch_embed(self.spectrogram_image(wave))
+        return self.patch_embed(self.spectrogram_image(
+            wave, train=train, mixup_lambda=mixup_lambda, generator=generator))

@@ -30,7 +30,7 @@ class SwinV2Encoder(nn.Module):
         for s in self.block_specs:
             blk = SwinBlock(s.dim, s.resolution, s.num_heads, s.window_size, s.shift_size,
                             version="v2", mlp_ratio=cfg.mlp_ratio,
-                            pretrained_window=s.pretrained_window)
+                            pretrained_window=s.pretrained_window, drop_path=s.drop_path)
             self.add_module(f"block_{s.stage}_{s.index_in_stage}", blk)
             self.blocks.append(blk)
         self.downsamples: List[PatchMergingV2] = []

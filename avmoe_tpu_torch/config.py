@@ -1,4 +1,4 @@
-"""Configuration of the AVE eval forward, as plain frozen dataclasses.
+"""Configuration of the AVE model and its training, as plain frozen dataclasses.
 
 Field names and defaults mirror the JAX package's `avmoe_tpu/config.py` so a
 configuration reads the same in both packages. Fields that only select a
@@ -150,6 +150,17 @@ class AVEConfig:
     htsat: HTSATConfig = field(default_factory=HTSATConfig)
     moe: MoEConfig = field(default_factory=MoEConfig)
     injection: InjectionConfig = field(default_factory=InjectionConfig)
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    """The optimizer's settings of the JAX package's TrainConfig."""
+
+    accum_steps: int = 8
+    lr: float = 5e-4
+    lr_mlp: float = 5e-6
+    decay: float = 0.35            # StepLR gamma
+    decay_epoch: int = 3           # StepLR step size, in epochs
 
 
 def _tiny_frontend() -> AudioFrontendConfig:

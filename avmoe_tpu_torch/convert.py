@@ -17,6 +17,11 @@ flax subtree a/b/c, and only the leaf layout differs:
 Every port tensor must be set and every flax leaf used, except the subtrees
 a module lists in its `flax_off_path` (HTS-AT's norm, tscam_conv, head,
 which the AVE forward never reads); anything else raises.
+
+`export_jax_variables(model)` is the way back: the port's parameters and
+running statistics as a flax tree of numpy arrays (optionally only the
+trainable parameters), for comparing the two packages' states after
+training.
 """
 
 from __future__ import annotations
@@ -114,3 +119,51 @@ def load_jax_variables(model: nn.Module, variables: Mapping) -> None:
     unused = sorted("/".join(k) for k in set(src.leaves) - src.used if not off(k))
     if unused:
         raise ValueError(f"{len(unused)} flax leaves unused by the port: {unused[:10]}")
+
+
+def _leaves(mod: nn.Module, name: str, value: np.ndarray) -> Iterable[Tuple[str, Path, np.ndarray]]:
+    """(collection, leaf path under the module, array) of one port tensor:
+    the inverse of `_value`."""
+    if isinstance(mod, nn.Linear):
+        yield "params", ("kernel",) if name == "weight" else ("bias",), (
+            value.T if name == "weight" else value)
+    elif isinstance(mod, nn.Conv2d):
+        yield "params", ("kernel",) if name == "weight" else ("bias",), (
+            value.transpose(2, 3, 1, 0) if name == "weight" else value)
+    elif isinstance(mod, (LayerNorm, BatchNorm)) and name in ("running_mean", "running_var"):
+        yield "batch_stats", ("mean",) if name == "running_mean" else ("var",), value
+    elif isinstance(mod, (LayerNorm, BatchNorm)):
+        yield "params", ("scale",) if name == "weight" else ("bias",), value
+    elif isinstance(mod, LSTMCell):
+        for gate, part in zip("ifgo", np.split(value, 4, axis=0)):
+            if name == "weight_ih":
+                yield "params", (f"i{gate}", "kernel"), part.T
+            elif name == "weight_hh":
+                yield "params", (f"h{gate}", "kernel"), part.T
+            else:
+                yield "params", (f"h{gate}", "bias"), part
+    else:
+        yield "params", (name,), value
+
+
+@torch.no_grad()
+def export_jax_variables(model: nn.Module, trainable_only: bool = False) -> Dict[str, Dict]:
+    """{"params": ..., "batch_stats": ...} of the port as nested dicts of
+    float32 numpy arrays in the flax layout; with trainable_only, the params
+    are those `train/freeze.py` trains (the batch stats are all kept)."""
+    from avmoe_tpu_torch.train.freeze import is_trainable_path
+
+    out: Dict[str, Dict] = {"params": {}, "batch_stats": {}}
+    for mod_name, mod in model.named_modules():
+        prefix = tuple(mod_name.split(".")) if mod_name else ()
+        for name, tensor in _port_tensors(mod):
+            value = tensor.detach().float().cpu().numpy()
+            for col, leaf, arr in _leaves(mod, name, value):
+                path = prefix + leaf
+                if col == "params" and trainable_only and not is_trainable_path(path):
+                    continue
+                node = out[col]
+                for part in path[:-1]:
+                    node = node.setdefault(part, {})
+                node[path[-1]] = np.ascontiguousarray(arr)
+    return out

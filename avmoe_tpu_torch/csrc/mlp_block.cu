@@ -41,6 +41,23 @@
 // The bf16 path requires C % 8 == 0 and 16-byte aligned x, w1, w2 (every
 // row of every operand then starts on a 16-byte boundary); the wrapper
 // checks it and raises otherwise.
+//
+// DropPath scale (train). With a per-frame float32 scale s (row r belongs to
+// frame r / rows_per_frame) the block is out = x + s (.) branch: V1 scales in
+// fc2's epilogue, V2 in the LN row pass. Without one, the kernels and
+// numbers above are unchanged (the scaled ones are other instantiations).
+//
+// K2b, the backward (mlp_block_bwd): dx only, the weights frozen. With
+// g = s (.) dy:
+//   V2: recompute h1 = x w1^T + b1, a = gelu(h1) (one product, both kept),
+//       h2 = a w2^T + b2; d_h2 = LN-backward(g; h2) (row pass);
+//       d_h1 = (d_h2 w2) (.) gelu'(h1); dx = dy + d_h1 w1
+//   V1: recompute LN(x) (row pass), h1 = LN(x) w1^T + b1;
+//       d_h1 = (g w2) (.) gelu'(h1); dx = dy + LN-backward(d_h1 w1; x)
+// Every product is the forward's NT kernel: the backward ones take B as the
+// transposed copies w1t = w1^T (C, Hd) and w2t = w2^T (Hd, C), which the
+// wrapper keeps once per model and dtype. New epilogues: keep both h1 and
+// gelu(h1); x gelu'(h1) (and x s on V1); + dy without a bias; none.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -55,8 +72,44 @@ namespace {
 
 using namespace avmoe;
 
-// epilogues of a product: + bias; GELU(+ bias); + bias + residual
-constexpr int kEpiBias = 0, kEpiGelu = 1, kEpiResid = 2;
+// epilogues of a product, v = sum_k A[m, k] B[n, k]:
+//   kEpiBias       v + bias
+//   kEpiGelu       gelu(v + bias)
+//   kEpiResid      v + bias + resid
+//   kEpiResidScale s[m / rpf] (v + bias) + resid          (V1 fc2, DropPath)
+//   kEpiGeluSave   gelu(v + bias), and v + bias into out2  (K2b recompute)
+//   kEpiGeluGrad   v gelu'(aux) [s[m / rpf]], aux in resid (K2b)
+//   kEpiAdd        v + resid                               (K2b dx)
+//   kEpiPlain      v                                       (K2b)
+constexpr int kEpiBias = 0, kEpiGelu = 1, kEpiResid = 2, kEpiResidScale = 3, kEpiGeluSave = 4,
+              kEpiGeluGrad = 5, kEpiAdd = 6, kEpiPlain = 7;
+
+template <int EPI> __host__ __device__ constexpr bool has_bias() { return EPI <= kEpiGeluSave; }
+
+// what the epilogues beyond bias and resid read: the per-frame scale (null:
+// none), rows per frame, and kEpiGeluSave's second output
+template <typename T> struct EpiExtra {
+  const float* scale;
+  int rpf;
+  T* out2;
+};
+
+__device__ __forceinline__ float gelu_erf_grad(float x) {
+  const float cdf = 0.5f * (1.f + erff(x * 0.70710678118654752f));
+  return fmaf(x * 0.39894228040143268f, expf(-0.5f * x * x), cdf);
+}
+
+// the element epilogue after bias / GELU: resid (or aux) and scale applied
+template <int EPI, typename T>
+__device__ __forceinline__ float finish(float v, float r, int row, const EpiExtra<T>& ex) {
+  if (EPI == kEpiResid || EPI == kEpiAdd) return v + r;
+  if (EPI == kEpiResidScale) return fmaf(ex.scale[row / ex.rpf], v, r);
+  if (EPI == kEpiGeluGrad) {
+    v *= gelu_erf_grad(r);
+    return ex.scale ? v * ex.scale[row / ex.rpf] : v;
+  }
+  return v;
+}
 
 // ---------------------------------------------------------------------------
 // bf16 product on the tensor cores: C[m, n] = epi(sum_k A[m, k] B[n, k] + bias[n])
@@ -86,7 +139,7 @@ template <int BN, int EPI>
 __global__ void __launch_bounds__(TileShape<BN>::THREADS, 2)
 mlp_gemm_bf16(const bf16* __restrict__ A, const bf16* __restrict__ B,
               const float* __restrict__ bias, const bf16* __restrict__ resid,
-              bf16* __restrict__ C, int M, int N, int K) {
+              bf16* __restrict__ C, int M, int N, int K, EpiExtra<bf16> ex) {
   using S = TileShape<BN>;
   constexpr int MF = S::MF, NF = S::NF, BM = S::BM, THREADS = S::THREADS;
   static_assert(S::BN == BN && NF % 2 == 0 && THREADS % kChunksK == 0,
@@ -194,8 +247,9 @@ mlp_gemm_bf16(const bf16* __restrict__ A, const bf16* __restrict__ B,
 #pragma unroll
   for (int j = 0; j < NF; ++j) {
     const int cl = (wn * NF + j) * 8 + 2 * t;
-    const float2 bb = n0 + cl < N ? *reinterpret_cast<const float2*>(bias + n0 + cl)
-                                  : make_float2(0.f, 0.f);
+    const float2 bb = has_bias<EPI>() && n0 + cl < N
+                          ? *reinterpret_cast<const float2*>(bias + n0 + cl)
+                          : make_float2(0.f, 0.f);
 #pragma unroll
     for (int i = 0; i < MF; ++i) {
       const int rl = (wm * MF + i) * 16 + g;
@@ -224,6 +278,25 @@ mlp_gemm_bf16(const bf16* __restrict__ A, const bf16* __restrict__ B,
         v[2 * e] += f.x;
         v[2 * e + 1] += f.y;
       }
+    } else if (EPI == kEpiResidScale || EPI == kEpiGeluGrad || EPI == kEpiAdd) {
+      const uint4 x = *reinterpret_cast<const uint4*>(resid + idx);
+      const __nv_bfloat162* xp = reinterpret_cast<const __nv_bfloat162*>(&x);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float2 f = __bfloat1622float2(xp[e]);
+        v[2 * e] = finish<EPI>(v[2 * e], f.x, m0 + rl, ex);
+        v[2 * e + 1] = finish<EPI>(v[2 * e + 1], f.y, m0 + rl, ex);
+      }
+    } else if (EPI == kEpiGeluSave) {
+      uint4 o2;
+      unsigned* op2 = reinterpret_cast<unsigned*>(&o2);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        op2[e] = mma::pack_bf16(v[2 * e], v[2 * e + 1]);
+        v[2 * e] = gelu_erf(v[2 * e]);
+        v[2 * e + 1] = gelu_erf(v[2 * e + 1]);
+      }
+      *reinterpret_cast<uint4*>(ex.out2 + idx) = o2;
     }
     uint4 o;
     unsigned* op = reinterpret_cast<unsigned*>(&o);
@@ -235,7 +308,7 @@ mlp_gemm_bf16(const bf16* __restrict__ A, const bf16* __restrict__ B,
 
 template <int BN, int EPI>
 int launch_bf16(const bf16* A, const bf16* B, const float* bias, const bf16* resid, bf16* C,
-                int M, int N, int K, cudaStream_t stream) {
+                int M, int N, int K, const EpiExtra<bf16>& ex, cudaStream_t stream) {
   const int mtiles = (M + TileShape<BN>::BM - 1) / TileShape<BN>::BM;
   if (mtiles > 65535) return (int)cudaErrorInvalidValue;
   constexpr size_t smem = TileShape<BN>::SMEM;
@@ -250,19 +323,21 @@ int launch_bf16(const bf16* A, const bf16* B, const float* bias, const bf16* res
   }
   dim3 grid((N + BN - 1) / BN, mtiles);
   mlp_gemm_bf16<BN, EPI><<<grid, TileShape<BN>::THREADS, smem, stream>>>(A, B, bias, resid, C,
-                                                                         M, N, K);
+                                                                         M, N, K, ex);
   return (int)cudaGetLastError();
 }
 
 template <int EPI>
 int gemm_bf16(int tile_n, const void* A, const void* B, const float* bias, const void* resid,
-              void* C, int M, int N, int K, cudaStream_t s) {
+              void* C, int M, int N, int K, cudaStream_t s, const float* scale = nullptr,
+              int rpf = 1, void* out2 = nullptr) {
   const bf16 *a = static_cast<const bf16*>(A), *b = static_cast<const bf16*>(B);
   const bf16* r = static_cast<const bf16*>(resid);
   bf16* c = static_cast<bf16*>(C);
+  const EpiExtra<bf16> ex{scale, rpf, static_cast<bf16*>(out2)};
   switch (tile_n) {
-    case 128: return launch_bf16<128, EPI>(a, b, bias, r, c, M, N, K, s);
-    case 96: return launch_bf16<96, EPI>(a, b, bias, r, c, M, N, K, s);
+    case 128: return launch_bf16<128, EPI>(a, b, bias, r, c, M, N, K, ex, s);
+    case 96: return launch_bf16<96, EPI>(a, b, bias, r, c, M, N, K, ex, s);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -277,7 +352,7 @@ template <int EPI>
 __global__ void __launch_bounds__(256)
 mlp_gemm_f32(const float* __restrict__ A, const float* __restrict__ B,
              const float* __restrict__ bias, const float* __restrict__ resid,
-             float* __restrict__ C, int M, int N, int K) {
+             float* __restrict__ C, int M, int N, int K, EpiExtra<float> ex) {
   __shared__ float As[kSBK][kSBM + 4];
   __shared__ float Bs[kSBK][kSBN + 4];
   const int tid = threadIdx.x;
@@ -334,9 +409,16 @@ mlp_gemm_f32(const float* __restrict__ A, const float* __restrict__ B,
       const int gn = n0 + tx * 4 + j;
       if (gm >= M || gn >= N) continue;
       const size_t idx = (size_t)gm * N + gn;
-      float v = acc[i][j] + bias[gn];
+      float v = acc[i][j];
+      if (has_bias<EPI>()) v += bias[gn];
       if (EPI == kEpiGelu) v = gelu_erf(v);
       if (EPI == kEpiResid) v += resid[idx];
+      if (EPI == kEpiResidScale || EPI == kEpiGeluGrad || EPI == kEpiAdd)
+        v = finish<EPI>(v, resid[idx], gm, ex);
+      if (EPI == kEpiGeluSave) {
+        ex.out2[idx] = v;
+        v = gelu_erf(v);
+      }
       C[idx] = v;
     }
   }
@@ -344,19 +426,22 @@ mlp_gemm_f32(const float* __restrict__ A, const float* __restrict__ B,
 
 template <int EPI>
 int gemm_f32(const void* A, const void* B, const float* bias, const void* resid, void* C,
-             int M, int N, int K, cudaStream_t stream) {
+             int M, int N, int K, cudaStream_t stream, const float* scale = nullptr,
+             int rpf = 1, void* out2 = nullptr) {
   dim3 grid((M + kSBM - 1) / kSBM, (N + kSBN - 1) / kSBN);
+  const EpiExtra<float> ex{scale, rpf, static_cast<float*>(out2)};
   mlp_gemm_f32<EPI><<<grid, 256, 0, stream>>>(
       static_cast<const float*>(A), static_cast<const float*>(B), bias,
-      static_cast<const float*>(resid), static_cast<float*>(C), M, N, K);
+      static_cast<const float*>(resid), static_cast<float*>(C), M, N, K, ex);
   return (int)cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
 // Row pass, one warp per row, V elements (16 bytes where the row allows) a
 // lane per step:
-//   RESID false: out = LN(src)        (V1 pre-norm; src = x)
-//   RESID true:  out = x + LN(src)    (V2 post-norm + residual; src = fc2 output)
+//   RESID false: out = LN(src)              (V1 pre-norm; src = x)
+//   RESID true:  out = x + LN(src)          (V2 post-norm + residual; src = fc2 output)
+//   SCALE:       out = x + s[r / rpf] LN(src)  (V2 with a DropPath scale)
 // ---------------------------------------------------------------------------
 
 constexpr int kRowThreads = 256;
@@ -388,18 +473,14 @@ __device__ __forceinline__ void store_vec(T* p, const float (&v)[V]) {
   }
 }
 
-template <typename T, bool RESID, int V>
-__global__ void __launch_bounds__(kRowThreads)
-mlp_rows(const T* __restrict__ x, const T* __restrict__ src, const float* __restrict__ w,
-         const float* __restrict__ b, T* __restrict__ out, int R, int C, float eps) {
-  const int row = (blockIdx.x * kRowThreads + threadIdx.x) >> 5;
-  const int lane = threadIdx.x & 31;
-  if (row >= R) return;
-  const size_t base = (size_t)row * C;
+// float32 mean and 1 / sqrt(var + eps) of one row, var = E[v^2] - mean^2
+template <int V, typename T>
+__device__ __forceinline__ void row_stats(const T* src, int C, int lane, float eps, float& mean,
+                                          float& inv) {
   float sum = 0.f, sq = 0.f;
   for (int c = lane * V; c < C; c += 32 * V) {
     float v[V];
-    load_vec<V>(v, src + base + c);
+    load_vec<V>(v, src + c);
 #pragma unroll
     for (int i = 0; i < V; ++i) {
       sum += v[i];
@@ -408,8 +489,22 @@ mlp_rows(const T* __restrict__ x, const T* __restrict__ src, const float* __rest
   }
   sum = warp_sum(sum);
   sq = warp_sum(sq);
-  const float mean = sum / C;
-  const float inv = rsqrtf(fmaxf(sq / C - mean * mean, 0.f) + eps);
+  mean = sum / C;
+  inv = rsqrtf(fmaxf(sq / C - mean * mean, 0.f) + eps);
+}
+
+template <typename T, bool RESID, bool SCALE, int V>
+__global__ void __launch_bounds__(kRowThreads)
+mlp_rows(const T* __restrict__ x, const T* __restrict__ src, const float* __restrict__ w,
+         const float* __restrict__ b, T* __restrict__ out, int R, int C, float eps,
+         const float* __restrict__ scale, int rpf) {
+  const int row = (blockIdx.x * kRowThreads + threadIdx.x) >> 5;
+  const int lane = threadIdx.x & 31;
+  if (row >= R) return;
+  const size_t base = (size_t)row * C;
+  float mean, inv;
+  row_stats<V>(src + base, C, lane, eps, mean, inv);
+  const float s = SCALE ? scale[row / rpf] : 1.f;
   for (int c = lane * V; c < C; c += 32 * V) {
     float v[V];
     load_vec<V>(v, src + base + c);
@@ -419,7 +514,7 @@ mlp_rows(const T* __restrict__ x, const T* __restrict__ src, const float* __rest
       float r[V];
       load_vec<V>(r, x + base + c);
 #pragma unroll
-      for (int i = 0; i < V; ++i) v[i] += r[i];
+      for (int i = 0; i < V; ++i) v[i] = SCALE ? fmaf(s, v[i], r[i]) : v[i] + r[i];
     }
     store_vec<V>(out + base + c, v);
   }
@@ -427,43 +522,159 @@ mlp_rows(const T* __restrict__ x, const T* __restrict__ src, const float* __rest
 
 bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 
-template <typename T, bool RESID>
+template <typename T, bool RESID, bool SCALE = false>
 int launch_rows(const void* x, const void* src, const float* w, const float* b, void* out,
-                int R, int C, float eps, cudaStream_t stream) {
+                int R, int C, float eps, cudaStream_t stream, const float* scale = nullptr,
+                int rpf = 1) {
   constexpr int V = 16 / sizeof(T);
   const int grid = (R + kRowThreads / 32 - 1) / (kRowThreads / 32);
   const T* xs = static_cast<const T*>(x);
   const T* ss = static_cast<const T*>(src);
   T* o = static_cast<T*>(out);
   if (C % V == 0 && aligned16(x) && aligned16(src) && aligned16(out))
-    mlp_rows<T, RESID, V><<<grid, kRowThreads, 0, stream>>>(xs, ss, w, b, o, R, C, eps);
+    mlp_rows<T, RESID, SCALE, V><<<grid, kRowThreads, 0, stream>>>(xs, ss, w, b, o, R, C, eps,
+                                                                   scale, rpf);
   else
-    mlp_rows<T, RESID, 1><<<grid, kRowThreads, 0, stream>>>(xs, ss, w, b, o, R, C, eps);
+    mlp_rows<T, RESID, SCALE, 1><<<grid, kRowThreads, 0, stream>>>(xs, ss, w, b, o, R, C, eps,
+                                                                   scale, rpf);
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// LayerNorm-backward row pass (K2b), one warp per row: with y = LN(src) w + b
+// and its gradient dy = [s[r / rpf]] g,
+//   out = [resid +] inv (dxh - mean(dxh) - xh mean(dxh xh)),
+// xh = (src - mean) inv, dxh = dy w; statistics recomputed in float32 as the
+// forward computes them.
+// ---------------------------------------------------------------------------
+
+template <typename T, bool RESID, bool SCALE, int V>
+__global__ void __launch_bounds__(kRowThreads)
+ln_bwd_rows(const T* __restrict__ src, const T* __restrict__ g, const float* __restrict__ w,
+            const T* __restrict__ resid, T* __restrict__ out, int R, int C, float eps,
+            const float* __restrict__ scale, int rpf) {
+  const int row = (blockIdx.x * kRowThreads + threadIdx.x) >> 5;
+  const int lane = threadIdx.x & 31;
+  if (row >= R) return;
+  const size_t base = (size_t)row * C;
+  float mean, inv;
+  row_stats<V>(src + base, C, lane, eps, mean, inv);
+  const float s = SCALE ? scale[row / rpf] : 1.f;
+  float sd = 0.f, sdx = 0.f;
+  for (int c = lane * V; c < C; c += 32 * V) {
+    float v[V], d[V];
+    load_vec<V>(v, src + base + c);
+    load_vec<V>(d, g + base + c);
+#pragma unroll
+    for (int i = 0; i < V; ++i) {
+      const float dxh = s * d[i] * w[c + i];
+      sd += dxh;
+      sdx += dxh * (v[i] - mean) * inv;
+    }
+  }
+  sd = warp_sum(sd) / C;
+  sdx = warp_sum(sdx) / C;
+  for (int c = lane * V; c < C; c += 32 * V) {
+    float v[V], d[V];
+    load_vec<V>(v, src + base + c);
+    load_vec<V>(d, g + base + c);
+#pragma unroll
+    for (int i = 0; i < V; ++i) {
+      const float xh = (v[i] - mean) * inv;
+      d[i] = inv * (s * d[i] * w[c + i] - sd - xh * sdx);
+    }
+    if (RESID) {
+      float r[V];
+      load_vec<V>(r, resid + base + c);
+#pragma unroll
+      for (int i = 0; i < V; ++i) d[i] += r[i];
+    }
+    store_vec<V>(out + base + c, d);
+  }
+}
+
+template <typename T, bool RESID, bool SCALE>
+int launch_ln_bwd(const void* src, const void* g, const float* w, const void* resid, void* out,
+                  int R, int C, float eps, const float* scale, int rpf, cudaStream_t stream) {
+  constexpr int V = 16 / sizeof(T);
+  const int grid = (R + kRowThreads / 32 - 1) / (kRowThreads / 32);
+  const T* ss = static_cast<const T*>(src);
+  const T* gs = static_cast<const T*>(g);
+  const T* rs = static_cast<const T*>(resid);
+  T* o = static_cast<T*>(out);
+  if (C % V == 0 && aligned16(src) && aligned16(g) && aligned16(out) &&
+      (!RESID || aligned16(resid)))
+    ln_bwd_rows<T, RESID, SCALE, V><<<grid, kRowThreads, 0, stream>>>(ss, gs, w, rs, o, R, C,
+                                                                      eps, scale, rpf);
+  else
+    ln_bwd_rows<T, RESID, SCALE, 1><<<grid, kRowThreads, 0, stream>>>(ss, gs, w, rs, o, R, C,
+                                                                      eps, scale, rpf);
   return (int)cudaGetLastError();
 }
 
 template <int EPI>
 int gemm(int dtype, int tile_n, const void* A, const void* B, const float* bias,
-         const void* resid, void* C, int M, int N, int K, cudaStream_t s) {
-  if (dtype == 1) return gemm_bf16<EPI>(tile_n, A, B, bias, resid, C, M, N, K, s);
-  return gemm_f32<EPI>(A, B, bias, resid, C, M, N, K, s);
+         const void* resid, void* C, int M, int N, int K, cudaStream_t s,
+         const float* scale = nullptr, int rpf = 1, void* out2 = nullptr) {
+  if (dtype == 1)
+    return gemm_bf16<EPI>(tile_n, A, B, bias, resid, C, M, N, K, s, scale, rpf, out2);
+  return gemm_f32<EPI>(A, B, bias, resid, C, M, N, K, s, scale, rpf, out2);
 }
 
 template <typename T>
 int mlp_block(const void* x, const float* ln_w, const float* ln_b, const void* w1,
               const float* b1, const void* w2, const float* b2, void* h_ln, void* hid,
               void* f, void* out, int R, int C, int Hd, int pre_norm, int dtype, int tile1,
-              int tile2, float eps, cudaStream_t s) {
+              int tile2, float eps, const float* scale, int rpf, cudaStream_t s) {
   int err;
   if (pre_norm) {
     if ((err = launch_rows<T, false>(x, x, ln_w, ln_b, h_ln, R, C, eps, s))) return err;
     if ((err = gemm<kEpiGelu>(dtype, tile1, h_ln, w1, b1, nullptr, hid, R, Hd, C, s)))
       return err;
+    if (scale)
+      return gemm<kEpiResidScale>(dtype, tile2, hid, w2, b2, x, out, R, C, Hd, s, scale, rpf);
     return gemm<kEpiResid>(dtype, tile2, hid, w2, b2, x, out, R, C, Hd, s);
   }
   if ((err = gemm<kEpiGelu>(dtype, tile1, x, w1, b1, nullptr, hid, R, Hd, C, s))) return err;
   if ((err = gemm<kEpiBias>(dtype, tile2, hid, w2, b2, nullptr, f, R, C, Hd, s))) return err;
+  if (scale) return launch_rows<T, true, true>(x, f, ln_w, ln_b, out, R, C, eps, s, scale, rpf);
   return launch_rows<T, true>(x, f, ln_w, ln_b, out, R, C, eps, s);
+}
+
+// K2b: dx of the block (see the header). hA, hB (R, Hd) and cA, cB (R, C)
+// are scratch; tiles: the output tile widths of the products (R, Hd, C)
+// (fc1 and d_h1) and (R, C, Hd) (fc2 and dx).
+template <typename T>
+int mlp_block_bwd(const void* x, const void* dy, const float* ln_w, const float* ln_b,
+                  const void* w1, const float* b1, const void* w2, const float* b2,
+                  const void* w1t, const void* w2t, const float* scale, int rpf, void* hA,
+                  void* hB, void* cA, void* cB, void* dx, int R, int C, int Hd, int pre_norm,
+                  int dtype, int tile1, int tile2, float eps, cudaStream_t s) {
+  int err;
+  if (pre_norm) {
+    // cA = LN(x); hB = h1; hA = d_h1; cB = d_h1 w1
+    if ((err = launch_rows<T, false>(x, x, ln_w, ln_b, cA, R, C, eps, s))) return err;
+    if ((err = gemm<kEpiBias>(dtype, tile1, cA, w1, b1, nullptr, hB, R, Hd, C, s))) return err;
+    if ((err = gemm<kEpiGeluGrad>(dtype, tile1, dy, w2t, nullptr, hB, hA, R, Hd, C, s, scale,
+                                  rpf)))
+      return err;
+    if ((err = gemm<kEpiPlain>(dtype, tile2, hA, w1t, nullptr, nullptr, cB, R, C, Hd, s)))
+      return err;
+    return launch_ln_bwd<T, true, false>(x, cB, ln_w, dy, dx, R, C, eps, nullptr, 1, s);
+  }
+  // hA = gelu(h1), hB = h1; cA = h2; cB = d_h2; hA = d_h1
+  if ((err = gemm<kEpiGeluSave>(dtype, tile1, x, w1, b1, nullptr, hA, R, Hd, C, s, nullptr, 1,
+                                hB)))
+    return err;
+  if ((err = gemm<kEpiBias>(dtype, tile2, hA, w2, b2, nullptr, cA, R, C, Hd, s))) return err;
+  if (scale)
+    err = launch_ln_bwd<T, false, true>(cA, dy, ln_w, nullptr, cB, R, C, eps, scale, rpf, s);
+  else
+    err = launch_ln_bwd<T, false, false>(cA, dy, ln_w, nullptr, cB, R, C, eps, nullptr, 1, s);
+  if (err) return err;
+  if ((err = gemm<kEpiGeluGrad>(dtype, tile1, cB, w2t, nullptr, hB, hA, R, Hd, C, s)))
+    return err;
+  return gemm<kEpiAdd>(dtype, tile2, hA, w1t, nullptr, dy, dx, R, C, Hd, s);
 }
 
 template <int BN>
@@ -483,14 +694,16 @@ int ctas_per_sm(int* ctas) {
 // dtype: 0 = float32, 1 = bfloat16. h_ln (R, C) is scratch for the V1
 // pre-norm (null when pre_norm is 0), hid (R, Hd) for fc1's output, f (R, C)
 // for V2's fc2 output (null when pre_norm is 1). tile1 / tile2: the output
-// tile width (128 or 96) of fc1 and fc2 in bf16, ignored in float32.
-// Returns a cudaError_t (0 on success).
+// tile width (128 or 96) of fc1 and fc2 in bf16, ignored in float32. scale:
+// null, or the float32 per-frame DropPath scale, row r reading
+// scale[r / rows_per_frame]. Returns a cudaError_t (0 on success).
 extern "C" int mlp_block_fwd(const void* x, const void* ln_w, const void* ln_b,
                              const void* w1, const void* b1, const void* w2, const void* b2,
                              void* h_ln, void* hid, void* f, void* out, int R, int C, int Hd,
                              int pre_norm, int dtype, int tile1, int tile2, float eps,
-                             void* stream) {
-  if (R < 1 || C < 1 || Hd < 1 || (pre_norm ? h_ln == nullptr : f == nullptr))
+                             const void* scale, int rows_per_frame, void* stream) {
+  if (R < 1 || C < 1 || Hd < 1 || (pre_norm ? h_ln == nullptr : f == nullptr) ||
+      (scale && (rows_per_frame < 1 || R % rows_per_frame)))
     return (int)cudaErrorInvalidValue;
   if (dtype == 1 && (C % 8 || Hd % 8 || !aligned16(x) || !aligned16(w1) || !aligned16(w2)))
     return (int)cudaErrorInvalidValue;
@@ -499,30 +712,84 @@ extern "C" int mlp_block_fwd(const void* x, const void* ln_w, const void* ln_b,
   const float* lb = static_cast<const float*>(ln_b);
   const float* fb1 = static_cast<const float*>(b1);
   const float* fb2 = static_cast<const float*>(b2);
+  const float* sc = static_cast<const float*>(scale);
   if (dtype == 0)
     return mlp_block<float>(x, lw, lb, w1, fb1, w2, fb2, h_ln, hid, f, out, R, C, Hd,
-                            pre_norm, 0, tile1, tile2, eps, s);
+                            pre_norm, 0, tile1, tile2, eps, sc, rows_per_frame, s);
   if (dtype == 1)
     return mlp_block<bf16>(x, lw, lb, w1, fb1, w2, fb2, h_ln, hid, f, out, R, C, Hd,
-                           pre_norm, 1, tile1, tile2, eps, s);
+                           pre_norm, 1, tile1, tile2, eps, sc, rows_per_frame, s);
   return (int)cudaErrorInvalidValue;
 }
 
-// One bf16 product of the block alone, C = epi(A B^T + bias) with epi 0
-// (+ bias), 1 (GELU) or 2 (+ bias + resid), at output tile width tile_n:
-// the same kernel the block launches, exported to time the products apart
-// from the row passes.
+// K2b: dx (R, C) of mlp_block_fwd's out for the gradient dy (R, C), the
+// weights frozen. w1t (C, Hd) and w2t (Hd, C) are the transposed weights;
+// hA, hB (R, Hd) and cA, cB (R, C) scratch; scale and rows_per_frame as in
+// mlp_block_fwd; tile1 for the (R, Hd, C) products, tile2 for the (R, C, Hd)
+// ones. Returns a cudaError_t (0 on success).
+extern "C" int mlp_block_bwd(const void* x, const void* dy, const void* ln_w, const void* ln_b,
+                             const void* w1, const void* b1, const void* w2, const void* b2,
+                             const void* w1t, const void* w2t, const void* scale,
+                             int rows_per_frame, void* hA, void* hB, void* cA, void* cB,
+                             void* dx, int R, int C, int Hd, int pre_norm, int dtype, int tile1,
+                             int tile2, float eps, void* stream) {
+  if (R < 1 || C < 1 || Hd < 1 || (scale && (rows_per_frame < 1 || R % rows_per_frame)))
+    return (int)cudaErrorInvalidValue;
+  if (dtype == 1 && (C % 8 || Hd % 8 || !aligned16(x) || !aligned16(dy) || !aligned16(w1) ||
+                     !aligned16(w2) || !aligned16(w1t) || !aligned16(w2t) || !aligned16(hA) ||
+                     !aligned16(hB) || !aligned16(cA) || !aligned16(cB) || !aligned16(dx)))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* lw = static_cast<const float*>(ln_w);
+  const float* lb = static_cast<const float*>(ln_b);
+  const float* fb1 = static_cast<const float*>(b1);
+  const float* fb2 = static_cast<const float*>(b2);
+  const float* sc = static_cast<const float*>(scale);
+  if (dtype == 0)
+    return mlp_block_bwd<float>(x, dy, lw, lb, w1, fb1, w2, fb2, w1t, w2t, sc, rows_per_frame,
+                                hA, hB, cA, cB, dx, R, C, Hd, pre_norm, 0, tile1, tile2, eps, s);
+  if (dtype == 1)
+    return mlp_block_bwd<bf16>(x, dy, lw, lb, w1, fb1, w2, fb2, w1t, w2t, sc, rows_per_frame,
+                               hA, hB, cA, cB, dx, R, C, Hd, pre_norm, 1, tile1, tile2, eps, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// One bf16 product of the block alone, C = epi(A B^T [+ bias]) with one of
+// the epilogues (kEpi* codes 0 to 7), at output tile width tile_n: the
+// kernel mlp_block_fwd and mlp_block_bwd launch, exported to time the
+// products apart from the row passes. resid is the residual (codes 2, 3, 6)
+// or the GELU input h1 (code 5), out2 code 4's second output, scale /
+// rows_per_frame the per-frame scale (code 3, and optional on code 5).
 extern "C" int mlp_block_gemm_bf16(const void* A, const void* B, const void* bias,
-                                   const void* resid, void* C, int M, int N, int K, int epi,
+                                   const void* resid, void* C, void* out2, const void* scale,
+                                   int rows_per_frame, int M, int N, int K, int epi,
                                    int tile_n, void* stream) {
-  if (M < 1 || N < 1 || K < 1 || K % 8 || N % 8 || (epi == kEpiResid && resid == nullptr) ||
-      !aligned16(A) || !aligned16(B) || !aligned16(C) || (resid && !aligned16(resid)))
+  const bool need_resid = epi == kEpiResid || epi == kEpiResidScale || epi == kEpiGeluGrad ||
+                          epi == kEpiAdd;
+  if (M < 1 || N < 1 || K < 1 || K % 8 || N % 8 || epi < 0 || epi > kEpiPlain ||
+      (need_resid && resid == nullptr) || (epi <= kEpiGeluSave && bias == nullptr) ||
+      (epi == kEpiGeluSave && out2 == nullptr) || (epi == kEpiResidScale && scale == nullptr) ||
+      (scale && (rows_per_frame < 1 || M % rows_per_frame)) || !aligned16(A) ||
+      !aligned16(B) || !aligned16(C) || (resid && !aligned16(resid)) ||
+      (out2 && !aligned16(out2)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* b = static_cast<const float*>(bias);
-  if (epi == kEpiBias) return gemm_bf16<kEpiBias>(tile_n, A, B, b, resid, C, M, N, K, s);
-  if (epi == kEpiGelu) return gemm_bf16<kEpiGelu>(tile_n, A, B, b, resid, C, M, N, K, s);
-  if (epi == kEpiResid) return gemm_bf16<kEpiResid>(tile_n, A, B, b, resid, C, M, N, K, s);
+  const float* sc = static_cast<const float*>(scale);
+  const int r = rows_per_frame;
+  switch (epi) {
+    case kEpiBias: return gemm_bf16<kEpiBias>(tile_n, A, B, b, resid, C, M, N, K, s);
+    case kEpiGelu: return gemm_bf16<kEpiGelu>(tile_n, A, B, b, resid, C, M, N, K, s);
+    case kEpiResid: return gemm_bf16<kEpiResid>(tile_n, A, B, b, resid, C, M, N, K, s);
+    case kEpiResidScale:
+      return gemm_bf16<kEpiResidScale>(tile_n, A, B, b, resid, C, M, N, K, s, sc, r);
+    case kEpiGeluSave:
+      return gemm_bf16<kEpiGeluSave>(tile_n, A, B, b, resid, C, M, N, K, s, nullptr, 1, out2);
+    case kEpiGeluGrad:
+      return gemm_bf16<kEpiGeluGrad>(tile_n, A, B, b, resid, C, M, N, K, s, sc, r);
+    case kEpiAdd: return gemm_bf16<kEpiAdd>(tile_n, A, B, b, resid, C, M, N, K, s);
+    case kEpiPlain: return gemm_bf16<kEpiPlain>(tile_n, A, B, b, resid, C, M, N, K, s);
+  }
   return (int)cudaErrorInvalidValue;
 }
 

@@ -1,4 +1,4 @@
-"""AVE task head: temporal attention + CMBS localization (eval path).
+"""AVE task head: temporal attention + CMBS localization.
 
 Counterpart of `avmoe_tpu/heads/ave.py`. `AudioVideoInter` (used only with
 is_inter_in_cmbs=True) is not ported yet.
@@ -6,11 +6,14 @@ is_inter_in_cmbs=True) is not ported yet.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from avmoe_tpu_torch.heads.common import BiLSTM, TransformerDecoder, TransformerEncoder
+from avmoe_tpu_torch.ops.dropout import dropout
 
 
 class TemporalAttention(nn.Module):
@@ -37,15 +40,18 @@ class TemporalAttention(nn.Module):
         self.audio_gated = nn.Linear(d_model, 1)
         self.video_gated = nn.Linear(d_model, 1)
 
-    def forward(self, visual: torch.Tensor, audio: torch.Tensor):
+    def forward(self, visual: torch.Tensor, audio: torch.Tensor, train: bool = False,
+                generator: Optional[torch.Generator] = None):
         audio = self.a_fc(audio)
-        visual = F.relu(self.v_fc(visual))
+        visual = dropout(F.relu(self.v_fc(visual)), 0.2, train=train, generator=generator)
         audio_rnn = self.audio_rnn(audio)
         visual_rnn = self.visual_rnn(visual)
-        video_kv = self.video_encoder(self.video_enc_affine(visual_rnn))
-        audio_kv = self.audio_encoder(self.audio_enc_affine(audio_rnn))
-        audio_q = self.audio_decoder(self.audio_dec_affine(audio_rnn), video_kv)
-        video_q = self.video_decoder(self.video_dec_affine(visual_rnn), audio_kv)
+        video_kv = self.video_encoder(self.video_enc_affine(visual_rnn), train, generator)
+        audio_kv = self.audio_encoder(self.audio_enc_affine(audio_rnn), train, generator)
+        audio_q = self.audio_decoder(self.audio_dec_affine(audio_rnn), video_kv, train,
+                                     generator)
+        video_q = self.video_decoder(self.video_dec_affine(visual_rnn), audio_kv, train,
+                                     generator)
         audio_gate = torch.sigmoid(self.audio_gated(audio_kv))
         video_gate = torch.sigmoid(self.video_gated(video_kv))
         video_q = video_q + audio_gate * video_q * self.gamma

@@ -1,7 +1,9 @@
 """Post-norm transformer encoder/decoder stacks and the BiLSTM of the heads.
 
-Counterpart of `avmoe_tpu/heads/common.py` (eval path; dropout is the
-identity). Attention follows flax's MultiHeadDotProductAttention: per-head
+Counterpart of `avmoe_tpu/heads/common.py`. Dropout (rate 0.1 by default:
+attention weights, both residual branches and the feed-forward hidden) runs
+in train mode only, from an explicit generator. Attention follows flax's
+MultiHeadDotProductAttention: per-head
 query/key/value projections with (C, H, D) kernels and an (H, D, C) output
 projection, q scaled by D**-0.5. The decoder's keys and values are the
 concatenation of memory and target.
@@ -10,12 +12,16 @@ concatenation of memory and target.
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from avmoe_tpu_torch.ops.dropout import dropout
 from avmoe_tpu_torch.ops.norm import LayerNorm
+
+Gen = Optional[torch.Generator]
 
 
 class DenseGeneral(nn.Module):
@@ -36,44 +42,56 @@ class MultiHeadAttention(nn.Module):
         self.value = DenseGeneral((d_model, num_heads, D), (num_heads, D))
         self.out = DenseGeneral((num_heads, D, d_model), (d_model,))
 
-    def forward(self, q_in: torch.Tensor, kv_in: torch.Tensor) -> torch.Tensor:
+    def forward(self, q_in: torch.Tensor, kv_in: torch.Tensor, *, rate: float = 0.0,
+                train: bool = False, generator: Gen = None) -> torch.Tensor:
         def proj(m, x):
             return torch.einsum("btc,chd->bthd", x, m.kernel) + m.bias
 
         q, k, v = proj(self.query, q_in), proj(self.key, kv_in), proj(self.value, kv_in)
         q = q / math.sqrt(q.shape[-1])
         w = torch.softmax(torch.einsum("bqhd,bkhd->bhqk", q, k), dim=-1)
+        w = dropout(w, rate, train=train, generator=generator)
         o = torch.einsum("bhqk,bkhd->bqhd", w, v)
         return torch.einsum("bqhd,hdc->bqc", o, self.out.kernel) + self.out.bias
 
 
 class EncoderLayer(nn.Module):
-    def __init__(self, d_model: int, nhead: int, dim_feedforward: int = 1024):
+    def __init__(self, d_model: int, nhead: int, dim_feedforward: int = 1024,
+                 dropout: float = 0.1):
         super().__init__()
+        self.rate = dropout
         self.self_attn = MultiHeadAttention(d_model, nhead)
         self.norm1 = LayerNorm(d_model)
         self.ff1 = nn.Linear(d_model, dim_feedforward)
         self.ff2 = nn.Linear(dim_feedforward, d_model)
         self.norm2 = LayerNorm(d_model)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = self.norm1(x + self.self_attn(x, x))
-        return self.norm2(x + self.ff2(F.relu(self.ff1(x))))
+    def forward(self, x: torch.Tensor, train: bool = False, generator: Gen = None
+                ) -> torch.Tensor:
+        drop = lambda t: dropout(t, self.rate, train=train, generator=generator)
+        x = self.norm1(x + drop(self.self_attn(x, x, rate=self.rate, train=train,
+                                               generator=generator)))
+        return self.norm2(x + drop(self.ff2(drop(F.relu(self.ff1(x))))))
 
 
 class DecoderLayer(nn.Module):
-    def __init__(self, d_model: int, nhead: int, dim_feedforward: int = 1024):
+    def __init__(self, d_model: int, nhead: int, dim_feedforward: int = 1024,
+                 dropout: float = 0.1):
         super().__init__()
+        self.rate = dropout
         self.cross_attn = MultiHeadAttention(d_model, nhead)
         self.norm1 = LayerNorm(d_model)
         self.ff1 = nn.Linear(d_model, dim_feedforward)
         self.ff2 = nn.Linear(dim_feedforward, d_model)
         self.norm2 = LayerNorm(d_model)
 
-    def forward(self, tgt: torch.Tensor, memory: torch.Tensor) -> torch.Tensor:
+    def forward(self, tgt: torch.Tensor, memory: torch.Tensor, train: bool = False,
+                generator: Gen = None) -> torch.Tensor:
+        drop = lambda t: dropout(t, self.rate, train=train, generator=generator)
         mem = torch.cat([memory, tgt], dim=1)  # keys/values include the target
-        tgt = self.norm1(tgt + self.cross_attn(tgt, mem))
-        return self.norm2(tgt + self.ff2(F.relu(self.ff1(tgt))))
+        tgt = self.norm1(tgt + drop(self.cross_attn(tgt, mem, rate=self.rate, train=train,
+                                                    generator=generator)))
+        return self.norm2(tgt + drop(self.ff2(drop(F.relu(self.ff1(tgt))))))
 
 
 class TransformerEncoder(nn.Module):
@@ -85,9 +103,10 @@ class TransformerEncoder(nn.Module):
             self.add_module(f"layer_{i}", layer)
             self.layers.append(layer)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False, generator: Gen = None
+                ) -> torch.Tensor:
         for layer in self.layers:
-            x = layer(x)
+            x = layer(x, train, generator)
         return x
 
 
@@ -100,9 +119,10 @@ class TransformerDecoder(nn.Module):
             self.add_module(f"layer_{i}", layer)
             self.layers.append(layer)
 
-    def forward(self, tgt: torch.Tensor, memory: torch.Tensor) -> torch.Tensor:
+    def forward(self, tgt: torch.Tensor, memory: torch.Tensor, train: bool = False,
+                generator: Gen = None) -> torch.Tensor:
         for layer in self.layers:
-            tgt = layer(tgt, memory)
+            tgt = layer(tgt, memory, train, generator)
         return tgt
 
 

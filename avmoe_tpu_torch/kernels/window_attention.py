@@ -13,6 +13,14 @@ Contract (that of the TPU kernel):
            float32 (in bf16 the kernel runs q kᵀ and p v on the tensor cores
            and rounds p to bf16 for p v, as the JAX package's XLA attention
            does)
+
+Training. Where q, k or v needs a gradient, the call goes through an
+autograd Function whose backward is K1b (`csrc/window_attention_bwd.cu`;
+plain version `window_attention_backward_plain`): dq, dk and dv from q, k,
+v, the bias, the output and its gradient, P recomputed in float32. The bias
+is frozen (a table or CPB MLP of the frozen backbone): on the card a bias
+that needs a gradient raises; on the CPU that case takes plain autograd.
+K1b takes N <= 144 and D <= 64 (every main-path and tiny shape).
 """
 
 from __future__ import annotations
@@ -22,21 +30,44 @@ import ctypes
 import torch
 
 from avmoe_tpu_torch.kernels import _build
+from avmoe_tpu_torch.ops.norm import upcast
 
 MAX_N = 256
 MAX_D = 64
+BWD_MAX_N = 144   # K1b holds a (window, head) in one CTA's shared memory
+BWD_MAX_D = 64
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _probs(q: torch.Tensor, k: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    """softmax(q kᵀ + bias[bw % nW]) in float32 (float64 for float64 q)."""
+    BW, H, N, D = q.shape
+    nW = bias.shape[0]
+    logits = torch.matmul(upcast(q), upcast(k).transpose(-1, -2))
+    logits = (logits.reshape(BW // nW, nW, H, N, N) + upcast(bias)[None]).reshape(BW, H, N, N)
+    return torch.softmax(logits, dim=-1)
 
 
 def window_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            bias: torch.Tensor) -> torch.Tensor:
-    """Plain PyTorch version of the kernel (same contract)."""
-    BW, H, N, D = q.shape
-    nW = bias.shape[0]
-    logits = torch.matmul(q.float(), k.float().transpose(-1, -2))
-    logits = (logits.reshape(BW // nW, nW, H, N, N) + bias.float()[None]).reshape(BW, H, N, N)
-    p = torch.softmax(logits, dim=-1)
-    return torch.matmul(p, v.float()).to(q.dtype)
+    """Plain PyTorch version of the kernel (same contract; float64 inputs
+    stay float64)."""
+    return torch.matmul(_probs(q, k, bias), upcast(v)).to(q.dtype)
+
+
+def window_attention_backward_plain(q, k, v, bias, out, dout):
+    """Plain PyTorch version of K1b, by the kernel's formulas in float32:
+    P = softmax(q kᵀ + bias), D = rowsum(dO ∘ O), dv = Pᵀ dO, dP = dO vᵀ,
+    dS = P ∘ (dP − D), dq = dS k, dk = dSᵀ q; returned in q's dtype (float64
+    stays float64)."""
+    qf, kf, vf, dof = upcast(q), upcast(k), upcast(v), upcast(dout)
+    p = _probs(q, k, bias)
+    d = (dof * upcast(out)).sum(dim=-1, keepdim=True)
+    dv = torch.matmul(p.transpose(-1, -2), dof)
+    ds = p * (torch.matmul(dof, vf.transpose(-1, -2)) - d)
+    dq = torch.matmul(ds, kf)
+    dk = torch.matmul(ds.transpose(-1, -2), qf)
+    return dq.to(q.dtype), dk.to(q.dtype), dv.to(q.dtype)
 
 
 def _check(q, k, v, bias) -> None:
@@ -72,8 +103,76 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
+def _bwd_library() -> ctypes.CDLL:
+    lib = _build.load("window_attention_bwd")
+    fn = lib.window_attention_bwd
+    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return lib
+
+
+def check_backward_shape(N: int, D: int) -> None:
+    if not (1 <= N <= BWD_MAX_N and 1 <= D <= BWD_MAX_D):
+        raise ValueError(f"the window-attention backward kernel takes N <= {BWD_MAX_N} and "
+                         f"D <= {BWD_MAX_D}, got N={N}, D={D}")
+
+
+class WindowAttentionBackward:
+    """Callable wrapper of K1b: (q, k, v, bias, out, dout) -> (dq, dk, dv);
+    `launches` counts kernel launches."""
+
+    def __init__(self):
+        self.launches = 0
+
+    def __call__(self, q, k, v, bias, out, dout):
+        _check(q, k, v, bias)
+        for name, t in (("out", out), ("dout", dout)):
+            if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device:
+                raise ValueError(f"{name} {tuple(t.shape)} {t.dtype} {t.device} does not "
+                                 f"match q {tuple(q.shape)} {q.dtype} {q.device}")
+            if not t.is_contiguous():
+                raise ValueError(f"{name} must be contiguous")
+        if q.device.type == "cpu":
+            return window_attention_backward_plain(q, k, v, bias, out, dout)
+        if q.device.type != "cuda":
+            raise ValueError(f"window_attention_bwd: unsupported device {q.device}")
+        BW, H, N, D = q.shape
+        check_backward_shape(N, D)
+        lib = _bwd_library()
+        dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.window_attention_bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(), out.data_ptr(),
+            dout.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            BW, H, N, D, bias.shape[0], _DTYPE_CODE[q.dtype], stream)
+        if err != 0:
+            raise RuntimeError(f"window_attention_bwd kernel failed: CUDA error {err}")
+        self.launches += 1
+        return dq, dk, dv
+
+
+window_attention_bwd = WindowAttentionBackward()
+
+
+class _WindowAttentionFn(torch.autograd.Function):
+    """K1 forward, K1b backward (input gradients only; the bias is frozen)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, bias):
+        out = window_attention.forward_only(q, k, v, bias)
+        ctx.save_for_backward(q, k, v, bias, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, bias, out = ctx.saved_tensors
+        dq, dk, dv = window_attention_bwd(q, k, v, bias, out, dout.contiguous())
+        return dq, dk, dv, None
+
+
 class WindowAttention:
-    """Callable wrapper of the kernel; `launches` counts kernel launches."""
+    """Callable wrapper of the kernel; `launches` counts kernel launches.
+    Where q, k or v needs a gradient the call is differentiable through K1b."""
 
     def __init__(self):
         self.launches = 0
@@ -81,6 +180,21 @@ class WindowAttention:
     def __call__(self, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  bias: torch.Tensor) -> torch.Tensor:
         _check(q, k, v, bias)
+        if not (torch.is_grad_enabled()
+                and (q.requires_grad or k.requires_grad or v.requires_grad)):
+            return self.forward_only(q, k, v, bias)
+        if bias.requires_grad:
+            if q.device.type == "cpu":
+                return window_attention_plain(q, k, v, bias)
+            raise ValueError("window_attention: the backward kernel gives no bias gradient; "
+                             "the bias must be frozen (requires_grad=False)")
+        if q.device.type == "cuda":
+            check_backward_shape(q.shape[2], q.shape[3])
+        return _WindowAttentionFn.apply(q, k, v, bias)
+
+    def forward_only(self, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     bias: torch.Tensor) -> torch.Tensor:
+        """The kernel (plain version on the CPU), no autograd."""
         if q.device.type == "cpu":
             return window_attention_plain(q, k, v, bias)
         if q.device.type != "cuda":

@@ -1,4 +1,4 @@
-"""AVE: audio-visual event localization model, eval forward.
+"""AVE: audio-visual event localization model.
 
 Counterpart of `avmoe_tpu/models/ave.py`. Inputs are batch-first and
 channels-last, as in the JAX package:
@@ -12,6 +12,14 @@ av_score (B, cls), telemetry (per-site gating probs, lb_loss).
 The encoder runs in the model's compute dtype (float32 or bfloat16, master
 weights float32); the pooled features enter the heads as float32, as the
 JAX package's heads promote them.
+
+`forward(..., train=False)` is the eval forward, under torch.no_grad.
+`forward(..., train=True, mixup_lambda=..., generator=...)` is the train
+forward: batch-statistics norms (updating the running stats in place),
+dropout, DropPath and SpecAugment drawn from `generator` (a torch.Generator
+on the model's device), mixup with the given per-frame λ. It runs on the
+default path only; `make_ave_loss_fn` builds the loss of a train step
+(`train/steps.py`).
 """
 
 from __future__ import annotations
@@ -23,9 +31,11 @@ import torch
 from torch import nn
 
 from avmoe_tpu_torch import resolve_device
+from avmoe_tpu_torch.audio.frontend import get_mix_lambda
 from avmoe_tpu_torch.config import AVEConfig
 from avmoe_tpu_torch.heads.ave import CMBSHead, TemporalAttention
 from avmoe_tpu_torch.heads.common import DenseGeneral, LSTMCell
+from avmoe_tpu_torch.losses.ave import ave_loss
 from avmoe_tpu_torch.metrics.ave import ave_accuracy
 from avmoe_tpu_torch.moe.adapter import GroupedDense, MoEAdapter
 from avmoe_tpu_torch.moe.injection import LockstepEncoder
@@ -60,16 +70,47 @@ class AVEModel(nn.Module):
             gen.manual_seed(seed)
             init_parameters(self, gen)
 
-    @torch.no_grad()
-    def forward(self, wave: torch.Tensor, images: torch.Tensor) -> Dict:
+    def forward(self, wave: torch.Tensor, images: torch.Tensor, *, train: bool = False,
+                mixup_lambda: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None) -> Dict:
+        if not train:
+            with torch.no_grad():
+                return self._forward(wave, images, False, None, None)
+        return self._forward(wave, images, True, mixup_lambda, generator)
+
+    def _forward(self, wave, images, train: bool, mixup_lambda, generator) -> Dict:
         B, T = wave.shape[0], wave.shape[1]
         f_v, f_a, telemetry = self.encoder(
-            wave.reshape(B * T, -1), images.reshape((B * T,) + tuple(images.shape[2:])))
+            wave.reshape(B * T, -1), images.reshape((B * T,) + tuple(images.shape[2:])),
+            train=train, mixup_lambda=mixup_lambda, generator=generator)
         visual, audio, _ = self.temporal_attn(f_v.float().reshape(B, T, -1),
-                                              f_a.float().reshape(B, T, -1))
+                                              f_a.float().reshape(B, T, -1), train, generator)
         is_event_logits, event_logits, av_score = self.cmbs(visual, audio)
         return {"is_event_logits": is_event_logits, "event_logits": event_logits,
                 "av_score": av_score, "telemetry": telemetry}
+
+
+def make_ave_loss_fn(model: AVEModel, lb_weight: float = 0.0, mixup_alpha: float = 0.5):
+    """Loss closure of a train step: (model, batch, generator) -> (loss, aux),
+    loss = BCE + 2 CE (+ lb_weight LB), accuracy in aux. Without a
+    `mixup_lambda` in the batch, λ is drawn per frame from Beta(α, α) with
+    α = mixup_alpha (0 turns mixup off)."""
+    del model  # the step passes the model it trains
+
+    def loss_fn(model: AVEModel, batch: Dict, generator: Optional[torch.Generator]):
+        lam = batch.get("mixup_lambda")
+        if lam is None and mixup_alpha > 0 and generator is not None:
+            B, T = batch["wave"].shape[0], batch["wave"].shape[1]
+            lam = get_mix_lambda(generator, mixup_alpha, B * T, device=batch["wave"].device)
+        out = model(batch["wave"], batch["images"], train=True, mixup_lambda=lam,
+                    generator=generator)
+        loss, aux = ave_loss(out, batch["labels"], lb_weight)
+        with torch.no_grad():
+            aux["accuracy"] = ave_accuracy(out["is_event_logits"], out["event_logits"],
+                                           batch["labels"])
+        return loss, aux
+
+    return loss_fn
 
 
 def make_ave_eval_fn(model: AVEModel) -> Callable[[Dict], Dict]:

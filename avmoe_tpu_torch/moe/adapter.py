@@ -1,17 +1,19 @@
-"""AVMoE adapter experts and the soft router (eval path).
+"""AVMoE adapter experts and the soft router.
 
 Counterpart of `avmoe_tpu/moe/adapter.py`. Expert parameters are stored
 stacked with a leading expert axis E, as the JAX package's `nn.vmap` stores
 them, and the experts run as one batched computation over that axis. The
 mixture is the materialized dense one: every expert's (B, N, C) output,
 weighted by the router's softmax gates. That is the same function as the
-JAX package's fused eval combine.
+JAX package's fused eval combine, and, in train, the function of its
+unfused train path (AVMOE_FUSED_MOE_TRAIN unset): the bottleneck's batch
+norms run on batch statistics over each expert's (B, N) rows.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -60,15 +62,15 @@ class _Bottleneck(nn.Module):
             self.bn1 = BatchNorm(hidden, stack=(num,))
             self.bn2 = BatchNorm(dim, stack=(num,))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         z = self.down(x)
         if self.use_bn:
-            z = self.bn1(z)
+            z = self.bn1(z, train=train)
         if self.use_activation:
             z = F.relu(z)
         out = self.up(z)
         if self.use_bn:
-            out = self.bn2(out)
+            out = self.bn2(out, train=train)
         return out
 
 
@@ -87,10 +89,10 @@ class _Expert(nn.Module):
             self.ln_post = LayerNorm(dim, stack=(num,))
         self.bottleneck = _Bottleneck(dim, cfg, use_activation, num)
 
-    def _tail(self, x: torch.Tensor) -> torch.Tensor:
+    def _tail(self, x: torch.Tensor, train: bool) -> torch.Tensor:
         if self.cfg.before_layernorm:
             x = self.ln_before(x)
-        out = self.bottleneck(x)
+        out = self.bottleneck(x, train)
         if self.cfg.post_layernorm:
             out = self.ln_post(out)
         if self.cfg.use_gate:
@@ -107,7 +109,7 @@ class CrossModalExpert(_Expert):
         self.latent_tokens = nn.Parameter(torch.zeros(num, cfg.num_tokens, dim))
         self.gate_av = nn.Parameter(torch.zeros(num, 1))
 
-    def forward(self, x: torch.Tensor, other: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, other: torch.Tensor, train: bool = False) -> torch.Tensor:
         """x (B, N, C), other (B, M, C) -> (E, B, N, C)."""
         dt = x.dtype
         B = x.shape[0]
@@ -121,7 +123,7 @@ class CrossModalExpert(_Expert):
             torch.einsum("bnc,ebtc->ebnt", x.float(), rep.float()), dim=-1).to(dt)
         delta = torch.einsum("ebnt,ebtc->ebnc", att_t2x, rep)
         xe = x[None] + _per_expert(self.gate_av, 4).to(dt) * delta
-        return self._tail(xe)
+        return self._tail(xe, train)
 
 
 class UnimodalExpert(_Expert):
@@ -133,10 +135,10 @@ class UnimodalExpert(_Expert):
                 f"self_attention={cfg.self_attention!r}: only 'none' (AVE) is ported")
         super().__init__(dim, cfg, num, use_activation=False)
 
-    def forward(self, x: torch.Tensor, other: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, other: torch.Tensor, train: bool = False) -> torch.Tensor:
         del other
         E = self.bottleneck.down.kernel.shape[0]
-        return self._tail(x[None].expand(E, *x.shape))
+        return self._tail(x[None].expand(E, *x.shape), train)
 
 
 class MoEAdapter(nn.Module):
@@ -145,7 +147,8 @@ class MoEAdapter(nn.Module):
     1. project the other modality into this modality's (N, C) shape
        (token-axis dense then channel dense; the two commute, so the cheaper
        order is taken and the token bias is folded through fc's column sums);
-    2. route on mean-pooled features of both, in float32;
+    2. route on mean-pooled features of both, in float32 (train adds the
+       configured Gaussian router noise, drawn from the generator);
     3. weight every expert's output by the softmax gates.
 
     Returns (out (B, N, C), aux) with aux['gating_probs'] (B, E),
@@ -187,7 +190,8 @@ class MoEAdapter(nn.Module):
                   + self.fc_bias[None, :])
         return proj + folded.to(dt)[None]
 
-    def forward(self, x: torch.Tensor, other: torch.Tensor
+    def forward(self, x: torch.Tensor, other: torch.Tensor, train: bool = False,
+                generator: Optional[torch.Generator] = None
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         B, N, C = x.shape
         if N != self.num_tokens or C != self.dim:
@@ -198,13 +202,19 @@ class MoEAdapter(nn.Module):
         h = torch.cat([x.mean(dim=1), other_proj.mean(dim=1)], dim=-1).float()
         for i in range(len(self.cfg.router_hidden)):
             h = F.relu(getattr(self, f"router_fc{i}")(h))
-        probs = torch.softmax(self.router_out(h), dim=-1)            # (B, E)
+        logits = self.router_out(h)
+        if train and self.cfg.router_noise_std > 0:
+            if generator is None:
+                raise ValueError("router noise in train mode needs a torch.Generator")
+            logits = logits + self.cfg.router_noise_std * torch.randn(
+                logits.shape, generator=generator, device=logits.device)
+        probs = torch.softmax(logits, dim=-1)                        # (B, E)
 
         outs = []
         if self.cfg.num_multimodal_experts > 0:
-            outs.append(self.multimodal_experts(x, other_proj))
+            outs.append(self.multimodal_experts(x, other_proj, train))
         if self.cfg.num_singlemodal_experts > 0:
-            outs.append(self.singlemodal_experts(x, other_proj))
+            outs.append(self.singlemodal_experts(x, other_proj, train))
         expert_out = torch.cat(outs, dim=0)                          # (E, B, N, C)
         out = torch.einsum("ebnc,be->bnc", expert_out, probs.to(expert_out.dtype))
 

@@ -1,4 +1,4 @@
-"""Lock-step dual-backbone encoder with MoE adapter injection (eval path).
+"""Lock-step dual-backbone encoder with MoE adapter injection.
 
 Counterpart of `avmoe_tpu/moe/injection.py`, with the semantics of its
 unfused branch: the Swin-V2 and HTS-AT backbones run block by block in
@@ -16,7 +16,9 @@ experiments/pallas/fused_block.py) every run goes through K3 chains
 each site's visual attention sub-block is a K=1 'attn' chain and its audio
 block a K=1 'full' chain; the visual MLP sub-block stays on K2.
 `chain_calls` and `kernel_launches` give the K3 calls and the launches per
-forward from the configs alone.
+forward from the configs alone; `backward_launches` the K1b / K2b launches
+of a train step's backward on the default path. The chain path is eval
+only: its train forward raises (K3 has no backward kernel yet).
 """
 
 from __future__ import annotations
@@ -165,6 +167,41 @@ def chain_calls(swin_cfg: SwinV2Config, htsat_cfg: HTSATConfig,
     return calls
 
 
+def backward_launches(swin_cfg: SwinV2Config, htsat_cfg: HTSATConfig,
+                      inj: InjectionConfig) -> Dict[str, int]:
+    """Launches of K1b (window-attention backward) and K2b (MLP-block
+    backward) per train step on the default path. With frozen backbones a
+    sub-block launches its backward only where its input needs a gradient:
+    after the first adapter residual of its backbone has been added (an
+    adapter's output depends on trainable parameters), so the sub-blocks
+    that run before it launch none."""
+    grad = {"v": False, "a": False}
+    k1b = k2b = 0
+
+    def blocks(side: str, n: int, whole: bool = True) -> None:
+        nonlocal k1b, k2b
+        if grad[side]:
+            k1b += n
+            k2b += n if whole else 0
+
+    for steps in plan_stages(swin_cfg, htsat_cfg, inj):
+        for st in steps:
+            if st.kind == "run":
+                blocks("v", len(st.vis))
+                blocks("a", len(st.aud))
+                continue
+            blocks("v", 1, whole=False)          # visual attention sub-block
+            if inj.audio_adapter_p1:
+                grad["v"] = True
+            blocks("a", 1)                       # the whole audio block
+            if inj.audio_adapter_p1:
+                grad["a"] = True
+            k2b += int(grad["v"])                # visual MLP sub-block
+            if inj.audio_adapter_p2:             # p2 residuals land after it
+                grad["v"] = grad["a"] = True
+    return {"K1b": k1b, "K2b": k2b}
+
+
 def kernel_launches(swin_cfg: SwinV2Config, htsat_cfg: HTSATConfig, inj: InjectionConfig,
                     block_chains: bool) -> Dict[str, int]:
     """Launches of K1 (window attention), K2 (MLP block) and K3 (block chain)
@@ -179,9 +216,10 @@ def kernel_launches(swin_cfg: SwinV2Config, htsat_cfg: HTSATConfig, inj: Injecti
 class LockstepEncoder(nn.Module):
     """Dual-backbone lock-step encoder with per-site MoE adapters.
 
-    forward(wave (B', L), images (B', H, W, 3)) -> (f_v (B', C_v),
-    f_a (B', C_a), telemetry); B' = clips * segments. `block_chains` runs
-    the blocks through K3 chains (see the module docstring).
+    forward(wave (B', L), images (B', H, W, 3), *, train, mixup_lambda,
+    generator) -> (f_v (B', C_v), f_a (B', C_a), telemetry); B' = clips *
+    segments. `block_chains` runs the blocks through K3 chains (see the
+    module docstring; eval only).
     """
 
     def __init__(self, swin_cfg: SwinV2Config, htsat_cfg: HTSATConfig, moe_cfg: MoEConfig,
@@ -220,25 +258,34 @@ class LockstepEncoder(nn.Module):
                 mods.append(m)
             self.adapters[prefix] = mods
 
-    def forward(self, wave: torch.Tensor, images: torch.Tensor):
+    def forward(self, wave: torch.Tensor, images: torch.Tensor, *, train: bool = False,
+                mixup_lambda: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None):
         """Pooled features: visual after the final norm, audio without norm."""
-        f_v, f_a, telemetry = self.forward_tokens(wave, images)
+        f_v, f_a, telemetry = self.forward_tokens(
+            wave, images, train=train, mixup_lambda=mixup_lambda, generator=generator)
         return f_v.mean(dim=1), f_a.mean(dim=1), telemetry
 
-    def forward_tokens(self, wave: torch.Tensor, images: torch.Tensor):
+    def forward_tokens(self, wave: torch.Tensor, images: torch.Tensor, *, train: bool = False,
+                       mixup_lambda: Optional[torch.Tensor] = None,
+                       generator: Optional[torch.Generator] = None):
         """f_v (B', N_last, C_v) after the final visual norm, f_a (B', M_last,
         C_a) un-normed, and telemetry: per-kind (sites, B', E) gating probs
         and the summed lb_loss."""
+        if train and self.block_chains:
+            raise NotImplementedError(
+                "the chain path (block_chains=True) is eval only: K3 has no backward kernel "
+                "(ROADMAP: K3 backward for the chain path); train on the default path")
         inj = self.injection_cfg
         swin, htsat = self.swin, self.htsat
         f_v = swin.embed(images)
-        f_a = htsat.embed(wave)
+        f_a = htsat.embed(wave, train=train, mixup_lambda=mixup_lambda, generator=generator)
         tele: Dict[str, List[torch.Tensor]] = {
             "audio_p1": [], "audio_p2": [], "video_p1": [], "video_p2": []}
         lb_losses: List[torch.Tensor] = []
 
         def run(prefix: str, site: int, x, other):
-            out, aux = self.adapters[prefix][site](x, other)
+            out, aux = self.adapters[prefix][site](x, other, train, generator)
             if "lb_loss" in aux:
                 lb_losses.append(aux["lb_loss"])
             return out, aux["gating_probs"]
@@ -248,7 +295,7 @@ class LockstepEncoder(nn.Module):
             if self.block_chains and mods:
                 return run_chain(mods, x, part)
             for b in mods:
-                x = b.attn_state(x) if part == "attn" else b(x)
+                x = b.attn_state(x, train, generator) if part == "attn" else b(x, train, generator)
             return x
 
         for stage, steps in enumerate(self.plan):
@@ -276,7 +323,7 @@ class LockstepEncoder(nn.Module):
                     tele["audio_p2"].append(p)
                     f_v_res2, p = run("vis_moe_p2", site, f_v, f_a)
                     tele["video_p2"].append(p)
-                f_v = swin.blocks[st.vis[0]].mlp_state(f_v)
+                f_v = swin.blocks[st.vis[0]].mlp_state(f_v, train, generator)
                 if inj.audio_adapter_p2:
                     f_v = f_v + f_v_res2
                     f_a = f_a + f_a_res2

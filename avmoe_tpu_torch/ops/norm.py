@@ -18,9 +18,14 @@ import torch
 from torch import nn
 
 
+def upcast(x: torch.Tensor) -> torch.Tensor:
+    """x in the statistics' type: float32, or float64 for float64 x."""
+    return x if x.dtype == torch.float64 else x.float()
+
+
 def _moments(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """float32 mean / variance over the last axis (keepdim)."""
-    xf = x.float()
+    """float32 (float64 for float64 x) mean / variance over the last axis (keepdim)."""
+    xf = upcast(x)
     mean = xf.mean(dim=-1, keepdim=True)
     var = torch.clamp((xf * xf).mean(dim=-1, keepdim=True) - mean * mean, min=0.0)
     return mean, var
@@ -43,6 +48,20 @@ def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     return y * _expand(weight, x).to(dt) + _expand(bias, x).to(dt)
 
 
+def layer_norm_backward(g: torch.Tensor, src: torch.Tensor, ln_w: torch.Tensor,
+                        eps: float = 1e-5) -> torch.Tensor:
+    """Gradient wrt src of layer_norm(src, ln_w, ·) for the output gradient
+    g, in float32 (float64 for float64 src): inv (dxh − mean(dxh) −
+    xh mean(dxh xh)), dxh = g ln_w."""
+    src = upcast(src)
+    mean, var = _moments(src)
+    inv = torch.rsqrt(var + eps)
+    xh = (src - mean) * inv
+    dxh = g.to(src.dtype) * ln_w.to(src.dtype)
+    return inv * (dxh - dxh.mean(dim=-1, keepdim=True)
+                  - xh * (dxh * xh).mean(dim=-1, keepdim=True))
+
+
 class LayerNorm(nn.Module):
     """flax-tree names: scale -> weight, bias -> bias."""
 
@@ -56,12 +75,21 @@ class LayerNorm(nn.Module):
         return layer_norm(x, self.weight, self.bias, self.eps)
 
 
+BN_MOMENTUM = 0.9    # flax's BatchNorm momentum, at every site of the model
+
+
 class BatchNorm(nn.Module):
-    """BatchNorm over the last axis with running statistics (eval path).
+    """BatchNorm over the last axis with running statistics.
 
     flax-tree names: params scale/bias -> weight/bias, batch_stats
-    mean/var -> buffers running_mean/running_var. The running stats fold
-    into one float32 (w, b) pair, applied as x * w + b in x.dtype.
+    mean/var -> buffers running_mean/running_var. Eval folds the running
+    stats into one float32 (w, b) pair, applied as x * w + b in x.dtype.
+    Train (`forward(x, train=True)`) folds the batch statistics instead, taken
+    in float32 over every axis but the stack axes and the last (mean of
+    squares minus squared mean, the biased variance), and updates the running
+    stats in place as flax does with momentum 0.9: r = 0.9 r + 0.1 batch.
+    (torch.nn.BatchNorm would update with momentum 0.1 on the unbiased
+    variance.) Gradients flow through the batch statistics.
     """
 
     def __init__(self, dim: int, eps: float = 1e-5, stack: Tuple[int, ...] = ()):
@@ -72,7 +100,19 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_mean", torch.zeros(*stack, dim))
         self.register_buffer("running_var", torch.ones(*stack, dim))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        w = torch.rsqrt(self.running_var + self.eps) * self.weight
-        b = self.bias - self.running_mean * w
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        if train:
+            lead = self.weight.dim() - 1
+            axes = tuple(range(lead, x.dim() - 1))
+            xf = upcast(x)
+            mean = xf.mean(dim=axes)
+            var = torch.clamp((xf * xf).mean(dim=axes) - mean * mean, min=0.0)
+            with torch.no_grad():
+                m = BN_MOMENTUM
+                self.running_mean.mul_(m).add_((1.0 - m) * mean.detach())
+                self.running_var.mul_(m).add_((1.0 - m) * var.detach())
+        else:
+            mean, var = self.running_mean, self.running_var
+        w = torch.rsqrt(var + self.eps) * self.weight
+        b = self.bias - mean * w
         return x * _expand(w, x).to(x.dtype) + _expand(b, x).to(x.dtype)

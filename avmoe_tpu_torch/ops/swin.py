@@ -1,7 +1,6 @@
 """Swin transformer building blocks, channels-last (B, L, C) tokens.
 
-Counterpart of `avmoe_tpu/ops/swin.py` (eval path). Both attention
-generations:
+Counterpart of `avmoe_tpu/ops/swin.py`. Both attention generations:
 
   * V1 (pre-norm, learned relative-position-bias table): HTS-AT.
   * V2 (post-norm, cosine attention, continuous position bias MLP): Swin-V2.
@@ -10,6 +9,13 @@ The attention core of every window-attention call is the window-attention
 kernel (`kernels/window_attention.py`); the MLP sub-block of every block,
 norm and residual add included, is the MLP-block kernel
 (`kernels/mlp_block.py`). The qkv and proj products stay `torch.matmul`.
+
+Train mode (`train=True` with a `generator`): DropPath scales each residual
+branch per frame (the MLP branch inside K2, as its per-frame scale), and the
+projection dropout runs at its configured rate. The two dropout sites inside
+the kernels (attention probabilities, MLP hidden and output) are not
+ported: a train forward with a non-zero rate there raises (their rates are
+0 in every ported config). Gradients reach the inputs through K1b and K2b.
 """
 
 from __future__ import annotations
@@ -26,7 +32,9 @@ from torch import nn
 from avmoe_tpu_torch.backbones.geometry import effective_window
 from avmoe_tpu_torch.kernels.mlp_block import mlp_block
 from avmoe_tpu_torch.kernels.window_attention import window_attention
+from avmoe_tpu_torch.ops.dropout import drop_path_scale, dropout
 from avmoe_tpu_torch.ops.norm import LayerNorm
+from avmoe_tpu_torch.utils.runtime import dropout_det
 
 
 # ---------------------------------------------------------------------------
@@ -125,6 +133,12 @@ def _full_bias(bias: torch.Tensor, mask: Optional[torch.Tensor]) -> torch.Tensor
     return (bias.float()[None] + mask[:, None]).contiguous()
 
 
+def _in_kernel_dropout(rate: float, train: bool, where: str) -> None:
+    if rate and not dropout_det(train):
+        raise NotImplementedError(f"{where} dropout (rate {rate}) would run inside a kernel; "
+                                  "it is not ported (train with rate 0)")
+
+
 def _attend(q, k, v, bias, mask, out_dtype):
     """(B_, H, N, D) q/k/v -> (B_, N, C) through the window-attention kernel."""
     B_, H, N, D = q.shape
@@ -218,10 +232,11 @@ class WindowAttentionV1(nn.Module):
     bias table. q is scaled by D**-0.5 before the kernel."""
 
     def __init__(self, dim: int, window: Tuple[int, int], num_heads: int,
-                 qkv_bias: bool = True):
+                 qkv_bias: bool = True, attn_drop: float = 0.0, proj_drop: float = 0.0):
         super().__init__()
         wh, ww = window
         self.num_heads = num_heads
+        self.attn_drop, self.proj_drop = attn_drop, proj_drop
         self.qkv = nn.Linear(dim, 3 * dim, bias=qkv_bias)
         self.relative_position_bias_table = nn.Parameter(
             torch.zeros((2 * wh - 1) * (2 * ww - 1), num_heads))
@@ -236,14 +251,17 @@ class WindowAttentionV1(nn.Module):
         bias = self.relative_position_bias_table[self.relative_position_index]
         return bias.reshape(N, N, self.num_heads).permute(2, 0, 1)
 
-    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None, *,
+                train: bool = False, generator: Optional[torch.Generator] = None
+                ) -> torch.Tensor:
         B_, N, C = x.shape
         H = self.num_heads
         D = C // H
+        _in_kernel_dropout(self.attn_drop, train, "attention-probability")
         qkv = _linear(x, self.qkv).reshape(B_, N, 3, H, D).permute(2, 0, 3, 1, 4)
         q, k, v = qkv[0] * (D ** -0.5), qkv[1], qkv[2]
         out = _attend(q, k, v, self.position_bias(), mask, x.dtype)
-        return _linear(out, self.proj)
+        return dropout(_linear(out, self.proj), self.proj_drop, train=train, generator=generator)
 
 
 class WindowAttentionV2(nn.Module):
@@ -254,10 +272,12 @@ class WindowAttentionV2(nn.Module):
     goes through 16 * sigmoid."""
 
     def __init__(self, dim: int, window: Tuple[int, int], num_heads: int,
-                 pretrained_window: Tuple[int, int] = (0, 0), cpb_hidden: int = 512):
+                 pretrained_window: Tuple[int, int] = (0, 0), cpb_hidden: int = 512,
+                 attn_drop: float = 0.0, proj_drop: float = 0.0):
         super().__init__()
         wh, ww = window
         self.num_heads = num_heads
+        self.attn_drop, self.proj_drop = attn_drop, proj_drop
         # flax layout (in, out), used as x @ qkv_kernel
         self.qkv_kernel = nn.Parameter(torch.zeros(dim, 3 * dim))
         self.q_bias = nn.Parameter(torch.zeros(dim))
@@ -279,11 +299,14 @@ class WindowAttentionV2(nn.Module):
         bias = cpb[self.relative_position_index].reshape(N, N, self.num_heads)
         return 16.0 * torch.sigmoid(bias.permute(2, 0, 1))
 
-    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None, *,
+                train: bool = False, generator: Optional[torch.Generator] = None
+                ) -> torch.Tensor:
         B_, N, C = x.shape
         H = self.num_heads
         D = C // H
         dt = x.dtype
+        _in_kernel_dropout(self.attn_drop, train, "attention-probability")
         qkv_bias = torch.cat([self.q_bias, torch.zeros_like(self.q_bias), self.v_bias])
         qkv = x @ self.qkv_kernel.to(dt) + qkv_bias.to(dt)
         qkv = qkv.reshape(B_, N, 3, H, D).permute(2, 0, 3, 1, 4)
@@ -297,7 +320,7 @@ class WindowAttentionV2(nn.Module):
         q = _row_normalize(q) * scale.to(dt)
         k = _row_normalize(k)
         out = _attend(q, k, v, self.position_bias(), mask, dt)
-        return _linear(out, self.proj)
+        return dropout(_linear(out, self.proj), self.proj_drop, train=train, generator=generator)
 
 
 # ---------------------------------------------------------------------------
@@ -313,13 +336,20 @@ class SwinBlock(nn.Module):
     `attn_state` / `mlp_state` are the two sub-block state updates the MoE
     injection engine weaves adapters between. The window shrinks to the
     grid (and the shift drops to 0) when the grid is not larger than it.
+    In train mode each residual branch is scaled per frame by DropPath at
+    rate `drop_path`; `drop` is the projection (and MLP) dropout rate,
+    `attn_drop` the attention-probability one.
     """
 
     def __init__(self, dim: int, input_resolution: Tuple[int, int], num_heads: int,
                  window_size: int, shift_size: int, version: str = "v1",
                  mlp_ratio: float = 4.0, qkv_bias: bool = True,
-                 pretrained_window: int = 0):
+                 pretrained_window: int = 0, drop: float = 0.0, attn_drop: float = 0.0,
+                 drop_path: float = 0.0):
         super().__init__()
+        self.drop, self.drop_path = drop, drop_path
+        # frozen MLP weights in a compute dtype, with their transposes (K2b)
+        self._mlp_cache = {}
         self.dim = dim
         self.input_resolution = tuple(input_resolution)
         self.num_heads = num_heads
@@ -328,10 +358,12 @@ class SwinBlock(nn.Module):
         self.version = version
         window, shift = self._geometry()
         if version == "v1":
-            self.attn = WindowAttentionV1(dim, (window, window), num_heads, qkv_bias)
+            self.attn = WindowAttentionV1(dim, (window, window), num_heads, qkv_bias,
+                                          attn_drop=attn_drop, proj_drop=drop)
         else:
             self.attn = WindowAttentionV2(dim, (window, window), num_heads,
-                                          (pretrained_window, pretrained_window))
+                                          (pretrained_window, pretrained_window),
+                                          attn_drop=attn_drop, proj_drop=drop)
         self.norm1 = LayerNorm(dim)
         self.norm2 = LayerNorm(dim)
         self.mlp = Mlp(dim, int(dim * mlp_ratio), dim)
@@ -342,31 +374,69 @@ class SwinBlock(nn.Module):
     def _geometry(self) -> Tuple[int, int]:
         return effective_window(self.input_resolution, self.window_size, self.shift_size)
 
-    def _windowed_attn(self, x: torch.Tensor) -> torch.Tensor:
+    def _windowed_attn(self, x: torch.Tensor, train: bool,
+                       generator: Optional[torch.Generator]) -> torch.Tensor:
         H, W = self.input_resolution
         window, shift = self._geometry()
         wins = partition_windows(x, H, W, window, shift)
-        wins = self.attn(wins, mask=self.attn_mask)
+        wins = self.attn(wins, mask=self.attn_mask, train=train, generator=generator)
         return unpartition_windows(wins, H, W, window, shift)
 
-    def attn_residual(self, x: torch.Tensor) -> torch.Tensor:
-        """Residual delta of the attention sub-block."""
+    def _drop_path(self, x: torch.Tensor, train: bool,
+                   generator: Optional[torch.Generator]) -> Optional[torch.Tensor]:
+        return drop_path_scale(x.shape[0], self.drop_path, train=train, generator=generator,
+                               device=x.device)
+
+    def attn_residual(self, x: torch.Tensor, train: bool = False,
+                      generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """Residual delta of the attention sub-block (DropPath-scaled in train)."""
         if self.version == "v1":
-            return self._windowed_attn(self.norm1(x))
-        return self.norm1(self._windowed_attn(x))
+            r = self._windowed_attn(self.norm1(x), train, generator)
+        else:
+            r = self.norm1(self._windowed_attn(x, train, generator))
+        scale = self._drop_path(x, train, generator)
+        return r if scale is None else r * scale.reshape(-1, 1, 1).to(r.dtype)
 
-    def attn_state(self, x: torch.Tensor) -> torch.Tensor:
+    def attn_state(self, x: torch.Tensor, train: bool = False,
+                   generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """x + attn_residual(x)."""
-        return x + self.attn_residual(x)
+        return x + self.attn_residual(x, train, generator)
 
-    def mlp_state(self, x: torch.Tensor) -> torch.Tensor:
-        """x + [norm2 ->] fc1 -> GELU -> fc2 [-> norm2], one MLP-block kernel call."""
+    def _mlp_weights(self, dt: torch.dtype, transposed: bool):
+        """(w1, w2, w1ᵀ, w2ᵀ) of the frozen MLP in dtype dt, contiguous (the
+        transposes, which only K2b reads, None unless asked for), made once
+        and made again only when a weight changes (its version counter or
+        storage)."""
+        w1, w2 = self.mlp.fc1.weight, self.mlp.fc2.weight
+        key = (w1.data_ptr(), w1._version, w2.data_ptr(), w2._version)
+        hit = self._mlp_cache.get(dt)
+        with torch.no_grad():
+            if hit is None or hit[0] != key:
+                hit = [key, w1.to(dt).contiguous(), w2.to(dt).contiguous(), None, None]
+                self._mlp_cache[dt] = hit
+            if transposed and hit[3] is None:
+                hit[3], hit[4] = hit[1].t().contiguous(), hit[2].t().contiguous()
+        return hit[1], hit[2], hit[3], hit[4]
+
+    def mlp_state(self, x: torch.Tensor, train: bool = False,
+                  generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """x + [norm2 ->] fc1 -> GELU -> fc2 [-> norm2], one MLP-block kernel
+        call; in train the branch is DropPath-scaled per frame inside it."""
         dt = x.dtype
         m = self.mlp
+        _in_kernel_dropout(self.drop, train, "MLP")
+        scale = self._drop_path(x, train, generator)
+        params = (m.fc1.weight, m.fc1.bias, m.fc2.weight, m.fc2.bias,
+                  self.norm2.weight, self.norm2.bias)
+        grad = torch.is_grad_enabled()
+        if grad and any(p.requires_grad for p in params):
+            w1, w2, w1t, w2t = m.fc1.weight.to(dt), m.fc2.weight.to(dt), None, None
+        else:
+            w1, w2, w1t, w2t = self._mlp_weights(dt, transposed=grad and x.requires_grad)
         return mlp_block(
-            x, self.norm2.weight, self.norm2.bias,
-            m.fc1.weight.to(dt), m.fc1.bias, m.fc2.weight.to(dt), m.fc2.bias,
-            pre_norm=self.version == "v1", eps=self.norm2.eps)
+            x, self.norm2.weight, self.norm2.bias, w1, m.fc1.bias, w2, m.fc2.bias,
+            pre_norm=self.version == "v1", eps=self.norm2.eps, scale=scale, w1t=w1t, w2t=w2t)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.mlp_state(self.attn_state(x))
+    def forward(self, x: torch.Tensor, train: bool = False,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        return self.mlp_state(self.attn_state(x, train, generator), train, generator)

@@ -6,11 +6,12 @@ Runs from the root of a checkout, needs one card and no network, and imports
 nothing of JAX. It drives two paths of the AVE eval forward: the default
 path (K1 window attention + K2 MLP block in every Swin block) and the chain
 path, `AVEModel(cfg, block_chains=True)` (K3 block chains, K2 at the adapter
-seams). Phases (any failed check raises, and the script exits non-zero
-without printing the result line):
+seams); then the AVE train step on the default path (K1 and K2 forward, the
+backward kernels K1b and K2b). Phases (any failed check raises, and the
+script exits non-zero without printing the result line):
 
   1. card: nvidia-smi name and power limit, torch / CUDA versions;
-  2. build: the three CUDA sources with nvcc (one process each, in parallel);
+  2. build: the four CUDA sources with nvcc (one process each, in parallel);
      the tensor-core instructions (HMMA) in the SASS of K1, K2 and K3, which
      must be there (their bf16 code runs on mma.sync);
   3. window-attention kernel vs its plain version at every main-path shape,
@@ -37,7 +38,33 @@ without printing the result line):
      times (and for window attention the time of
      scaled_dot_product_attention);
   9. profile, per path: device time per batch-4 forward by kernel
-     (torch.profiler) and the device's idle share of the forward's wall time.
+     (torch.profiler) and the device's idle share of the forward's wall time;
+ 10. K1b (window-attention backward) against the plain version's autograd at
+     every main-path shape, float32 (rtol 1e-4, atol 1e-5) and bfloat16
+     (|d| <= 2e-2 (1 + |ref|) against the float32 plain autograd of the same
+     bf16 inputs); times beside the plain autograd's, the bound and the
+     backward of scaled_dot_product_attention with a float mask;
+ 11. K2b (MLP-block backward) the same way at every main-path shape, both
+     norms, with and without a DropPath scale that has zeros in it (K2's
+     forward with the scale checked too); times beside the plain autograd's,
+     the bound, its products alone and cuBLAS's for the same products;
+ 12. tiny AVE model in float32, deterministic (AVMOE_DETERMINISTIC_TRAIN=1):
+     4 train steps on the card (kernels) against 4 on the CPU (plain
+     versions) from the same weights and batches, mixup λ given: losses
+     rtol 1e-3, trainable parameters and running stats rtol 1e-3, atol 1e-4;
+ 13. full AVEConfig() train step in bfloat16 at batch 4 on the default path,
+     seeded weights with non-zero gates, DropPath, SpecAugment, dropout and
+     mixup on: 3 steps with finite losses, every frozen parameter
+     bit-identical after them, every trainable one moved, bn0's and the
+     adapters' running stats moved, K1 / K2 / K1b / K2b launches per step as
+     the injection plan gives them; then one deterministic step in bf16
+     against the same step in float32 at the seeded init (adapter gates
+     zero, where training starts): cosine >= 0.99 of the flattened
+     trainable gradients (the same after the steps, gates noised, is
+     reported: there the adapters' bf16 gradients are not reproducible);
+     times (reported, not claimed): train step ms and
+     clips/s, peak memory, and a torch.profiler split of one step's device
+     time by kernel.
 
 The line before the last is a JSON object with the per-kernel summary; the
 last line is {"ok": true, "device": {...}}.
@@ -45,8 +72,10 @@ last line is {"ok": true, "device": {...}}.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -129,6 +158,17 @@ def k1_shapes(bp: int):
     return out
 
 
+def k1b_shapes(bp: int):
+    """(BW, H, N, D, nW, launches per train step) of K1b, at every K1 shape:
+    every K1 call of a forward but the first block of each backbone, whose
+    input needs no gradient (moe/injection.py backward_launches)."""
+    out = [list(s) for s in k1_shapes(bp)]
+    first_htsat = next(i for i, s in enumerate(out) if s[2] == 64)
+    for i in (0, first_htsat):
+        out[i][-1] -= 1
+    return [tuple(s) for s in out]
+
+
 def k2_shapes(bp: int):
     """(rows, C, pre_norm, calls per forward) for every MLP sub-block."""
     swin = [(bp * 48 * 48, 192, False, 2), (bp * 24 * 24, 384, False, 2),
@@ -136,6 +176,15 @@ def k2_shapes(bp: int):
     htsat = [(bp * 64 * 64, 96, True, 2), (bp * 32 * 32, 192, True, 2),
              (bp * 16 * 16, 384, True, 6), (bp * 8 * 8, 768, True, 2)]
     return swin + htsat
+
+
+def k2b_shapes(bp: int):
+    """(rows, C, pre_norm, launches per train step) of K2b: every K2 call of a
+    forward but HTS-AT's first block (moe/injection.py backward_launches)."""
+    out = [list(s) for s in k2_shapes(bp)]
+    first_htsat = next(i for i, s in enumerate(out) if s[2])
+    out[first_htsat][-1] -= 1
+    return [tuple(s) for s in out]
 
 
 def phase_card():
@@ -154,7 +203,7 @@ def phase_card():
 def phase_build():
     from avmoe_tpu_torch.kernels import _build
 
-    secs = _build.build(["window_attention", "mlp_block", "block_chain"])
+    secs = _build.build(["window_attention", "mlp_block", "block_chain", "window_attention_bwd"])
     regs = []
     for name, text in sorted(_build.BUILD_LOGS.items()):
         regs += [f"{name}: {ln.split(':', 1)[1].strip()}" for ln in text.splitlines()
@@ -536,24 +585,28 @@ def phase_full():
     fwd_ms = {}
     for label, m in paths.items():
         fwd_ms[label] = _times(m, label, wave, imgs)
-        phase_profile(m, label, wave, imgs, fwd_ms[label])
-    return launches, fwd_ms
+        phase_profile(label, lambda m=m: m(wave, imgs), fwd_ms[label])
+    return launches, fwd_ms, model
 
 
-def phase_profile(model, label: str, wave, imgs, fwd_ms: float, iters: int = 3) -> None:
-    """Device time per forward by kernel (torch.profiler), and the share of
-    the forward's wall time in which the device was idle."""
+def phase_profile(label: str, run, fwd_ms: float, iters: int = 3,
+                  what: str = "forward") -> None:
+    """Device time per `run()` (a forward or a train step) by kernel
+    (torch.profiler), and the share of its wall time in which the device was
+    idle."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(iters):
-            model(wave, imgs)
+            run()
         torch.cuda.synchronize()
     by_name = {}
-    for e in prof.key_averages():
+    for e in prof.events():
         # device-side kernel and memcpy events only: the host ops that
-        # launched them carry the same device time again
-        if e.device_type != torch.autograd.DeviceType.CUDA:
+        # launched them carry the same device time again, and so do the
+        # device spans of annotations (the optimizer's step)
+        if (e.device_type != torch.autograd.DeviceType.CUDA
+                or getattr(e, "is_user_annotation", False)):
             continue
         us = getattr(e, "self_device_time_total", None)
         if us is None:
@@ -566,8 +619,9 @@ def phase_profile(model, label: str, wave, imgs, fwd_ms: float, iters: int = 3) 
         return
     # first matching group wins
     rules = (("K3 block_chain", ("block_chain_kernel",)),
+             ("K1b window_attention_bwd", ("window_attention_bwd",)),
              ("K1 window_attention", ("window_attention_",)),
-             ("K2 mlp_block", ("mlp_gemm_", "mlp_rows")),
+             ("K2 + K2b mlp_block", ("mlp_gemm_", "mlp_rows", "ln_bwd_rows")),
              ("library GEMM", ("gemm", "xmma", "cutlass", "sm90_")),
              ("softmax/reductions", ("softmax", "reduce")),
              ("copies/casts", ("copy", "Memcpy", "Memset", "cat")),
@@ -578,11 +632,471 @@ def phase_profile(model, label: str, wave, imgs, fwd_ms: float, iters: int = 3) 
         group = next((g for g, keys in rules if any(k in name for k in keys)), "other")
         groups[group] += ms
     log(f"[profile] {label} batch {BATCH}: device busy {busy:.2f} ms of {fwd_ms:.2f} ms wall per "
-        f"forward (idle share {max(0.0, 1.0 - busy / fwd_ms):.3f}); "
+        f"{what} (idle share {max(0.0, 1.0 - busy / fwd_ms):.3f}); "
         + ", ".join(f"{k} {v:.2f} ms" for k, v in groups.items()))
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
     for name, ms in top:
         log(f"[profile] {label}  {ms:8.3f} ms  {100 * ms / busy:5.1f}%  {name[:100]}")
+
+
+# ---------------------------------------------------------------------------
+# Train
+# ---------------------------------------------------------------------------
+
+
+def _grads(fn, inputs, dout):
+    """fn's output and the gradients of its inputs for the output gradient dout."""
+    leaves = [t.detach().clone().requires_grad_() for t in inputs]
+    out = fn(*leaves)
+    return out, torch.autograd.grad(out, leaves, dout)
+
+
+def _backward_ms(fn, inputs, dout) -> float:
+    """Time of the backward alone of fn (its forward run once, its graph kept)."""
+    leaves = [t.detach().clone().requires_grad_() for t in inputs]
+    out = fn(*leaves)
+    return time_ms(lambda: torch.autograd.grad(out, leaves, dout, retain_graph=True))
+
+
+def phase_k1b(gen):
+    from avmoe_tpu_torch.kernels.window_attention import (
+        window_attention, window_attention_bwd, window_attention_plain)
+
+    dev = "cuda"
+    max_err = 0.0
+    tot = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0, bytes=0.0, ops=0.0)
+    for BW, H, N, D, nW, calls in k1b_shapes(BATCH * 10):
+        q32 = torch.randn(BW, H, N, D, device=dev, generator=gen) * 0.3
+        k32 = torch.randn(BW, H, N, D, device=dev, generator=gen) * 0.3
+        v32 = torch.randn(BW, H, N, D, device=dev, generator=gen)
+        bias = torch.randn(nW, H, N, N, device=dev, generator=gen)
+        do32 = torch.randn(BW, H, N, D, device=dev, generator=gen)
+        shape = (BW, H, N, D, nW)
+        kern = lambda q, k, v: window_attention(q, k, v, bias)
+        plain = lambda q, k, v: window_attention_plain(q, k, v, bias)
+        _, got = _grads(kern, (q32, k32, v32), do32)
+        _, ref = _grads(plain, (q32, k32, v32), do32)
+        for name, a, b in zip("qkv", got, ref):
+            compare(a, b, torch.float32, f"K1b f32 {shape} d{name}")
+        q, k, v, do = (t.bfloat16() for t in (q32, k32, v32, do32))
+        _, got = _grads(kern, (q, k, v), do)
+        _, ref = _grads(plain, (q.float(), k.float(), v.float()), do.float())
+        err = max(compare(a, b, torch.bfloat16, f"K1b bf16 {shape} d{name}")
+                  for name, a, b in zip("qkv", got, ref))
+        max_err = max(max_err, err)
+        out = window_attention.forward_only(q, k, v, bias)
+        ms = time_ms(lambda: window_attention_bwd(q, k, v, bias, out, do))
+        plain_ms = _backward_ms(plain, (q, k, v), do)
+        mask = bias.repeat(BW // nW, 1, 1, 1).bfloat16()
+        lib_ms = _backward_ms(lambda a, b, c: F.scaled_dot_product_attention(
+            a, b, c, attn_mask=mask, scale=1.0), (q, k, v), do)
+        # q, k, v, out, dO read and dq, dk, dv written in bf16, the bias in
+        # float32; five N x N x D products (S recomputed, dP, dv, dq, dk)
+        nbytes = 8 * BW * H * N * D * 2 + nW * H * N * N * 4
+        ops = 10 * BW * H * N * N * D
+        b_ms, b_by = bound(nbytes, ops, BF16_FLOPS)
+        log(f"[K1b] BW,H,N,D,nW={shape} x{calls}/step  bf16 {ms:.4f} ms  plain autograd "
+            f"{plain_ms:.4f} ms  sdpa backward {lib_ms:.4f} ms  bound {b_ms:.4f} ms ({b_by})  "
+            f"err {err:.2e}")
+        for key, val in (("ms", ms), ("plain_ms", plain_ms), ("bound_ms", b_ms),
+                         ("library_ms", lib_ms), ("bytes", nbytes), ("ops", ops)):
+            tot[key] += calls * val
+        del q32, k32, v32, bias, do32, q, k, v, do, got, ref, out, mask
+        torch.cuda.empty_cache()
+    log(f"[K1b] per train step: {tot['ms']:.3f} ms; plain autograd {tot['plain_ms']:.3f} ms; "
+        f"sdpa backward {tot['library_ms']:.3f} ms; bound {tot['bound_ms']:.3f} ms")
+    return max_err, tot
+
+
+def _mlp_weights(C: int, gen):
+    dev = "cuda"
+    Hd = 4 * C
+    return (1.0 + 0.1 * torch.randn(C, device=dev, generator=gen),
+            0.1 * torch.randn(C, device=dev, generator=gen),
+            torch.randn(Hd, C, device=dev, generator=gen) / math.sqrt(C),
+            0.1 * torch.randn(Hd, device=dev, generator=gen),
+            torch.randn(C, Hd, device=dev, generator=gen) / math.sqrt(Hd),
+            0.1 * torch.randn(C, device=dev, generator=gen))
+
+
+def phase_k2b(gen):
+    from avmoe_tpu_torch.kernels import mlp_block as mb
+
+    dev = "cuda"
+    frames = BATCH * 10
+    sms = mb.sm_count(torch.cuda.current_device())
+    max_err = 0.0
+    tot = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, products_ms=0.0, cublas_ms=0.0,
+               bytes=0.0, ops=0.0)
+    # DropPath at rate 0.1 over the frames, with a zero in it for sure
+    scale = (torch.rand(frames, device=dev, generator=gen) >= 0.1).float() / 0.9
+    scale[0] = 0.0
+    for R, C, pre, calls in k2b_shapes(frames):
+        Hd, L = 4 * C, R // frames
+        lw, lb, w1, b1, w2, b2 = _mlp_weights(C, gen)
+        x32 = torch.randn(frames, L, C, device=dev, generator=gen)
+        dy32 = torch.randn(frames, L, C, device=dev, generator=gen)
+        shape_err = 0.0
+        for norm in (pre, not pre):
+            for sc in (None, scale):
+                tag = (R, C, "v1 pre-norm" if norm else "v2 post-norm",
+                       "scaled" if sc is not None else "unscaled")
+                kern = lambda t, W1, W2: mb.mlp_block(t, lw, lb, W1, b1, W2, b2, pre_norm=norm,
+                                                      scale=sc)
+                plain = lambda t, W1, W2: mb.mlp_block_plain(t, lw, lb, W1, b1, W2, b2,
+                                                             pre_norm=norm, scale=sc)
+                out, (dx,) = _grads(lambda t: kern(t, w1, w2), (x32,), dy32)
+                ref, (dx_ref,) = _grads(lambda t: plain(t, w1, w2), (x32,), dy32)
+                compare(out, ref, torch.float32, f"K2 f32 {tag}")
+                compare(dx, dx_ref, torch.float32, f"K2b f32 {tag}")
+                x, dy, W1, W2 = x32.bfloat16(), dy32.bfloat16(), w1.bfloat16(), w2.bfloat16()
+                out, (dx,) = _grads(lambda t: kern(t, W1, W2), (x,), dy)
+                ref, (dx_ref,) = _grads(lambda t: plain(t, W1.float(), W2.float()),
+                                        (x.float(),), dy.float())
+                compare(out, ref, torch.bfloat16, f"K2 bf16 {tag}")
+                err = compare(dx, dx_ref, torch.bfloat16, f"K2b bf16 {tag}")
+                if norm == pre:
+                    shape_err = max(shape_err, err)
+        # times at the shape's own norm with the DropPath scale, as in a train step
+        x, dy, W1, W2 = x32.bfloat16(), dy32.bfloat16(), w1.bfloat16(), w2.bfloat16()
+        W1t, W2t = W1.t().contiguous(), W2.t().contiguous()
+        ms = time_ms(lambda: mb.mlp_block_bwd(x, dy, lw, lb, W1, b1, W2, b2, W1t, W2t,
+                                              pre_norm=pre, scale=scale))
+        plain_ms = _backward_ms(lambda t: mb.mlp_block_plain(
+            t, lw, lb, W1, b1, W2, b2, pre_norm=pre, scale=scale), (x,), dy)
+        # K2b's products alone, and cuBLAS's bf16 products of the same shapes
+        t1, t2 = mb.pick_tile(R, Hd, C, sms), mb.pick_tile(R, C, Hd, sms)
+        x2, dy2 = x.reshape(R, C), dy.reshape(R, C)
+        h1 = mb.product_bf16(x2, W1, b1, epi=mb.EPI_BIAS, tile=t1)
+        if pre:
+            products = [lambda: mb.product_bf16(x2, W1, b1, epi=mb.EPI_BIAS, tile=t1),
+                        lambda: mb.product_bf16(dy2, W2t, None, epi=mb.EPI_GELU_GRAD, tile=t1,
+                                                resid=h1, scale=scale),
+                        lambda: mb.product_bf16(h1, W1t, None, epi=mb.EPI_PLAIN, tile=t2)]
+            cublas = [lambda: F.linear(x2, W1), lambda: F.linear(dy2, W2t),
+                      lambda: F.linear(h1, W1t)]
+        else:
+            out2 = torch.empty_like(h1)
+            products = [lambda: mb.product_bf16(x2, W1, b1, epi=mb.EPI_GELU_SAVE, tile=t1,
+                                                out2=out2),
+                        lambda: mb.product_bf16(h1, W2, b2, epi=mb.EPI_BIAS, tile=t2),
+                        lambda: mb.product_bf16(dy2, W2t, None, epi=mb.EPI_GELU_GRAD, tile=t1,
+                                                resid=h1),
+                        lambda: mb.product_bf16(h1, W1t, None, epi=mb.EPI_ADD, tile=t2,
+                                                resid=dy2)]
+            cublas = [lambda: F.linear(x2, W1), lambda: F.linear(h1, W2),
+                      lambda: F.linear(dy2, W2t), lambda: F.linear(h1, W1t)]
+        products_ms = sum(time_ms(f) for f in products)
+        cublas_ms = sum(time_ms(f) for f in cublas)
+        # x and dy read and dx written in bf16, w1, w2 and their transposes,
+        # the float32 biases, norm and scale; the recomputed forward products
+        # and the two backward ones
+        nbytes = 3 * R * C * 2 + 4 * C * Hd * 2 + (Hd + 3 * C + frames) * 4
+        ops = 2 * R * C * Hd * len(products)
+        b_ms, b_by = bound(nbytes, ops, BF16_FLOPS)
+        log(f"[K2b] rows,C={(R, C, 'v1' if pre else 'v2')} x{calls}/step  bf16 {ms:.4f} ms  "
+            f"plain autograd {plain_ms:.4f} ms  bound {b_ms:.4f} ms ({b_by})  err {shape_err:.2e}"
+            f"  its {len(products)} products alone {products_ms:.4f} ms "
+            f"({ops / products_ms / 1e9:.1f} TFLOP/s), cuBLAS's {cublas_ms:.4f} ms")
+        max_err = max(max_err, shape_err)
+        for key, val in (("ms", ms), ("plain_ms", plain_ms), ("bound_ms", b_ms),
+                         ("products_ms", products_ms), ("cublas_ms", cublas_ms),
+                         ("bytes", nbytes), ("ops", ops)):
+            tot[key] += calls * val
+        del x32, dy32, x, dy, W1, W2, W1t, W2t, h1, out, ref, dx, dx_ref
+        torch.cuda.empty_cache()
+    log(f"[K2b] per train step: {tot['ms']:.3f} ms, of which products alone "
+        f"{tot['products_ms']:.3f} ms; plain autograd {tot['plain_ms']:.3f} ms; cuBLAS products "
+        f"only {tot['cublas_ms']:.3f} ms; bound {tot['bound_ms']:.3f} ms")
+    return max_err, tot
+
+
+def _train_batches(cfg, clips: int, steps: int, seed: int, device):
+    """Seeded AVE batches: waves, frames, one-hot labels (background last) and
+    a per-frame mixup λ."""
+    rng = np.random.RandomState(seed)
+    T = cfg.num_segments
+    out = []
+    for _ in range(steps):
+        labels = np.zeros((clips, T, cfg.num_classes + 1), np.float32)
+        cls = rng.randint(0, cfg.num_classes, size=clips)
+        for b in range(clips):
+            fg = rng.rand(T) < 0.7
+            labels[b, fg, cls[b]] = 1.0
+            labels[b, ~fg, -1] = 1.0
+        wave, imgs = _inputs(cfg, clips, int(rng.randint(1 << 30)), device)
+        out.append(dict(wave=wave, images=imgs, labels=torch.from_numpy(labels).to(device),
+                        mixup_lambda=torch.from_numpy(
+                            rng.uniform(0.3, 0.7, clips * T).astype(np.float32)).to(device)))
+    return out
+
+
+@contextlib.contextmanager
+def _deterministic():
+    """AVMOE_DETERMINISTIC_TRAIN=1 inside the block (dropout, SpecAugment off)."""
+    old = os.environ.get("AVMOE_DETERMINISTIC_TRAIN")
+    os.environ["AVMOE_DETERMINISTIC_TRAIN"] = "1"
+    try:
+        yield
+    finally:
+        if old is None:
+            os.environ.pop("AVMOE_DETERMINISTIC_TRAIN", None)
+        else:
+            os.environ["AVMOE_DETERMINISTIC_TRAIN"] = old
+
+
+def _train_counters():
+    from avmoe_tpu_torch.kernels.mlp_block import mlp_block, mlp_block_bwd
+    from avmoe_tpu_torch.kernels.window_attention import window_attention, window_attention_bwd
+
+    return {"K1": window_attention, "K2": mlp_block, "K1b": window_attention_bwd,
+            "K2b": mlp_block_bwd}
+
+
+def phase_train_tiny():
+    from avmoe_tpu_torch.config import TrainConfig, tiny_ave_config
+    from avmoe_tpu_torch.models.ave import AVEModel, make_ave_loss_fn
+    from avmoe_tpu_torch.train.state import create_train_state
+    from avmoe_tpu_torch.train.steps import make_train_step
+
+    from avmoe_tpu_torch.train.freeze import freeze
+
+    cfg = tiny_ave_config()
+    tcfg = TrainConfig(accum_steps=1, lr=1e-5, lr_mlp=1e-5, decay=0.5, decay_epoch=1)
+    cpu = AVEModel(cfg, device="cpu", seed=0)
+    _nonzero_gates_(cpu, 1)
+    gpu = AVEModel(cfg, device="cuda", seed=None)
+    gpu.load_state_dict(cpu.state_dict())
+    counters = _train_counters()
+
+    # the backward itself: one deterministic step's trainable gradients, card
+    # (K1b, K2b) against CPU (plain versions), per leaf. The 4-step curve below
+    # holds the forward, its running stats and the optimizer's bookkeeping;
+    # at its lr Adam moves a parameter by less than the states' atol, so it
+    # does not see the gradient's direction.
+    grads, kept = {}, {k: v.clone() for k, v in cpu.state_dict().items()}
+    for label, model, dev in (("cpu", cpu, "cpu"), ("card", gpu, "cuda")):
+        freeze(model)
+        batch = _train_batches(cfg, 2, 1, 7, dev)[0]
+        grads[label] = _trainable_grads(model, make_ave_loss_fn(model), batch, 0)
+        model.load_state_dict(kept)             # the running stats as they were
+    whole, low, leaf = _grad_cosines(grads["card"], grads["cpu"])
+    check(whole >= 0.9999 and low >= 0.9999, f"tiny train gradients card vs CPU: cosine "
+          f"{whole:.7f}, lowest leaf {low:.7f} ({leaf}); want >= 0.9999")
+    log(f"[train tiny] fp32 trainable gradients of one deterministic step, card (kernels) vs "
+        f"CPU (plain): cosine {whole:.7f}, lowest per-leaf cosine {low:.7f} ({leaf}) "
+        f"(>= 0.9999 both)")
+    runs = {}
+    with _deterministic():
+        for label, model, dev in (("cpu", cpu, "cpu"), ("card", gpu, "cuda")):
+            state = create_train_state(model, tcfg, steps_per_epoch=2)
+            step = make_train_step(make_ave_loss_fn(model))
+            gen = torch.Generator(device=dev).manual_seed(0)
+            for c in counters.values():
+                c.launches = 0
+            losses = []
+            for batch in _train_batches(cfg, 2, 4, 7, dev):
+                state, met = step(state, batch, gen)
+                losses.append(float(met["loss"]))
+            runs[label] = (losses, {k: v.detach().cpu() for k, v in model.state_dict().items()},
+                           {k: c.launches for k, c in counters.items()})
+    (l_cpu, s_cpu, _), (l_gpu, s_gpu, n_gpu) = runs["cpu"], runs["card"]
+    check(all(v > 0 for v in n_gpu.values()), f"tiny train: kernel launches on the card {n_gpu}")
+    check(np.allclose(l_gpu, l_cpu, rtol=1e-3, atol=0.0),
+          f"tiny train losses: card {l_gpu} vs CPU {l_cpu}")
+    worst = 0.0
+    for k in s_cpu:
+        a, b = s_gpu[k].float(), s_cpu[k].float()
+        worst = max(worst, (a - b).abs().max().item())
+        check(torch.allclose(a, b, rtol=1e-3, atol=1e-4), f"tiny train {k}: card vs CPU max "
+              f"|d| {(a - b).abs().max().item():.3e}")
+    log(f"[train tiny] fp32 deterministic, 4 steps at lr 1e-5, card (kernels) vs CPU (plain): "
+        f"losses {[round(v, 6) for v in l_gpu]} vs {[round(v, 6) for v in l_cpu]}; parameters "
+        f"and running stats max |d| {worst:.3e} (rtol 1e-3, atol 1e-4); launches on the card "
+        f"{n_gpu}")
+
+
+def _plain_cores():
+    """Stand-ins for K1's and K2's wrappers in `ops/swin.py`: their plain
+    versions, in float32 whatever the model's dtype."""
+    from avmoe_tpu_torch.kernels.mlp_block import mlp_block_plain
+    from avmoe_tpu_torch.kernels.window_attention import window_attention_plain
+
+    def attention(q, k, v, bias):
+        return window_attention_plain(q.float(), k.float(), v.float(), bias).to(q.dtype)
+
+    def mlp(x, ln_w, ln_b, w1, b1, w2, b2, *, pre_norm, eps=1e-5, scale=None, w1t=None,
+            w2t=None):
+        return mlp_block_plain(x.float(), ln_w, ln_b, w1.float(), b1, w2.float(), b2,
+                               pre_norm=pre_norm, eps=eps, scale=scale).to(x.dtype)
+
+    return attention, mlp
+
+
+def _trainable_grads(model, loss_fn, batch, seed: int, cores=None):
+    """{name: flattened float32 gradient} of the loss wrt the trainable
+    parameters, one deterministic step; `cores` = (attention, mlp) replaces
+    K1's and K2's wrappers for it (as `_plain_cores` gives them)."""
+    import avmoe_tpu_torch.ops.swin as swin
+
+    kept = swin.window_attention, swin.mlp_block
+    if cores is not None:
+        swin.window_attention, swin.mlp_block = cores
+    try:
+        named = [(n, p) for n, p in model.named_parameters() if p.requires_grad]
+        device = next(model.parameters()).device
+        gen = torch.Generator(device=device).manual_seed(seed)
+        with _deterministic():
+            loss, _ = loss_fn(model, batch, gen)
+            grads = torch.autograd.grad(loss, [p for _, p in named], allow_unused=True)
+    finally:
+        swin.window_attention, swin.mlp_block = kept
+    return {n: (torch.zeros_like(p) if g is None else g).float().flatten().cpu()
+            for (n, p), g in zip(named, grads)}
+
+
+def _grad_cosines(a, b):
+    """(cosine of the whole flattened gradients, the lowest per-leaf cosine
+    and its leaf), in float64: per leaf where b's rms is above 1e-5 of its largest
+    leaf's. Below that a leaf's gradient is rounding (biases that a norm or
+    a softmax right after them cancels, 1e-7 of the largest and less)."""
+    a, b = {n: a[n].double() for n in b}, {n: b[n].double() for n in b}
+    rms = {n: b[n].pow(2).mean().sqrt().item() for n in b}
+    top = max(rms.values())
+    leaves = {n: F.cosine_similarity(a[n], b[n], dim=0).item() for n in b
+              if rms[n] > 1e-5 * top}
+    worst = min(leaves, key=leaves.get)
+    whole = F.cosine_similarity(torch.cat([a[n] for n in b]), torch.cat([b[n] for n in b]),
+                                dim=0).item()
+    return whole, leaves[worst], worst
+
+
+def phase_train_grads(model, loss_fn, batch):
+    """One deterministic step's trainable gradients at full width (PERF.md
+    section 6). float32 through the kernels (K1b, K2b) against float32
+    through their plain versions, checked where the float32 gradient is well
+    conditioned: at the seeded init, every leaf too (adapter gates zero, as
+    flax initializes them: the gates' gradients come back through every
+    later block), and as a whole with noised gates at depths 2-2-2-2 (the
+    bottlenecks', routers' and latent tokens' gradients too; some small
+    leaves, such as a router's bias, sit at the rounding there and flip
+    sign). bf16 against float32, checked at the seeded init. Reported, not
+    checked: both after the train steps (`model`, gates noised), where the
+    adapters' float32 gradient itself moves with the rounding."""
+    import dataclasses
+
+    from avmoe_tpu_torch.config import AVEConfig
+    from avmoe_tpu_torch.models.ave import AVEModel
+    from avmoe_tpu_torch.train.freeze import freeze
+
+    cfg = AVEConfig()
+    cut = dataclasses.replace(cfg, swin=dataclasses.replace(cfg.swin, depths=(2, 2, 2, 2)),
+                              htsat=dataclasses.replace(cfg.htsat, depths=(2, 2, 2, 2)))
+    batch = dict(batch, mixup_lambda=torch.full((BATCH * cfg.num_segments,), 0.6,
+                                                device="cuda"))
+    plain = _plain_cores()
+    read = {}
+    for label, c, m16 in (("seeded init", cfg, None), ("depths 2-2-2-2, gates noised", cut, None),
+                          ("after the steps, gates noised", cfg, model)):
+        if m16 is None:
+            m16 = AVEModel(c, dtype=torch.bfloat16, device="cuda", seed=0)
+            if c is cut:
+                _nonzero_gates_(m16, 1)
+        f32 = AVEModel(c, dtype=torch.float32, device="cuda", seed=None)
+        f32.load_state_dict(m16.state_dict())
+        freeze(m16)
+        freeze(f32)
+        ref = _trainable_grads(f32, loss_fn, batch, 13)
+        read[label] = {"f32 plain / f32": _grad_cosines(
+            _trainable_grads(f32, loss_fn, batch, 13, cores=plain), ref)}
+        if c is cfg:
+            read[label]["bf16 / f32"] = _grad_cosines(
+                _trainable_grads(m16, loss_fn, batch, 13), ref)
+        del m16, f32, ref
+        torch.cuda.empty_cache()
+        log(f"[train] trainable gradients of one deterministic step, {label}: " + "; ".join(
+            f"{k} cosine {w:.7f}, lowest leaf {lo:.7f} ({leaf})"
+            for k, (w, lo, leaf) in read[label].items()))
+    for label, want in (("seeded init", 0.9999), ("depths 2-2-2-2, gates noised", 0.999)):
+        whole, low, leaf = read[label]["f32 plain / f32"]
+        check(whole >= want, f"fp32 gradients through the kernels vs their plain versions, "
+              f"{label}: cosine {whole:.7f} < {want}")
+    whole, low, leaf = read["seeded init"]["f32 plain / f32"]
+    check(low >= 0.9999, f"fp32 gradients through the kernels vs their plain versions, seeded "
+          f"init: leaf {leaf} cosine {low:.7f} < 0.9999")
+    cos = read["seeded init"]["bf16 / f32"][0]
+    check(cos >= 0.99, f"bf16 vs fp32 trainable gradients cosine {cos:.5f} < 0.99")
+    log("[train] checked: fp32 kernels vs plain cosine >= 0.9999, every leaf too, at the "
+        "seeded init, and >= 0.999 at depths 2-2-2-2 with noised gates; bf16 vs fp32 cosine "
+        ">= 0.99 at the seeded init")
+
+
+def phase_train(model):
+    """The full AVEConfig() train step in bf16 on the default path."""
+    from avmoe_tpu_torch.config import AVEConfig, TrainConfig
+    from avmoe_tpu_torch.models.ave import make_ave_loss_fn
+    from avmoe_tpu_torch.moe.injection import backward_launches, kernel_launches
+    from avmoe_tpu_torch.train.state import create_train_state
+    from avmoe_tpu_torch.train.steps import make_train_step
+
+    cfg = AVEConfig()
+    state = create_train_state(model, TrainConfig(accum_steps=1), steps_per_epoch=100)
+    loss_fn = make_ave_loss_fn(model, mixup_alpha=0.5)
+    step = make_train_step(loss_fn)
+    batch = _train_batches(cfg, BATCH, 1, 11, "cuda")[0]
+    batch.pop("mixup_lambda")                   # λ drawn per frame from Beta(0.5, 0.5)
+    frozen = {n: p.detach().clone() for n, p in model.named_parameters() if not p.requires_grad}
+    start = {n: p.detach().clone() for n, p in state.trainable.items()}
+    stats = {n: b.clone() for n, b in state.batch_stats.items()}
+    fwd = kernel_launches(cfg.swin, cfg.htsat, cfg.injection, block_chains=False)
+    want = {"K1": fwd["K1"], "K2": fwd["K2"], **backward_launches(cfg.swin, cfg.htsat,
+                                                                   cfg.injection)}
+    counters = _train_counters()
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    losses = []
+    for i in range(3):
+        for c in counters.values():
+            c.launches = 0
+        state, met = step(state, batch, gen)
+        torch.cuda.synchronize()
+        got = {k: c.launches for k, c in counters.items()}
+        check(got == want, f"train step {i}: launches {got}, want {want}")
+        losses.append(float(met["loss"]))
+        check(math.isfinite(losses[-1]), f"train step {i}: loss {losses[-1]}")
+    check(all(torch.equal(p, frozen[n]) for n, p in model.named_parameters() if n in frozen),
+          "a frozen parameter changed")
+    moved = [n for n, p in state.trainable.items() if not torch.equal(p, start[n])]
+    check(len(moved) == len(start), f"trainable parameters unchanged: "
+          f"{sorted(set(start) - set(moved))[:5]}")
+    for what, key in (("bn0", "bn0"), ("adapter", "moe")):
+        names = [n for n in stats if key in n]
+        check(names and all(not torch.equal(state.batch_stats[n], stats[n]) for n in names),
+              f"{what} running stats did not move")
+    log(f"[train] AVEConfig() bf16 batch {BATCH}, default path, DropPath + SpecAugment + dropout "
+        f"+ mixup: losses {[round(v, 5) for v in losses]}; {len(frozen)} frozen tensors "
+        f"bit-identical, {len(moved)} trainable tensors moved, bn0 and adapter running stats "
+        f"moved; launches per step {got} (plan {want})")
+
+    phase_train_grads(model, loss_fn, batch)
+
+    # times (reported, not claimed)
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(2):
+        step(state, batch, gen)
+    times = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(state, batch, gen)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    step_ms = float(np.median(times)) * 1e3
+    log(f"[time] train step bf16 batch {BATCH} (default path): median {step_ms:.2f} ms over 5 "
+        f"steps ({', '.join(f'{t * 1e3:.2f}' for t in times)} ms), {BATCH / step_ms * 1e3:.3f} "
+        f"clips/s; peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    phase_profile("train step", lambda: step(state, batch, gen), step_ms, iters=1,
+                  what="train step")
+    return got, step_ms
 
 
 def _kernel_entry(name: str, source: str, replaces: str, launches: int, err: float, tot,
@@ -604,23 +1118,40 @@ def main():
     k2_err, k2_tot = phase_k2(gen)
     k3_err, k3_tot = phase_k3(gen)
     phase_tiny()
-    launches, fwd_ms = phase_full()
+    launches, fwd_ms, model = phase_full()
+    k1b_err, k1b_tot = phase_k1b(gen)
+    k2b_err, k2b_tot = phase_k2b(gen)
+    phase_train_tiny()
+    train, step_ms = phase_train(model)
     default, chain = launches["default path"], launches["chain path"]
     log(f"[time] per batch-{BATCH} forward: K1 {k1_tot['ms']:.3f} ms over {default['K1']} calls "
         f"(bound {k1_tot['bound_ms']:.3f}), K2 {k2_tot['ms']:.3f} ms over {default['K2']} calls "
         f"(bound {k2_tot['bound_ms']:.3f}), whole default forward {fwd_ms['default path']:.3f} "
         f"ms; K3 {k3_tot['ms']:.3f} ms over {chain['K3']} calls (bound "
         f"{k3_tot['bound_ms']:.3f}), whole chain forward {fwd_ms['chain path']:.3f} ms")
+    log(f"[time] per batch-{BATCH} train step: K1b {k1b_tot['ms']:.3f} ms over {train['K1b']} "
+        f"calls (bound {k1b_tot['bound_ms']:.3f}), K2b {k2b_tot['ms']:.3f} ms over "
+        f"{train['K2b']} calls (bound {k2b_tot['bound_ms']:.3f}), whole step {step_ms:.3f} ms")
     kernels = [
         _kernel_entry("window_attention", "avmoe_tpu_torch/csrc/window_attention.cu",
                       "experiments/pallas/window_attn.py:55", default["K1"], k1_err, k1_tot,
                       k1_tot["library_ms"]),
+        # the TPU kernel has no backward (JAX differentiates its XLA
+        # attention): K1b is the backward of K1's contract; library: the
+        # backward of scaled_dot_product_attention; times per train step
+        _kernel_entry("window_attention_bwd", "avmoe_tpu_torch/csrc/window_attention_bwd.cu",
+                      "experiments/pallas/window_attn.py:55", train["K1b"], k1b_err, k1b_tot,
+                      k1b_tot["library_ms"], backward_of="window_attention"),
         # no PyTorch call computes the block; its two cuBLAS products alone
         # (no GELU, LN or residual) are a yardstick under a key of their own
         _kernel_entry("mlp_block", "avmoe_tpu_torch/csrc/mlp_block.cu",
                       "experiments/pallas/fused_block.py:315", default["K2"], k2_err, k2_tot,
                       None, products_ms=k2_tot["products_ms"],
                       cublas_products_only_ms=k2_tot["cublas_ms"]),
+        _kernel_entry("mlp_block_bwd", "avmoe_tpu_torch/csrc/mlp_block.cu",
+                      "experiments/pallas/fused_block.py:315", train["K2b"], k2b_err, k2b_tot,
+                      None, backward_of="mlp_block", products_ms=k2b_tot["products_ms"],
+                      cublas_products_only_ms=k2b_tot["cublas_ms"]),
         _kernel_entry("block_chain", "avmoe_tpu_torch/csrc/block_chain.cu",
                       "experiments/pallas/fused_block.py:237", chain["K3"], k3_err, k3_tot,
                       None),

@@ -13,7 +13,8 @@ of the output, of the attention probabilities and of the MLP's hidden
 activations), 4e-2 (1 + |ref|) (chip_smoke.K3_BF16_TOL) for the block chain,
 whose chains round the inputs of four products per block, run attention on
 TF32 operands, and whose V2 post-norm rescales each sub-block's output to
-unit size.
+unit size. The backward kernels K1b and K2b are held the same way against
+the plain versions' autograd (float32 of the same bf16 inputs for bf16).
 """
 
 from __future__ import annotations
@@ -25,10 +26,11 @@ from torch_port_harness import attn_inputs
 from avmoe_tpu_torch.kernels.block_chain import (
     block_chain, block_chain_plain, chain_groups, stack_chain)
 from avmoe_tpu_torch.kernels.mlp_block import (
-    TILE_WIDTHS, mlp_block, mlp_block_plain, pick_tile, product_bf16)
+    TILE_WIDTHS, mlp_block, mlp_block_bwd, mlp_block_plain, pick_tile, product_bf16)
 from avmoe_tpu_torch.models.ave import init_parameters
 from avmoe_tpu_torch.ops.swin import SwinBlock, partition_windows
-from avmoe_tpu_torch.kernels.window_attention import window_attention, window_attention_plain
+from avmoe_tpu_torch.kernels.window_attention import (
+    window_attention, window_attention_bwd, window_attention_plain)
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
@@ -283,3 +285,143 @@ def test_cuda_block_chain_raises_instead_of_falling_back(cuda_device):
     xw = partition_windows(x, geom.H, geom.W, geom.window, 0)
     with pytest.raises(ValueError, match="cluster_windows"):
         block_chain.windows(xw, ops, geom, cluster_windows=-1)
+
+
+# ---------------------------------------------------------------------------
+# Train: K2's DropPath scale, K1b and K2b against the plain versions' autograd
+# ---------------------------------------------------------------------------
+
+
+def _grads(fn, inputs, dout):
+    """fn's output and the gradients of its inputs for the output gradient dout."""
+    leaves = [t.detach().clone().requires_grad_() for t in inputs]
+    out = fn(*leaves)
+    return out, torch.autograd.grad(out, leaves, dout)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("nW,B,H,N,D", [
+    (16, 2, 6, 144, 32),      # Swin-V2-L stage 1, shifted
+    (1, 5, 24, 144, 32),      # stage 3
+    (1, 4, 48, 36, 32),       # stage 4 (6 x 6)
+    (64, 2, 4, 64, 24),       # HTS-AT stage 1, shifted
+    (4, 3, 2, 16, 8),         # the tiny config's windows
+    (1, 3, 2, 4, 64),         # the tiny config's last stage
+    (3, 2, 3, 50, 20),        # odd N and D
+])
+def test_cuda_window_attention_backward_matches_plain_autograd(cuda_device, dtype, nW, B, H,
+                                                               N, D):
+    q, k, v, bias = (torch.from_numpy(a).to(cuda_device)
+                     for a in attn_inputs(nW, B, H, N, D, seed=2))
+    dout = torch.randn(q.shape, generator=torch.Generator().manual_seed(3)).to(cuda_device)
+    inputs = [t.to(dtype) for t in (q, k, v)]
+    before = window_attention_bwd.launches
+    out, got = _grads(lambda a, b, c: window_attention(a, b, c, bias), inputs, dout.to(dtype))
+    torch.cuda.synchronize()
+    assert window_attention_bwd.launches == before + 1
+    _, ref = _grads(lambda a, b, c: window_attention_plain(a, b, c, bias),
+                    [t.float() for t in inputs], dout.to(dtype).float())
+    for a, b in zip(got, ref):
+        assert a.dtype == dtype
+        _check(a, b, dtype)
+
+
+_MLP_BWD_CASES = [(4, 2304, 192, False), (5, 144, 768, False), (3, 36, 1536, False),
+                  (4, 1024, 96, True), (3, 64, 768, True), (2, 16, 16, True), (3, 25, 200, False)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("with_scale", [False, True])
+@pytest.mark.parametrize("frames,L,C,pre_norm", _MLP_BWD_CASES)
+def test_cuda_mlp_block_forward_and_backward_with_droppath_match_plain(
+        cuda_device, dtype, with_scale, frames, L, C, pre_norm):
+    x, lw, lb, w1, b1, w2, b2 = (t.to(cuda_device) for t in _mlp_args(R=frames * L, C=C))
+    x = x.reshape(frames, L, C)
+    scale = (torch.tensor([0.0] + [1 / 0.9] * (frames - 1), device=cuda_device)
+             if with_scale else None)
+    dy = torch.randn(x.shape, generator=torch.Generator().manual_seed(9)).to(cuda_device)
+    W1, W2 = w1.to(dtype), w2.to(dtype)
+    before = (mlp_block.launches, mlp_block_bwd.launches)
+    out, (dx,) = _grads(lambda t: mlp_block(t, lw, lb, W1, b1, W2, b2, pre_norm=pre_norm,
+                                            scale=scale), [x.to(dtype)], dy.to(dtype))
+    torch.cuda.synchronize()
+    assert (mlp_block.launches, mlp_block_bwd.launches) == (before[0] + 1, before[1] + 1)
+    ref, (dx_ref,) = _grads(lambda t: mlp_block_plain(t, lw, lb, W1.float(), b1, W2.float(), b2,
+                                                      pre_norm=pre_norm, scale=scale),
+                            [x.to(dtype).float()], dy.to(dtype).float())
+    _check(out, ref, dtype)
+    _check(dx, dx_ref, dtype)
+    if with_scale:    # the dropped frame: out = x, dx = dy
+        assert torch.equal(out[0], x.to(dtype)[0]) and torch.equal(dx[0], dy.to(dtype)[0])
+
+
+@pytest.mark.cuda
+def test_cuda_mlp_block_without_scale_is_unchanged_by_a_unit_scale(cuda_device):
+    x, lw, lb, w1, b1, w2, b2 = (t.to(cuda_device) for t in _mlp_args(R=4 * 144, C=384))
+    x = x.reshape(4, 144, 384).bfloat16()
+    W1, W2 = w1.bfloat16(), w2.bfloat16()
+    for pre_norm in (True, False):
+        plain = mlp_block(x, lw, lb, W1, b1, W2, b2, pre_norm=pre_norm)
+        ones = mlp_block(x, lw, lb, W1, b1, W2, b2, pre_norm=pre_norm,
+                         scale=torch.ones(4, device=cuda_device))
+        assert torch.equal(plain, ones)
+
+
+@pytest.mark.cuda
+def test_cuda_backward_wrappers_raise_instead_of_falling_back(cuda_device):
+    # a bias that needs a gradient (a trainable backbone) is refused on the card
+    q = torch.randn(2, 1, 16, 8, device=cuda_device, requires_grad=True)
+    bias = torch.zeros(1, 1, 16, 16, device=cuda_device, requires_grad=True)
+    with pytest.raises(ValueError, match="bias must be frozen"):
+        window_attention(q, q, q, bias)
+    # K1b holds N <= 144: a differentiable call above it is refused up front
+    q = torch.randn(1, 1, 196, 8, device=cuda_device, requires_grad=True)
+    with pytest.raises(ValueError, match="N <= 144"):
+        window_attention(q, q, q, torch.zeros(1, 1, 196, 196, device=cuda_device))
+    with pytest.raises(ValueError, match="N <= 144"):
+        window_attention_bwd(*(q.detach(),) * 3, torch.zeros(1, 1, 196, 196, device=cuda_device),
+                             q.detach(), q.detach())
+    # K2b gives dx only: weights that need a gradient are refused on the card
+    x, lw, lb, w1, b1, w2, b2 = (t.to(cuda_device) for t in _mlp_args(R=8, C=16))
+    with pytest.raises(ValueError, match="weights and norm must be frozen"):
+        mlp_block(x.requires_grad_(), lw, lb, w1.requires_grad_(), b1, w2, b2, pre_norm=True)
+    # bf16 rows the kernel cannot load
+    bf = torch.bfloat16
+    x, lw, lb, w1, b1, w2, b2 = (t.to(cuda_device) for t in _mlp_args(R=8, C=16))
+    flat = torch.zeros(8 * 16 + 1, dtype=bf, device=cuda_device)
+    dy = flat[1:].view(8, 16)
+    with pytest.raises(ValueError, match="16-byte"):
+        mlp_block_bwd(x.to(bf), dy, lw, lb, w1.to(bf), b1, w2.to(bf), b2,
+                      w1.to(bf).t().contiguous(), w2.to(bf).t().contiguous(), pre_norm=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("epi", [3, 4, 5, 6, 7])
+@pytest.mark.parametrize("width", TILE_WIDTHS)
+def test_cuda_mlp_product_train_epilogues_match_plain(cuda_device, width, epi):
+    # the DropPath (3) and K2b (4-7) epilogues, ragged M, N and K as above
+    from avmoe_tpu_torch.kernels.mlp_block import gelu_grad
+
+    g = torch.Generator().manual_seed(10)
+    M, N, K = 1000, 200, 392
+    a = torch.randn(M, K, generator=g).bfloat16().to(cuda_device)
+    w = (torch.randn(N, K, generator=g) / K ** 0.5).bfloat16().to(cuda_device)
+    bias = (0.1 * torch.randn(N, generator=g)).to(cuda_device)
+    resid = torch.randn(M, N, generator=g).bfloat16().to(cuda_device)
+    scale = torch.tensor([0.0, 1.25, 0.5, 1.0] * 2, device=cuda_device)   # 125 rows a frame
+    rows = scale.repeat_interleave(M // 8)[:, None]
+    out2 = torch.empty_like(resid) if epi == 4 else None
+    out = product_bf16(a, w, bias, epi=epi, tile=width, resid=None if epi in (4, 7) else resid,
+                       out2=out2, scale=scale if epi in (3, 5) else None)
+    torch.cuda.synchronize()
+    v = a.float() @ w.float().t()
+    ref = {3: rows * (v + bias) + resid.float(),
+           4: torch.nn.functional.gelu(v + bias, approximate="none"),
+           5: v * gelu_grad(resid.float()) * rows,
+           6: v + resid.float(),
+           7: v}[epi]
+    _check(out, ref, torch.bfloat16)
+    if epi == 4:
+        _check(out2, v + bias, torch.bfloat16)

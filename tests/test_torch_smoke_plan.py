@@ -13,7 +13,7 @@ import chip_smoke
 from avmoe_tpu_torch.config import AVEConfig
 from avmoe_tpu_torch.kernels.mlp_block import (
     TILE_ROWS, TILE_WIDTHS, busiest_sm_tiles, pick_tile, product_seconds)
-from avmoe_tpu_torch.moe.injection import kernel_launches
+from avmoe_tpu_torch.moe.injection import backward_launches, kernel_launches
 
 _FRAMES = chip_smoke.BATCH * 10
 
@@ -27,6 +27,20 @@ def test_chip_smoke_shapes_sum_to_the_planned_launches(kernel, chains, calls, wa
     cfg = AVEConfig()
     planned = kernel_launches(cfg.swin, cfg.htsat, cfg.injection, chains)[kernel]
     assert sum(calls()) == planned == want
+
+
+@pytest.mark.parametrize("kernel,calls,want", [
+    ("K1b", lambda: [s[-1] for s in chip_smoke.k1b_shapes(_FRAMES)], 34),
+    ("K2b", lambda: [s[-1] for s in chip_smoke.k2b_shapes(_FRAMES)], 35),
+])
+def test_chip_smoke_train_shapes_sum_to_the_planned_backward_launches(kernel, calls, want):
+    cfg = AVEConfig()
+    assert sum(calls()) == backward_launches(cfg.swin, cfg.htsat, cfg.injection)[kernel] == want
+    # every shape of the forward is also a shape of the backward
+    fwd = chip_smoke.k1_shapes(_FRAMES) if kernel == "K1b" else chip_smoke.k2_shapes(_FRAMES)
+    shapes = chip_smoke.k1b_shapes(_FRAMES) if kernel == "K1b" else chip_smoke.k2b_shapes(
+        _FRAMES)
+    assert {s[:-1] for s in fwd} == {s[:-1] for s in shapes}
 
 
 @pytest.mark.parametrize("sms", [132, 114])

@@ -100,7 +100,7 @@ def build(out_dir: Path):
         if proc.returncode != 0:
             raise RuntimeError(f"{name}: nvcc failed\n{log}")
         lib = ctypes.CDLL(str(so))
-        lib.mlp_block_gemm_bf16.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
+        lib.mlp_block_gemm_bf16.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
                                             + [ctypes.c_void_p])
         lib.mlp_block_gemm_bf16.restype = ctypes.c_int
         lib.mlp_block_ctas_per_sm.argtypes = [ctypes.c_int, ctypes.c_void_p]
@@ -112,7 +112,7 @@ def product(lib, a, w, bias, epi, width, resid=None):
     out = torch.empty((a.shape[0], w.shape[0]), dtype=a.dtype, device=a.device)
     err = lib.mlp_block_gemm_bf16(a.data_ptr(), w.data_ptr(), bias.data_ptr(),
                                   0 if resid is None else resid.data_ptr(), out.data_ptr(),
-                                  a.shape[0], w.shape[0], a.shape[1], epi, width,
+                                  0, 0, 1, a.shape[0], w.shape[0], a.shape[1], epi, width,
                                   torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError(f"product failed: CUDA error {err}")
