@@ -20,14 +20,39 @@
 // What bounds it on the H100. Per (window, head) the five products do
 // 10 N^2 D operations on 5 N D inputs and 3 N D outputs; with N=144, D=32 in
 // bf16 that is about 70 operations per byte, under the ~295 at which the
-// tensor cores set the pace, so device memory bounds it in principle. This
-// first version runs the products on the CUDA cores in float32 (about
-// 67 TFLOP/s at most), so the CUDA cores bound it in practice.
+// tensor cores set the pace, so device memory bounds it. Each CTA also reads
+// its head's N x N float32 bias (83 KB at N=144) from L2, more than its
+// inputs and outputs together.
 //
-// The design. One CTA of 16 warps owns one (window, head) and holds all of
-// it in shared memory as float32: k and v rows padded to D + 1 (lanes that
-// walk keys hit distinct banks), q and dO, the N x N probabilities, and D.
-// Four passes, separated by barriers, each one product:
+// bf16: tensor cores (FlashAttention-2's backward, cut to a window that fits
+// in one CTA). One CTA of ceil(N / 16) warps per (window, head), built on
+// csrc/attention_mma.cuh's m16n8k16 fragments; warp w owns query rows
+// 16 w .. 16 w + 15 and, in the column passes, keys 16 w .. 16 w + 15:
+//   1. q, k, v, dO into shared memory as bf16 (cp.async; rows of 16 KD + 8,
+//      zero past N and past D); D_i from global O and dO, summed in the quad;
+//   2. per row warp S = bias + q k^T in registers, P = softmax(S) in float32
+//      (load_logit_bias, qk_bf16, softmax_rows), written as bf16 into one
+//      N x (N + 8) buffer;                                             barrier
+//   3. per key warp dv = P^T dO: P^T by ldmatrix.trans from the buffer, dO
+//      by ldmatrix.trans as pv_bf16 takes v;                          barrier
+//   4. per row warp, one 16-key chunk at a time: dP = dO v^T (q k^T's
+//      fragments), dS = P o (dP - D_i) in float32 from the staged bf16 P,
+//      dS written as bf16 over P, dq += dS k (p v's fragments);     barrier
+//   5. per key warp dk = dS^T q, as step 3.
+// Rounding: P and dS are rounded to bf16 as product operands, as K1 rounds P
+// for p v; every sum accumulates in float32; the outputs are rounded to bf16
+// once. No atomics: every output element is one warp's sum, in one order, so
+// the result is bitwise deterministic. Walking dP and dS in 16-key chunks
+// keeps only S (2 ceil(N/16) m16n8 tiles) live at the peak, so at N=144,
+// D=32 two CTAs of 9 warps fit an SM (<= 112 registers, 88 KB of shared
+// memory each).
+//
+// float32: the CUDA cores, exact within float32 rounding (the float32
+// gradient checks need the full mantissa, which bf16 operands do not keep).
+// One CTA of 16 warps owns one (window, head) and holds all of it in shared
+// memory as float32: k and v rows padded to D + 1 (lanes that walk keys hit
+// distinct banks), q and dO, the N x N probabilities, and D. Four passes,
+// separated by barriers, each one product:
 //   A  rows i (a warp a row, lanes over keys): logits, softmax -> P; D_i
 //   B  keys j (a warp a key, lanes over d):   dv_j = sum_i P_ij dO_i
 //   C  rows i: dP_ij, dS_ij = P_ij (dP_ij - D_i) written over P; dq_i = dS_i k
@@ -38,10 +63,13 @@
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math.h>
+#include <stdint.h>
 
 #include <algorithm>
 
+#include "attention_mma.cuh"
 #include "common.cuh"
+#include "cp_async.cuh"
 
 namespace {
 
@@ -52,18 +80,22 @@ constexpr int kThreads = 32 * kWarps;
 constexpr int kMaxN = 144;
 constexpr int kMaxD = 64;
 
+// ---------------------------------------------------------------------------
+// float32: CUDA cores
+// ---------------------------------------------------------------------------
+
 size_t shared_bytes(int N, int D) {
   return sizeof(float) * (2 * (size_t)N * (D + 1) + 2 * (size_t)N * D + (size_t)N * N + N);
 }
 
 // KPL: keys a lane holds in passes A and C (N <= 32 KPL)
-template <typename T, int KPL>
+template <int KPL>
 __global__ void __launch_bounds__(kThreads)
-window_attention_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                            const T* __restrict__ v, const float* __restrict__ bias,
-                            const T* __restrict__ out, const T* __restrict__ dout,
-                            T* __restrict__ dq, T* __restrict__ dk, T* __restrict__ dv, int H,
-                            int N, int D, int nW) {
+window_attention_bwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                            const float* __restrict__ v, const float* __restrict__ bias,
+                            const float* __restrict__ out, const float* __restrict__ dout,
+                            float* __restrict__ dq, float* __restrict__ dk,
+                            float* __restrict__ dv, int H, int N, int D, int nW) {
   extern __shared__ float smem[];
   const int ldk = D + 1;
   float* Ks = smem;                     // [N][D + 1]
@@ -81,10 +113,10 @@ window_attention_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   for (int e = threadIdx.x; e < N * D; e += kThreads) {
     const int n = e / D, d = e - n * D;
-    Ks[n * ldk + d] = to_float(k[base + e]);
-    Vs[n * ldk + d] = to_float(v[base + e]);
-    Qs[e] = to_float(q[base + e]);
-    Gs[e] = to_float(dout[base + e]);
+    Ks[n * ldk + d] = k[base + e];
+    Vs[n * ldk + d] = v[base + e];
+    Qs[e] = q[base + e];
+    Gs[e] = dout[base + e];
   }
   __syncthreads();
 
@@ -125,7 +157,7 @@ window_attention_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
     float dsum = 0.f;
     for (int d = lane; d < D; d += 32)
-      dsum = fmaf(Gs[(size_t)i * D + d], to_float(out[base + (size_t)i * D + d]), dsum);
+      dsum = fmaf(Gs[(size_t)i * D + d], out[base + (size_t)i * D + d], dsum);
     dsum = warp_sum(dsum);
     if (lane == 0) Ds[i] = dsum;
   }
@@ -136,7 +168,7 @@ window_attention_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int d = lane; d < D; d += 32) {
       float acc = 0.f;
       for (int i = 0; i < N; ++i) acc = fmaf(Ps[(size_t)i * N + j], Gs[(size_t)i * D + d], acc);
-      dv[base + (size_t)j * D + d] = from_float<T>(acc);
+      dv[base + (size_t)j * D + d] = acc;
     }
   }
   __syncthreads();
@@ -168,7 +200,7 @@ window_attention_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int d = lane; d < D; d += 32) {
       float acc = 0.f;
       for (int j = 0; j < N; ++j) acc = fmaf(Ps[(size_t)i * N + j], Ks[j * ldk + d], acc);
-      dq[base + (size_t)i * D + d] = from_float<T>(acc);
+      dq[base + (size_t)i * D + d] = acc;
     }
   }
   __syncthreads();
@@ -178,16 +210,16 @@ window_attention_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int d = lane; d < D; d += 32) {
       float acc = 0.f;
       for (int i = 0; i < N; ++i) acc = fmaf(Ps[(size_t)i * N + j], Qs[(size_t)i * D + d], acc);
-      dk[base + (size_t)j * D + d] = from_float<T>(acc);
+      dk[base + (size_t)j * D + d] = acc;
     }
   }
 }
 
-template <typename T, int KPL>
-int launch(const void* q, const void* k, const void* v, const float* bias, const void* out,
-           const void* dout, void* dq, void* dk, void* dv, int BW, int H, int N, int D, int nW,
-           cudaStream_t stream) {
-  auto kernel = window_attention_bwd_kernel<T, KPL>;
+template <int KPL>
+int launch_f32(const void* q, const void* k, const void* v, const float* bias, const void* out,
+               const void* dout, void* dq, void* dk, void* dv, int BW, int H, int N, int D,
+               int nW, cudaStream_t stream) {
+  auto kernel = window_attention_bwd_kernel<KPL>;
   // the most the shapes of this instantiation take, set once
   static bool smem_set = false;
   if (!smem_set) {
@@ -198,20 +230,282 @@ int launch(const void* q, const void* k, const void* v, const float* bias, const
     smem_set = true;
   }
   kernel<<<BW * H, kThreads, shared_bytes(N, D), stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), bias,
-      static_cast<const T*>(out), static_cast<const T*>(dout), static_cast<T*>(dq),
-      static_cast<T*>(dk), static_cast<T*>(dv), H, N, D, nW);
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      bias, static_cast<const float*>(out), static_cast<const float*>(dout),
+      static_cast<float*>(dq), static_cast<float*>(dk), static_cast<float*>(dv), H, N, D, nW);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int launch_by_n(const void* q, const void* k, const void* v, const float* bias, const void* out,
+int launch_f32_by_n(const void* q, const void* k, const void* v, const float* bias,
+                    const void* out, const void* dout, void* dq, void* dk, void* dv, int BW,
+                    int H, int N, int D, int nW, cudaStream_t s) {
+  if (N <= 32) return launch_f32<1>(q, k, v, bias, out, dout, dq, dk, dv, BW, H, N, D, nW, s);
+  if (N <= 64) return launch_f32<2>(q, k, v, bias, out, dout, dq, dk, dv, BW, H, N, D, nW, s);
+  if (N <= 96) return launch_f32<3>(q, k, v, bias, out, dout, dq, dk, dv, BW, H, N, D, nW, s);
+  return launch_f32<5>(q, k, v, bias, out, dout, dq, dk, dv, BW, H, N, D, nW, s);
+}
+
+// ---------------------------------------------------------------------------
+// bf16: tensor cores. KT16: key 16-tiles the registers hold (N <= 16 KT16);
+// KD: 16-wide steps of the head width (D <= 16 KD). nkt16 = ceil(N / 16)
+// warps. Shared memory: q, k, v, dO as [16 nkt16][16 KD + 8] bf16, then P
+// (later dS) as [16 nkt16][16 nkt16 + 8] bf16, row-major (query, key): both
+// row strides are an odd number of 16-byte units, so ldmatrix's eight row
+// reads, plain or transposed, hit distinct banks, and so do the quad's 4-byte
+// reads and writes of P and dS.
+// ---------------------------------------------------------------------------
+
+size_t mma_shared_bytes(int nkt16, int KD) {
+  const size_t rows = 16 * (size_t)nkt16;
+  return sizeof(bf16) * (4 * rows * (16 * KD + 8) + rows * (rows + 8));
+}
+
+// CTAs an SM must hold at once: two of 9 warps at N=144, D <= 32 (registers
+// capped at 112), one at D=64 (its q, k, v, dO take 81 KB)
+template <int KT16, int KD> __host__ __device__ constexpr int min_blocks() {
+  return KT16 <= 4 ? 4 : (KD <= 2 ? 2 : 1);
+}
+
+// acc = X^T B over the row 16-tiles < nkt16: X, the staged P or dS, at key
+// columns c0 .. c0 + 15 of its row-major (query, key) buffer, read transposed
+// (ldmatrix.trans: A[m = key][k = query]); B = rows of Bs (dO or q), read
+// transposed as pv_bf16 reads v.
+template <int KD>
+__device__ __forceinline__ void xt_b(float (&acc)[2 * KD][4], const bf16* Xs, int ldx, int c0,
+                                     const bf16* Bs, int ld, int nkt16, int ndt8) {
+  const int lane = threadIdx.x & 31;
+  const int xrow = (lane & 7) + ((lane >> 4) << 3), xcol = ((lane >> 3) & 1) * 8;
+  const int brow = (lane & 7) + ((lane >> 3) & 1) * 8, bcol = (lane >> 4) * 8;
+#pragma unroll
+  for (int dt = 0; dt < 2 * KD; ++dt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[dt][e] = 0.f;
+  for (int it = 0; it < nkt16; ++it) {
+    unsigned a[4];
+    mma::ldsm_x4_trans(a, Xs + (size_t)(16 * it + xrow) * ldx + c0 + xcol);
+#pragma unroll
+    for (int dp = 0; dp < KD; ++dp) {
+      if (2 * dp >= ndt8) continue;
+      unsigned b[4];
+      mma::ldsm_x4_trans(b, Bs + (size_t)(16 * it + brow) * ld + dp * 16 + bcol);
+      mma::mma_bf16(acc[2 * dp], a, b[0], b[1]);
+      if (2 * dp + 1 < ndt8) mma::mma_bf16(acc[2 * dp + 1], a, b[2], b[3]);
+    }
+  }
+}
+
+// rows r0 + g and r0 + g + 8 of an (N, D) row-major bf16 output from m16n8
+// accumulator tiles over D; rows past N and columns past D are not stored
+template <int KD>
+__device__ __forceinline__ void store_rows(bf16* __restrict__ dst, const float (&acc)[2 * KD][4],
+                                           int r0, int N, int D, int ndt8) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int r = r0 + g + 8 * half;
+    if (r >= N) continue;
+    bf16* row = dst + (size_t)r * D;
+#pragma unroll
+    for (int dt = 0; dt < 2 * KD; ++dt) {
+      if (dt >= ndt8) continue;
+      const int d = 8 * dt + 2 * t;
+      const float x = acc[dt][2 * half], y = acc[dt][2 * half + 1];
+      if ((D & 1) == 0) {
+        // D even: d < D means d + 1 < D, and the pair is 4-byte aligned
+        if (d < D) *reinterpret_cast<unsigned*>(row + d) = mma::pack_bf16(x, y);
+      } else {
+        if (d < D) row[d] = __float2bfloat16(x);
+        if (d + 1 < D) row[d + 1] = __float2bfloat16(y);
+      }
+    }
+  }
+}
+
+template <int KT16, int KD>
+__global__ void __launch_bounds__(32 * KT16, min_blocks<KT16, KD>())
+window_attention_bwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                                const bf16* __restrict__ v, const float* __restrict__ bias,
+                                const bf16* __restrict__ out, const bf16* __restrict__ dout,
+                                bf16* __restrict__ dq, bf16* __restrict__ dk,
+                                bf16* __restrict__ dv, int H, int N, int D, int nW, bool vec) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  constexpr int ld = 16 * KD + 8;
+  const int nkt16 = (N + 15) >> 4, rows = 16 * nkt16, ldp = rows + 8;
+  const size_t tile = (size_t)rows * ld;
+  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);
+  bf16* Ks = Qs + tile;
+  bf16* Vs = Ks + tile;
+  bf16* Gs = Vs + tile;  // dO
+  bf16* Ps = Gs + tile;  // [rows][ldp]: P, then dS
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int r0 = 16 * warp;  // this warp's query rows and, in steps 3 and 5, keys
+  const int ndt8 = (D + 7) >> 3;
+
+  const int bh = blockIdx.x;  // bw * H + h
+  const int bw = bh / H, h = bh - bw * H;
+  const size_t base = (size_t)bh * N * D;
+
+  // 1. q, k, v, dO into shared memory, zero past N rows and D columns
+  if (vec) {
+    const int per = rows * 2 * KD;  // 16-byte chunks of one tensor
+    for (int e = threadIdx.x; e < 4 * per; e += blockDim.x) {
+      const int ts = e / per, rem = e - ts * per, r = rem / (2 * KD), cc = rem - r * 2 * KD;
+      const bf16* src = (ts == 0 ? q : ts == 1 ? k : ts == 2 ? v : dout) + base;
+      const bool ok = r < N && cc * 8 < D;
+      cp_async16(Qs + ts * tile + (size_t)r * ld + cc * 8, ok ? src + (size_t)r * D + cc * 8 : src,
+                 ok);
+    }
+  } else {
+    const int per = rows * 16 * KD;
+    for (int e = threadIdx.x; e < 4 * per; e += blockDim.x) {
+      const int ts = e / per, rem = e - ts * per, r = rem / (16 * KD), d = rem - r * 16 * KD;
+      const bf16* src = (ts == 0 ? q : ts == 1 ? k : ts == 2 ? v : dout) + base;
+      Qs[ts * tile + (size_t)r * ld + d] =
+          r < N && d < D ? src[(size_t)r * D + d] : __float2bfloat16(0.f);
+    }
+  }
+  cp_async_commit();
+
+  // D_i of rows r0 + g (D0) and r0 + g + 8 (D1), in the accumulator layout
+  float D0 = 0.f, D1 = 0.f;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int r = r0 + g + 8 * half;
+    if (r >= N) continue;
+    const size_t row = base + (size_t)r * D;
+    float acc = 0.f;
+    for (int d = 2 * t; d < D; d += 8) {
+      acc = fmaf(__bfloat162float(dout[row + d]), __bfloat162float(out[row + d]), acc);
+      if (d + 1 < D)
+        acc = fmaf(__bfloat162float(dout[row + d + 1]), __bfloat162float(out[row + d + 1]), acc);
+    }
+    (half ? D1 : D0) = acc;
+  }
+#pragma unroll
+  for (int off = 1; off < 4; off <<= 1) {
+    D0 += __shfl_xor_sync(0xffffffffu, D0, off);
+    D1 += __shfl_xor_sync(0xffffffffu, D1, off);
+  }
+
+  // 2. S = bias + q k^T, P = softmax(S), staged as bf16
+  {
+    float s[2 * KT16][4];
+    mma::load_logit_bias<2 * KT16>(s, bias + ((size_t)(bw % nW) * H + h) * N * N, nullptr, N,
+                                   r0, 2 * nkt16);
+    cp_async_wait<0>();
+    __syncthreads();
+    mma::qk_bf16<2 * KT16, KD>(s, Qs, Ks, ld, r0, nkt16);
+    float inv0, inv1;
+    mma::softmax_rows<2 * KT16>(s, 2 * nkt16, inv0, inv1);
+    unsigned* p0 = reinterpret_cast<unsigned*>(Ps + (size_t)(r0 + g) * ldp + 2 * t);
+    unsigned* p1 = reinterpret_cast<unsigned*>(Ps + (size_t)(r0 + g + 8) * ldp + 2 * t);
+#pragma unroll
+    for (int j = 0; j < 2 * KT16; ++j) {
+      if (j >= 2 * nkt16) continue;
+      p0[4 * j] = mma::pack_bf16(s[j][0] * inv0, s[j][1] * inv0);
+      p1[4 * j] = mma::pack_bf16(s[j][2] * inv1, s[j][3] * inv1);
+    }
+  }
+  __syncthreads();
+
+  // 3. dv = P^T dO for keys r0 .. r0 + 15
+  {
+    float acc[2 * KD][4];
+    xt_b<KD>(acc, Ps, ldp, r0, Gs, ld, nkt16, ndt8);
+    store_rows<KD>(dv + base, acc, r0, N, D, ndt8);
+  }
+  __syncthreads();
+
+  // 4. per 16-key chunk: dP = dO v^T, dS = P o (dP - D) over P, dq += dS k
+  {
+    unsigned ga[KD][4];
+#pragma unroll
+    for (int kc = 0; kc < KD; ++kc)
+      mma::ldsm_x4(ga[kc], Gs + (size_t)(r0 + (lane & 15)) * ld + kc * 16 + (lane >> 4) * 8);
+    const int krow = (lane & 7) + ((lane >> 4) << 3), kcol = ((lane >> 3) & 1) * 8;
+    const int vrow = (lane & 7) + ((lane >> 3) & 1) * 8, vcol = (lane >> 4) * 8;
+    unsigned* p0 = reinterpret_cast<unsigned*>(Ps + (size_t)(r0 + g) * ldp + 2 * t);
+    unsigned* p1 = reinterpret_cast<unsigned*>(Ps + (size_t)(r0 + g + 8) * ldp + 2 * t);
+    float acc[2 * KD][4];
+#pragma unroll
+    for (int dt = 0; dt < 2 * KD; ++dt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[dt][e] = 0.f;
+    for (int jc = 0; jc < nkt16; ++jc) {
+      float dp[2][4] = {};
+#pragma unroll
+      for (int kc = 0; kc < KD; ++kc) {
+        unsigned b[4];
+        mma::ldsm_x4(b, Vs + (size_t)(16 * jc + krow) * ld + kc * 16 + kcol);
+        mma::mma_bf16(dp[0], ga[kc], b[0], b[1]);
+        mma::mma_bf16(dp[1], ga[kc], b[2], b[3]);
+      }
+      unsigned a[4];
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int w = 4 * (2 * jc + hh);  // the n8 tile's word offset
+        const float2 pa = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p0 + w));
+        const float2 pb = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p1 + w));
+        a[2 * hh] = mma::pack_bf16(pa.x * (dp[hh][0] - D0), pa.y * (dp[hh][1] - D0));
+        a[2 * hh + 1] = mma::pack_bf16(pb.x * (dp[hh][2] - D1), pb.y * (dp[hh][3] - D1));
+        p0[w] = a[2 * hh];
+        p1[w] = a[2 * hh + 1];
+      }
+#pragma unroll
+      for (int dpp = 0; dpp < KD; ++dpp) {
+        if (2 * dpp >= ndt8) continue;
+        unsigned b[4];
+        mma::ldsm_x4_trans(b, Ks + (size_t)(16 * jc + vrow) * ld + dpp * 16 + vcol);
+        mma::mma_bf16(acc[2 * dpp], a, b[0], b[1]);
+        if (2 * dpp + 1 < ndt8) mma::mma_bf16(acc[2 * dpp + 1], a, b[2], b[3]);
+      }
+    }
+    store_rows<KD>(dq + base, acc, r0, N, D, ndt8);
+  }
+  __syncthreads();
+
+  // 5. dk = dS^T q for keys r0 .. r0 + 15
+  {
+    float acc[2 * KD][4];
+    xt_b<KD>(acc, Ps, ldp, r0, Qs, ld, nkt16, ndt8);
+    store_rows<KD>(dk + base, acc, r0, N, D, ndt8);
+  }
+}
+
+template <int KT16, int KD>
+int launch_mma(const void* q, const void* k, const void* v, const float* bias, const void* out,
+               const void* dout, void* dq, void* dk, void* dv, int BW, int H, int N, int D,
+               int nW, cudaStream_t stream) {
+  auto kernel = window_attention_bwd_mma_kernel<KT16, KD>;
+  static bool smem_set = false;  // the most this instantiation takes, set once
+  if (!smem_set) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)mma_shared_bytes(KT16, KD));
+    if (err != cudaSuccess) return (int)err;
+    smem_set = true;
+  }
+  const int nkt16 = (N + 15) >> 4;
+  // 16-byte cp.async copies where every row and source allows them
+  const uintptr_t addr = reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+                         reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(dout);
+  const bool vec = D % 8 == 0 && (addr & 15) == 0;
+  kernel<<<BW * H, 32 * nkt16, mma_shared_bytes(nkt16, KD), stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v), bias,
+      static_cast<const bf16*>(out), static_cast<const bf16*>(dout), static_cast<bf16*>(dq),
+      static_cast<bf16*>(dk), static_cast<bf16*>(dv), H, N, D, nW, vec);
+  return (int)cudaGetLastError();
+}
+
+int launch_bf16(const void* q, const void* k, const void* v, const float* bias, const void* out,
                 const void* dout, void* dq, void* dk, void* dv, int BW, int H, int N, int D,
                 int nW, cudaStream_t s) {
-  if (N <= 32) return launch<T, 1>(q, k, v, bias, out, dout, dq, dk, dv, BW, H, N, D, nW, s);
-  if (N <= 64) return launch<T, 2>(q, k, v, bias, out, dout, dq, dk, dv, BW, H, N, D, nW, s);
-  if (N <= 96) return launch<T, 3>(q, k, v, bias, out, dout, dq, dk, dv, BW, H, N, D, nW, s);
-  return launch<T, 5>(q, k, v, bias, out, dout, dq, dk, dv, BW, H, N, D, nW, s);
+  if (D <= 32) {
+    if (N <= 64) return launch_mma<4, 2>(q, k, v, bias, out, dout, dq, dk, dv, BW, H, N, D, nW, s);
+    return launch_mma<9, 2>(q, k, v, bias, out, dout, dq, dk, dv, BW, H, N, D, nW, s);
+  }
+  if (N <= 64) return launch_mma<4, 4>(q, k, v, bias, out, dout, dq, dk, dv, BW, H, N, D, nW, s);
+  return launch_mma<9, 4>(q, k, v, bias, out, dout, dq, dk, dv, BW, H, N, D, nW, s);
 }
 
 }  // namespace
@@ -226,9 +520,7 @@ extern "C" int window_attention_bwd(const void* q, const void* k, const void* v,
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* b = static_cast<const float*>(bias);
-  if (dtype == 0)
-    return launch_by_n<float>(q, k, v, b, out, dout, dq, dk, dv, BW, H, N, D, nW, s);
-  if (dtype == 1)
-    return launch_by_n<bf16>(q, k, v, b, out, dout, dq, dk, dv, BW, H, N, D, nW, s);
+  if (dtype == 0) return launch_f32_by_n(q, k, v, b, out, dout, dq, dk, dv, BW, H, N, D, nW, s);
+  if (dtype == 1) return launch_bf16(q, k, v, b, out, dout, dq, dk, dv, BW, H, N, D, nW, s);
   return (int)cudaErrorInvalidValue;
 }

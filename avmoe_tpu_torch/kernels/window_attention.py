@@ -17,7 +17,10 @@ Contract (that of the TPU kernel):
 Training. Where q, k or v needs a gradient, the call goes through an
 autograd Function whose backward is K1b (`csrc/window_attention_bwd.cu`;
 plain version `window_attention_backward_plain`): dq, dk and dv from q, k,
-v, the bias, the output and its gradient, P recomputed in float32. The bias
+v, the bias, the output and its gradient, P recomputed in float32. In bf16
+K1b runs its five products on the tensor cores and rounds P and dS to bf16
+as product operands (sums in float32); in float32 it runs on the CUDA
+cores, exact within float32 rounding. The bias
 is frozen (a table or CPB MLP of the frozen backbone): on the card a bias
 that needs a gradient raises; on the CPU that case takes plain autograd.
 K1b takes N <= 144 and D <= 64 (every main-path and tiny shape).

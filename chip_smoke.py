@@ -12,8 +12,9 @@ script exits non-zero without printing the result line):
 
   1. card: nvidia-smi name and power limit, torch / CUDA versions;
   2. build: the four CUDA sources with nvcc (one process each, in parallel);
-     the tensor-core instructions (HMMA) in the SASS of K1, K2 and K3, which
-     must be there (their bf16 code runs on mma.sync);
+     the tensor-core instructions (HMMA) in the SASS of K1, K2, K3 and K1b,
+     which must be there (their bf16 code runs on mma.sync); K1b's ptxas
+     registers and spills per instantiation, none of its bf16 ones spilling;
   3. window-attention kernel vs its plain version at every main-path shape,
      float32 (rtol 1e-4, atol 1e-5) and bfloat16 (|d| <= 2e-2 (1 + |ref|)
      against the float32 plain version of the same bf16 inputs);
@@ -43,7 +44,8 @@ script exits non-zero without printing the result line):
      every main-path shape, float32 (rtol 1e-4, atol 1e-5) and bfloat16
      (|d| <= 2e-2 (1 + |ref|) against the float32 plain autograd of the same
      bf16 inputs); times beside the plain autograd's, the bound and the
-     backward of scaled_dot_product_attention with a float mask;
+     backward of scaled_dot_product_attention with a float mask, with the
+     achieved TFLOP/s and the share of the bound;
  11. K2b (MLP-block backward) the same way at every main-path shape, both
      norms, with and without a DropPath scale that has zeros in it (K2's
      forward with the scale checked too); times beside the plain autograd's,
@@ -76,6 +78,7 @@ import contextlib
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -200,6 +203,29 @@ def phase_card():
     torch.backends.cudnn.allow_tf32 = False
 
 
+def ptxas_report(text: str, cxxfilt: Path):
+    """(kernel, registers, spill store bytes, spill load bytes) of every entry
+    function in an nvcc -Xptxas -v log, the names demangled where cu++filt can."""
+    rows, name, spills = [], None, (0, 0)
+    for ln in text.splitlines():
+        if m := re.search(r"Compiling entry function '([^']+)'", ln):
+            name, spills = m.group(1), (0, 0)
+        elif m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln):
+            spills = (int(m.group(1)), int(m.group(2)))
+        elif (m := re.search(r"Used (\d+) registers", ln)) and name:
+            rows.append([name, int(m.group(1)), *spills])
+            name = None
+    if rows and cxxfilt.exists():
+        names = subprocess.run([str(cxxfilt), *(r[0] for r in rows)], capture_output=True,
+                               text=True, timeout=60).stdout.splitlines()
+        if len(names) == len(rows):
+            for r, n in zip(rows, names):
+                for noise in ("void ", "(anonymous namespace)::", "<unnamed>::", "(int)"):
+                    n = n.replace(noise, "")
+                r[0] = n.split("(")[0]
+    return rows
+
+
 def phase_build():
     from avmoe_tpu_torch.kernels import _build
 
@@ -209,9 +235,18 @@ def phase_build():
         regs += [f"{name}: {ln.split(':', 1)[1].strip()}" for ln in text.splitlines()
                  if "Used" in ln and "registers" in ln]
     log(f"[build] {secs:.1f} s; ptxas: " + " | ".join(regs))
+    # K1b per instantiation: its bf16 (tensor-core) kernels must not spill
+    k1b = ptxas_report(_build.BUILD_LOGS["window_attention_bwd"],
+                       Path(_build.nvcc_path()).with_name("cu++filt"))
+    for fn, nreg, st, ld in k1b:
+        log(f"[build] K1b {fn}: {nreg} registers, spill stores {st} B, spill loads {ld} B")
+    mma_fns = [r for r in k1b if "window_attention_bwd_mma_kernel" in r[0]]
+    check(len(mma_fns) > 0, "no bf16 K1b kernel in the ptxas report")
+    check(all(st == 0 and ld == 0 for _, _, st, ld in mma_fns),
+          f"a bf16 K1b instantiation spills: {mma_fns}")
     cuobjdump = Path(_build.nvcc_path()).with_name("cuobjdump")
     hmma = {}
-    for name in ("window_attention", "mlp_block", "block_chain"):
+    for name in ("window_attention", "mlp_block", "block_chain", "window_attention_bwd"):
         sass = subprocess.run([str(cuobjdump), "-sass", str(_build.library_path(name))],
                               capture_output=True, text=True, check=True, timeout=300).stdout
         hmma[name] = sum(1 for ln in sass.splitlines() if "HMMA" in ln)
@@ -664,7 +699,8 @@ def phase_k1b(gen):
 
     dev = "cuda"
     max_err = 0.0
-    tot = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0, bytes=0.0, ops=0.0)
+    tot = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0, bytes=0.0, ops=0.0,
+               max_rel_err=0.0)
     for BW, H, N, D, nW, calls in k1b_shapes(BATCH * 10):
         q32 = torch.randn(BW, H, N, D, device=dev, generator=gen) * 0.3
         k32 = torch.randn(BW, H, N, D, device=dev, generator=gen) * 0.3
@@ -683,7 +719,8 @@ def phase_k1b(gen):
         _, ref = _grads(plain, (q.float(), k.float(), v.float()), do.float())
         err = max(compare(a, b, torch.bfloat16, f"K1b bf16 {shape} d{name}")
                   for name, a, b in zip("qkv", got, ref))
-        max_err = max(max_err, err)
+        rel = max(((a.float() - b).abs() / (1 + b.abs())).max().item() for a, b in zip(got, ref))
+        max_err, tot["max_rel_err"] = max(max_err, err), max(tot["max_rel_err"], rel)
         out = window_attention.forward_only(q, k, v, bias)
         ms = time_ms(lambda: window_attention_bwd(q, k, v, bias, out, do))
         plain_ms = _backward_ms(plain, (q, k, v), do)
@@ -697,14 +734,18 @@ def phase_k1b(gen):
         b_ms, b_by = bound(nbytes, ops, BF16_FLOPS)
         log(f"[K1b] BW,H,N,D,nW={shape} x{calls}/step  bf16 {ms:.4f} ms  plain autograd "
             f"{plain_ms:.4f} ms  sdpa backward {lib_ms:.4f} ms  bound {b_ms:.4f} ms ({b_by})  "
-            f"err {err:.2e}")
+            f"{ops / ms * 1e-9:.1f} TFLOP/s  {b_ms / ms:.3f} of the bound  err {err:.2e} "
+            f"(|d| / (1 + |ref|) {rel:.2e})")
         for key, val in (("ms", ms), ("plain_ms", plain_ms), ("bound_ms", b_ms),
                          ("library_ms", lib_ms), ("bytes", nbytes), ("ops", ops)):
             tot[key] += calls * val
         del q32, k32, v32, bias, do32, q, k, v, do, got, ref, out, mask
         torch.cuda.empty_cache()
     log(f"[K1b] per train step: {tot['ms']:.3f} ms; plain autograd {tot['plain_ms']:.3f} ms; "
-        f"sdpa backward {tot['library_ms']:.3f} ms; bound {tot['bound_ms']:.3f} ms")
+        f"sdpa backward {tot['library_ms']:.3f} ms; bound {tot['bound_ms']:.3f} ms; "
+        f"{tot['ops'] / tot['ms'] * 1e-9:.1f} TFLOP/s, {tot['bound_ms'] / tot['ms']:.3f} of the "
+        f"bound; bf16 error up to {max_err:.3e} (|d| / (1 + |ref|) up to "
+        f"{tot['max_rel_err']:.3e})")
     return max_err, tot
 
 
@@ -1141,7 +1182,8 @@ def main():
         # backward of scaled_dot_product_attention; times per train step
         _kernel_entry("window_attention_bwd", "avmoe_tpu_torch/csrc/window_attention_bwd.cu",
                       "experiments/pallas/window_attn.py:55", train["K1b"], k1b_err, k1b_tot,
-                      k1b_tot["library_ms"], backward_of="window_attention"),
+                      k1b_tot["library_ms"], backward_of="window_attention",
+                      max_rel_err=k1b_tot["max_rel_err"]),
         # no PyTorch call computes the block; its two cuBLAS products alone
         # (no GELU, LN or residual) are a yardstick under a key of their own
         _kernel_entry("mlp_block", "avmoe_tpu_torch/csrc/mlp_block.cu",

@@ -309,6 +309,7 @@ def _grads(fn, inputs, dout):
     (4, 3, 2, 16, 8),         # the tiny config's windows
     (1, 3, 2, 4, 64),         # the tiny config's last stage
     (3, 2, 3, 50, 20),        # odd N and D
+    (4, 2, 3, 144, 64),       # the contract's corner, shifted
 ])
 def test_cuda_window_attention_backward_matches_plain_autograd(cuda_device, dtype, nW, B, H,
                                                                N, D):
@@ -325,6 +326,45 @@ def test_cuda_window_attention_backward_matches_plain_autograd(cuda_device, dtyp
     for a, b in zip(got, ref):
         assert a.dtype == dtype
         _check(a, b, dtype)
+
+
+def _bf16_attn(nW, B, H, N, D, seed, device):
+    q, k, v, bias = (torch.from_numpy(a).to(device) for a in attn_inputs(nW, B, H, N, D, seed))
+    dout = torch.randn(q.shape, generator=torch.Generator().manual_seed(seed + 1)).to(device)
+    return [t.bfloat16() for t in (q, k, v)], bias, dout.bfloat16()
+
+
+@pytest.mark.cuda
+def test_cuda_window_attention_backward_bf16_finite_behind_the_mask(cuda_device):
+    # window class 1 masks every query row from half its keys, on top of
+    # attn_inputs' shifted-window mask: their probabilities underflow to 0
+    (q, k, v), bias, dout = _bf16_attn(4, 2, 3, 144, 32, seed=4, device=cuda_device)
+    bias[1, :, :, 72:] -= 100.0
+    _, got = _grads(lambda a, b, c: window_attention(a, b, c, bias), (q, k, v), dout)
+    _, ref = _grads(lambda a, b, c: window_attention_plain(a, b, c, bias),
+                    [t.float() for t in (q, k, v)], dout.float())
+    for a, b in zip(got, ref):
+        assert bool(torch.isfinite(a).all())
+        _check(a, b, torch.bfloat16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nW,B,H,N,D", [(16, 2, 6, 144, 32), (64, 2, 4, 64, 24),
+                                        (1, 4, 48, 36, 32), (3, 2, 3, 50, 20)])
+def test_cuda_window_attention_backward_bf16_is_bitwise_deterministic(cuda_device, nW, B, H,
+                                                                      N, D):
+    (q, k, v), bias, dout = _bf16_attn(nW, B, H, N, D, seed=5, device=cuda_device)
+    out = window_attention.forward_only(q, k, v, bias)
+    first = window_attention_bwd(q, k, v, bias, out, dout)
+    second = window_attention_bwd(q, k, v, bias, out, dout)
+    # a dO off 16-byte alignment takes the kernel's element-wise loads: the
+    # same sums, so the same bits
+    flat = torch.empty(dout.numel() + 1, dtype=dout.dtype, device=cuda_device)
+    shifted = flat[1:].view(dout.shape)
+    shifted.copy_(dout)
+    third = window_attention_bwd(q, k, v, bias, out, shifted)
+    for a, b, c in zip(first, second, third):
+        assert torch.equal(a, b) and torch.equal(a, c)
 
 
 _MLP_BWD_CASES = [(4, 2304, 192, False), (5, 144, 768, False), (3, 36, 1536, False),

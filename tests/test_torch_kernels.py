@@ -3,6 +3,8 @@ replace (interpret mode on the CPU) and the wrappers' checks. The CUDA
 kernels themselves are tested in test_torch_cuda.py, on a card only.
 
 K1 window attention  <- experiments/pallas/window_attn.py  fused_window_attention
+                        (its backward K1b's plain version against jax.vjp of the
+                        XLA reference there)
 K2 MLP sub-block      <- experiments/pallas/fused_block.py  _run_mlp_only
 """
 
@@ -21,7 +23,9 @@ jnp = jax.numpy
 from torch_port_harness import attn_inputs, jax_variables, to_jax
 
 from avmoe_tpu_torch.kernels.mlp_block import mlp_block, mlp_block_plain
-from avmoe_tpu_torch.kernels.window_attention import window_attention, window_attention_plain
+from avmoe_tpu_torch.kernels.window_attention import (
+    window_attention, window_attention_backward_plain, window_attention_bwd,
+    window_attention_plain)
 
 torch.set_num_threads(2)
 torch.backends.cuda.matmul.allow_tf32 = False
@@ -57,6 +61,37 @@ def test_window_attention_plain_matches_pallas(nW, B, H, N, D):
     assert ours.dtype == torch.float32 and tuple(ours.shape) == q.shape
     np.testing.assert_allclose(ours.numpy(), np.asarray(pallas), **KERNEL_TOL)
     np.testing.assert_allclose(ours.numpy(), np.asarray(xla_ref), **KERNEL_TOL)
+
+
+@pytest.mark.parametrize("nW,B,H,N,D", [
+    (1, 3, 2, 16, 8),
+    (4, 2, 2, 16, 8),
+    (1, 2, 3, 9, 4),
+    (3, 2, 2, 9, 4),
+    (4, 1, 2, 144, 32),   # Swin-V2-L's window, shifted, at a small batch
+])
+def test_window_attention_backward_plain_matches_jax_vjp(nW, B, H, N, D):
+    # The Pallas kernel has no VJP (jax.vjp through it fails to linearize);
+    # its XLA reference, which the forward test above ties to it, is the JAX
+    # side.
+    wa = _pallas("window_attn")
+    q, k, v, bias = attn_inputs(nW, B, H, N, D, seed=N + nW + 1)
+    dout = np.random.RandomState(N + 7).randn(*q.shape).astype(np.float32)
+    jb = jnp.asarray(bias)
+    _, vjp = jax.vjp(lambda a, b, c: wa.reference_window_attention(a, b, c, jb, num_windows=nW),
+                     *map(jnp.asarray, (q, k, v)))
+    want = vjp(jnp.asarray(dout))
+
+    tq, tk, tv, tb, tdo = map(torch.from_numpy, (q, k, v, bias, dout))
+    out = window_attention_plain(tq, tk, tv, tb)
+    got = window_attention_backward_plain(tq, tk, tv, tb, out, tdo)
+    before = window_attention_bwd.launches
+    wrapped = window_attention_bwd(tq, tk, tv, tb, out, tdo)
+    assert window_attention_bwd.launches == before  # CPU tensors take the plain version
+    for ours, via_wrapper, ref in zip(got, wrapped, want):
+        assert ours.dtype == torch.float32 and tuple(ours.shape) == q.shape
+        assert torch.equal(ours, via_wrapper)
+        np.testing.assert_allclose(ours.numpy(), np.asarray(ref), **KERNEL_TOL)
 
 
 @pytest.mark.parametrize("version", ["v1", "v2"])

@@ -1,7 +1,8 @@
 """chip_smoke.py's per-shape plans add up to the launches the injection plan
 gives one forward, so the per-forward kernel totals it reports (and PERF.md
-quotes) cannot drift from the model; K2's output-tile pick at those shapes.
-CPU only, no kernel is built."""
+quotes) cannot drift from the model; K2's output-tile pick at those shapes;
+the ptxas report that K1b's spill check reads. CPU only, no kernel is
+built."""
 
 from __future__ import annotations
 
@@ -59,3 +60,24 @@ def test_k2_tile_pick_covers_the_output_and_loads_no_sm_more_than_128_wide_tiles
                     <= busiest_sm_tiles(R, N, 128, sms) * 128), (R, N, w)
             assert (product_seconds(R, N, K, w, sms)
                     <= product_seconds(R, N, K, 128, sms)), (R, N, K, w)
+
+
+_PTXAS_LOG = """\
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_131window_attention_bwd_mma_kernelILi9ELi2EEEvPK13__nv_bfloat16S3_S3_PKfS3_S3_PS1_S6_S6_iiiib' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_131window_attention_bwd_mma_kernelILi9ELi2EEEvPK13__nv_bfloat16S3_S3_PKfS3_S3_PS1_S6_S6_iiiib
+    0 bytes stack frame, 8 bytes spill stores, 4 bytes spill loads
+ptxas info    : Used 112 registers, used 1 barriers, 428 bytes cmem[0]
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_127window_attention_bwd_kernelILi5EEEvPKfS2_S2_S2_S2_S2_PfS3_S3_iiii' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_127window_attention_bwd_kernelILi5EEEvPKfS2_S2_S2_S2_S2_PfS3_S3_iiii
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 40 registers, used 1 barriers, 424 bytes cmem[0]
+"""
+
+
+def test_ptxas_report_reads_registers_and_spills_per_entry_function(tmp_path):
+    # the spill check of K1b's bf16 instantiations reads this report; no
+    # cu++filt here, so the names stay mangled
+    rows = chip_smoke.ptxas_report(_PTXAS_LOG, tmp_path / "cu++filt")
+    assert [r[1:] for r in rows] == [[112, 8, 4], [40, 0, 0]]
+    assert "window_attention_bwd_mma_kernel" in rows[0][0]
+    assert "window_attention_bwd_mma_kernel" not in rows[1][0]
