@@ -47,17 +47,17 @@
 // fc2's epilogue, V2 in the LN row pass. Without one, the kernels and
 // numbers above are unchanged (the scaled ones are other instantiations).
 //
-// K2b, the backward (mlp_block_bwd): dx only, the weights frozen. With
-// g = s (.) dy:
-//   V2: recompute h1 = x w1^T + b1, a = gelu(h1) (one product, both kept),
-//       h2 = a w2^T + b2; d_h2 = LN-backward(g; h2) (row pass);
-//       d_h1 = (d_h2 w2) (.) gelu'(h1); dx = dy + d_h1 w1
-//   V1: recompute LN(x) (row pass), h1 = LN(x) w1^T + b1;
-//       d_h1 = (g w2) (.) gelu'(h1); dx = dy + LN-backward(d_h1 w1; x)
-// Every product is the forward's NT kernel: the backward ones take B as the
-// transposed copies w1t = w1^T (C, Hd) and w2t = w2^T (Hd, C), which the
-// wrapper keeps once per model and dtype. New epilogues: keep both h1 and
-// gelu(h1); x gelu'(h1) (and x s on V1); + dy without a bias; none.
+// K2b, the backward (mlp_block_bwd): dx only, the weights frozen, from what
+// the forward kept in training: fc1's pre-activation h1 (fc1's epilogue
+// writes it beside gelu(h1)) and, on V2, fc2's output f. With g = s (.) dy:
+//   V2: d_h2 = LN-backward(g; f) (row pass); d_h1 = (d_h2 w2) (.) gelu'(h1);
+//       dx = dy + d_h1 w1
+//   V1: d_h1 = (g w2) (.) gelu'(h1); dx = dy + LN-backward(d_h1 w1; x) (row
+//       pass, x's statistics recomputed)
+// Two products, no recompute. They take B as the transposed copies
+// w1t = w1^T (C, Hd) and w2t = w2^T (Hd, C), which the wrapper keeps once
+// per model and dtype. Their epilogues: x gelu'(h1) (and x s on V1); + dy
+// without a bias; none.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -77,7 +77,7 @@ using namespace avmoe;
 //   kEpiGelu       gelu(v + bias)
 //   kEpiResid      v + bias + resid
 //   kEpiResidScale s[m / rpf] (v + bias) + resid          (V1 fc2, DropPath)
-//   kEpiGeluSave   gelu(v + bias), and v + bias into out2  (K2b recompute)
+//   kEpiGeluSave   gelu(v + bias), and v + bias into out2  (fc1 in training)
 //   kEpiGeluGrad   v gelu'(aux) [s[m / rpf]], aux in resid (K2b)
 //   kEpiAdd        v + resid                               (K2b dx)
 //   kEpiPlain      v                                       (K2b)
@@ -624,55 +624,55 @@ int gemm(int dtype, int tile_n, const void* A, const void* B, const float* bias,
 template <typename T>
 int mlp_block(const void* x, const float* ln_w, const float* ln_b, const void* w1,
               const float* b1, const void* w2, const float* b2, void* h_ln, void* hid,
-              void* f, void* out, int R, int C, int Hd, int pre_norm, int dtype, int tile1,
-              int tile2, float eps, const float* scale, int rpf, cudaStream_t s) {
+              void* f, void* out, void* h1, int R, int C, int Hd, int pre_norm, int dtype,
+              int tile1, int tile2, float eps, const float* scale, int rpf, cudaStream_t s) {
   int err;
+  const void* a1 = x;
   if (pre_norm) {
     if ((err = launch_rows<T, false>(x, x, ln_w, ln_b, h_ln, R, C, eps, s))) return err;
-    if ((err = gemm<kEpiGelu>(dtype, tile1, h_ln, w1, b1, nullptr, hid, R, Hd, C, s)))
-      return err;
+    a1 = h_ln;
+  }
+  // fc1; in training it also keeps its pre-activation h1 for K2b
+  if (h1)
+    err = gemm<kEpiGeluSave>(dtype, tile1, a1, w1, b1, nullptr, hid, R, Hd, C, s, nullptr, 1, h1);
+  else
+    err = gemm<kEpiGelu>(dtype, tile1, a1, w1, b1, nullptr, hid, R, Hd, C, s);
+  if (err) return err;
+  if (pre_norm) {
     if (scale)
       return gemm<kEpiResidScale>(dtype, tile2, hid, w2, b2, x, out, R, C, Hd, s, scale, rpf);
     return gemm<kEpiResid>(dtype, tile2, hid, w2, b2, x, out, R, C, Hd, s);
   }
-  if ((err = gemm<kEpiGelu>(dtype, tile1, x, w1, b1, nullptr, hid, R, Hd, C, s))) return err;
   if ((err = gemm<kEpiBias>(dtype, tile2, hid, w2, b2, nullptr, f, R, C, Hd, s))) return err;
   if (scale) return launch_rows<T, true, true>(x, f, ln_w, ln_b, out, R, C, eps, s, scale, rpf);
   return launch_rows<T, true>(x, f, ln_w, ln_b, out, R, C, eps, s);
 }
 
-// K2b: dx of the block (see the header). hA, hB (R, Hd) and cA, cB (R, C)
-// are scratch; tiles: the output tile widths of the products (R, Hd, C)
-// (fc1 and d_h1) and (R, C, Hd) (fc2 and dx).
+// K2b: dx of the block (see the header) from the forward's h1 and src (x on
+// V1, f on V2). hA (R, Hd) and cA (R, C) are scratch; tiles: the output tile
+// widths of the (R, Hd, C) product (d_h1) and the (R, C, Hd) one.
 template <typename T>
-int mlp_block_bwd(const void* x, const void* dy, const float* ln_w, const float* ln_b,
-                  const void* w1, const float* b1, const void* w2, const float* b2,
+int mlp_block_bwd(const void* dy, const void* h1, const void* src, const float* ln_w,
                   const void* w1t, const void* w2t, const float* scale, int rpf, void* hA,
-                  void* hB, void* cA, void* cB, void* dx, int R, int C, int Hd, int pre_norm,
-                  int dtype, int tile1, int tile2, float eps, cudaStream_t s) {
+                  void* cA, void* dx, int R, int C, int Hd, int pre_norm, int dtype, int tile1,
+                  int tile2, float eps, cudaStream_t s) {
   int err;
   if (pre_norm) {
-    // cA = LN(x); hB = h1; hA = d_h1; cB = d_h1 w1
-    if ((err = launch_rows<T, false>(x, x, ln_w, ln_b, cA, R, C, eps, s))) return err;
-    if ((err = gemm<kEpiBias>(dtype, tile1, cA, w1, b1, nullptr, hB, R, Hd, C, s))) return err;
-    if ((err = gemm<kEpiGeluGrad>(dtype, tile1, dy, w2t, nullptr, hB, hA, R, Hd, C, s, scale,
+    // hA = d_h1 = (s dy w2) gelu'(h1); cA = d_h1 w1; dx = dy + LN-backward(cA; x)
+    if ((err = gemm<kEpiGeluGrad>(dtype, tile1, dy, w2t, nullptr, h1, hA, R, Hd, C, s, scale,
                                   rpf)))
       return err;
-    if ((err = gemm<kEpiPlain>(dtype, tile2, hA, w1t, nullptr, nullptr, cB, R, C, Hd, s)))
+    if ((err = gemm<kEpiPlain>(dtype, tile2, hA, w1t, nullptr, nullptr, cA, R, C, Hd, s)))
       return err;
-    return launch_ln_bwd<T, true, false>(x, cB, ln_w, dy, dx, R, C, eps, nullptr, 1, s);
+    return launch_ln_bwd<T, true, false>(src, cA, ln_w, dy, dx, R, C, eps, nullptr, 1, s);
   }
-  // hA = gelu(h1), hB = h1; cA = h2; cB = d_h2; hA = d_h1
-  if ((err = gemm<kEpiGeluSave>(dtype, tile1, x, w1, b1, nullptr, hA, R, Hd, C, s, nullptr, 1,
-                                hB)))
-    return err;
-  if ((err = gemm<kEpiBias>(dtype, tile2, hA, w2, b2, nullptr, cA, R, C, Hd, s))) return err;
+  // cA = d_h2 = LN-backward(s dy; f); hA = d_h1 = (d_h2 w2) gelu'(h1); dx = dy + d_h1 w1
   if (scale)
-    err = launch_ln_bwd<T, false, true>(cA, dy, ln_w, nullptr, cB, R, C, eps, scale, rpf, s);
+    err = launch_ln_bwd<T, false, true>(src, dy, ln_w, nullptr, cA, R, C, eps, scale, rpf, s);
   else
-    err = launch_ln_bwd<T, false, false>(cA, dy, ln_w, nullptr, cB, R, C, eps, nullptr, 1, s);
+    err = launch_ln_bwd<T, false, false>(src, dy, ln_w, nullptr, cA, R, C, eps, nullptr, 1, s);
   if (err) return err;
-  if ((err = gemm<kEpiGeluGrad>(dtype, tile1, cB, w2t, nullptr, hB, hA, R, Hd, C, s)))
+  if ((err = gemm<kEpiGeluGrad>(dtype, tile1, cA, w2t, nullptr, h1, hA, R, Hd, C, s)))
     return err;
   return gemm<kEpiAdd>(dtype, tile2, hA, w1t, nullptr, dy, dx, R, C, Hd, s);
 }
@@ -693,19 +693,21 @@ int ctas_per_sm(int* ctas) {
 
 // dtype: 0 = float32, 1 = bfloat16. h_ln (R, C) is scratch for the V1
 // pre-norm (null when pre_norm is 0), hid (R, Hd) for fc1's output, f (R, C)
-// for V2's fc2 output (null when pre_norm is 1). tile1 / tile2: the output
+// for V2's fc2 output (null when pre_norm is 1). h1: null, or (R, Hd) for
+// fc1's pre-activation, kept for K2b (training). tile1 / tile2: the output
 // tile width (128 or 96) of fc1 and fc2 in bf16, ignored in float32. scale:
 // null, or the float32 per-frame DropPath scale, row r reading
 // scale[r / rows_per_frame]. Returns a cudaError_t (0 on success).
 extern "C" int mlp_block_fwd(const void* x, const void* ln_w, const void* ln_b,
                              const void* w1, const void* b1, const void* w2, const void* b2,
-                             void* h_ln, void* hid, void* f, void* out, int R, int C, int Hd,
-                             int pre_norm, int dtype, int tile1, int tile2, float eps,
+                             void* h_ln, void* hid, void* f, void* out, void* h1, int R, int C,
+                             int Hd, int pre_norm, int dtype, int tile1, int tile2, float eps,
                              const void* scale, int rows_per_frame, void* stream) {
   if (R < 1 || C < 1 || Hd < 1 || (pre_norm ? h_ln == nullptr : f == nullptr) ||
       (scale && (rows_per_frame < 1 || R % rows_per_frame)))
     return (int)cudaErrorInvalidValue;
-  if (dtype == 1 && (C % 8 || Hd % 8 || !aligned16(x) || !aligned16(w1) || !aligned16(w2)))
+  if (dtype == 1 && (C % 8 || Hd % 8 || !aligned16(x) || !aligned16(w1) || !aligned16(w2) ||
+                     (h1 && !aligned16(h1))))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* lw = static_cast<const float*>(ln_w);
@@ -714,43 +716,41 @@ extern "C" int mlp_block_fwd(const void* x, const void* ln_w, const void* ln_b,
   const float* fb2 = static_cast<const float*>(b2);
   const float* sc = static_cast<const float*>(scale);
   if (dtype == 0)
-    return mlp_block<float>(x, lw, lb, w1, fb1, w2, fb2, h_ln, hid, f, out, R, C, Hd,
+    return mlp_block<float>(x, lw, lb, w1, fb1, w2, fb2, h_ln, hid, f, out, h1, R, C, Hd,
                             pre_norm, 0, tile1, tile2, eps, sc, rows_per_frame, s);
   if (dtype == 1)
-    return mlp_block<bf16>(x, lw, lb, w1, fb1, w2, fb2, h_ln, hid, f, out, R, C, Hd,
+    return mlp_block<bf16>(x, lw, lb, w1, fb1, w2, fb2, h_ln, hid, f, out, h1, R, C, Hd,
                            pre_norm, 1, tile1, tile2, eps, sc, rows_per_frame, s);
   return (int)cudaErrorInvalidValue;
 }
 
 // K2b: dx (R, C) of mlp_block_fwd's out for the gradient dy (R, C), the
-// weights frozen. w1t (C, Hd) and w2t (Hd, C) are the transposed weights;
-// hA, hB (R, Hd) and cA, cB (R, C) scratch; scale and rows_per_frame as in
-// mlp_block_fwd; tile1 for the (R, Hd, C) products, tile2 for the (R, C, Hd)
-// ones. Returns a cudaError_t (0 on success).
-extern "C" int mlp_block_bwd(const void* x, const void* dy, const void* ln_w, const void* ln_b,
-                             const void* w1, const void* b1, const void* w2, const void* b2,
+// weights frozen, from what the forward kept: h1 (R, Hd), fc1's
+// pre-activation, and src (R, C), x on V1 (pre_norm 1) or fc2's output f on
+// V2. w1t (C, Hd) and w2t (Hd, C) are the transposed weights; hA (R, Hd) and
+// cA (R, C) scratch; scale and rows_per_frame as in mlp_block_fwd; tile1 for
+// the (R, Hd, C) product, tile2 for the (R, C, Hd) one. Returns a cudaError_t
+// (0 on success).
+extern "C" int mlp_block_bwd(const void* dy, const void* h1, const void* src, const void* ln_w,
                              const void* w1t, const void* w2t, const void* scale,
-                             int rows_per_frame, void* hA, void* hB, void* cA, void* cB,
-                             void* dx, int R, int C, int Hd, int pre_norm, int dtype, int tile1,
-                             int tile2, float eps, void* stream) {
+                             int rows_per_frame, void* hA, void* cA, void* dx, int R, int C,
+                             int Hd, int pre_norm, int dtype, int tile1, int tile2, float eps,
+                             void* stream) {
   if (R < 1 || C < 1 || Hd < 1 || (scale && (rows_per_frame < 1 || R % rows_per_frame)))
     return (int)cudaErrorInvalidValue;
-  if (dtype == 1 && (C % 8 || Hd % 8 || !aligned16(x) || !aligned16(dy) || !aligned16(w1) ||
-                     !aligned16(w2) || !aligned16(w1t) || !aligned16(w2t) || !aligned16(hA) ||
-                     !aligned16(hB) || !aligned16(cA) || !aligned16(cB) || !aligned16(dx)))
+  if (dtype == 1 && (C % 8 || Hd % 8 || !aligned16(dy) || !aligned16(h1) || !aligned16(src) ||
+                     !aligned16(w1t) || !aligned16(w2t) || !aligned16(hA) || !aligned16(cA) ||
+                     !aligned16(dx)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* lw = static_cast<const float*>(ln_w);
-  const float* lb = static_cast<const float*>(ln_b);
-  const float* fb1 = static_cast<const float*>(b1);
-  const float* fb2 = static_cast<const float*>(b2);
   const float* sc = static_cast<const float*>(scale);
   if (dtype == 0)
-    return mlp_block_bwd<float>(x, dy, lw, lb, w1, fb1, w2, fb2, w1t, w2t, sc, rows_per_frame,
-                                hA, hB, cA, cB, dx, R, C, Hd, pre_norm, 0, tile1, tile2, eps, s);
+    return mlp_block_bwd<float>(dy, h1, src, lw, w1t, w2t, sc, rows_per_frame, hA, cA, dx, R,
+                                C, Hd, pre_norm, 0, tile1, tile2, eps, s);
   if (dtype == 1)
-    return mlp_block_bwd<bf16>(x, dy, lw, lb, w1, fb1, w2, fb2, w1t, w2t, sc, rows_per_frame,
-                               hA, hB, cA, cB, dx, R, C, Hd, pre_norm, 1, tile1, tile2, eps, s);
+    return mlp_block_bwd<bf16>(dy, h1, src, lw, w1t, w2t, sc, rows_per_frame, hA, cA, dx, R, C,
+                               Hd, pre_norm, 1, tile1, tile2, eps, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -19,10 +19,12 @@ DropPath (train): an optional float32 per-frame `scale` s, one value per
 entry of x's leading axis, gives out = x + s ⊙ branch.
 
 Training. Where x needs a gradient, the call goes through an autograd
-Function whose backward is K2b (`mlp_block_bwd` in the same CUDA source;
-plain version `mlp_block_backward_plain`): dx only, from x and the output's
-gradient, the branch recomputed. The weights are frozen: on the card a
-weight that needs a gradient raises; on the CPU that case takes plain
+Function. Its forward keeps fc1's pre-activation h1 (fc1's epilogue writes
+it beside gelu(h1)) and, on V2, fc2's output f; its backward is K2b
+(`mlp_block_bwd` in the same CUDA source; plain version
+`mlp_block_backward_plain`): dx only, from those and the output's gradient,
+with no product of the forward run again. The weights are frozen: on the
+card a weight that needs a gradient raises; on the CPU that case takes plain
 autograd. The backward products take the transposed weights w1t = w1ᵀ
 (C, Hd) and w2t = w2ᵀ (Hd, C), which the caller keeps (SwinBlock does, once
 per dtype).
@@ -48,19 +50,26 @@ def _frame_scale(scale: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return scale.reshape(-1, *([1] * (x.dim() - 1)))
 
 
+def mlp_block_forward_plain(x, ln_w, ln_b, w1, b1, w2, b2, *, pre_norm: bool,
+                           eps: float = 1e-5, scale=None):
+    """Plain PyTorch version of the kernel's training forward (same
+    contract), in x's dtype: (out, h1, f), with h1 (..., Hd) fc1's
+    pre-activation and f (..., C) fc2's output, bias added, which K2b reads."""
+    dt = x.dtype
+    h = layer_norm(x, ln_w, ln_b, eps) if pre_norm else x
+    h1 = torch.matmul(h, w1.t()) + b1.to(dt)
+    f = torch.matmul(F.gelu(h1, approximate="none"), w2.t()) + b2.to(dt)
+    h = f if pre_norm else layer_norm(f, ln_w, ln_b, eps)
+    if scale is not None:
+        h = h * _frame_scale(scale, x).to(dt)
+    return x + h, h1, f
+
+
 def mlp_block_plain(x, ln_w, ln_b, w1, b1, w2, b2, *, pre_norm: bool,
                     eps: float = 1e-5, scale=None) -> torch.Tensor:
     """Plain PyTorch version of the kernel (same contract), in x's dtype."""
-    dt = x.dtype
-    h = layer_norm(x, ln_w, ln_b, eps) if pre_norm else x
-    h = torch.matmul(h, w1.t()) + b1.to(dt)
-    h = F.gelu(h, approximate="none")
-    h = torch.matmul(h, w2.t()) + b2.to(dt)
-    if not pre_norm:
-        h = layer_norm(h, ln_w, ln_b, eps)
-    if scale is not None:
-        h = h * _frame_scale(scale, x).to(dt)
-    return x + h
+    return mlp_block_forward_plain(x, ln_w, ln_b, w1, b1, w2, b2, pre_norm=pre_norm, eps=eps,
+                                   scale=scale)[0]
 
 
 def gelu_grad(h: torch.Tensor) -> torch.Tensor:
@@ -69,25 +78,23 @@ def gelu_grad(h: torch.Tensor) -> torch.Tensor:
     return cdf + h * 0.3989422804014327 * torch.exp(-0.5 * h * h)
 
 
-def mlp_block_backward_plain(x, dy, ln_w, ln_b, w1, b1, w2, b2, *, pre_norm: bool,
+def mlp_block_backward_plain(dy, h1, src, ln_w, w1t, w2t, *, pre_norm: bool,
                              eps: float = 1e-5, scale=None) -> torch.Tensor:
     """Plain PyTorch version of K2b, by the kernel's formulas in float32
-    (float64 for float64 x): dx of mlp_block for the output gradient dy,
-    weights frozen, in x's dtype."""
-    xf = upcast(x)
-    f = lambda t: t.to(xf.dtype)
-    w1f, w2f, dyf = f(w1), f(w2), f(dy)
-    g = dyf if scale is None else dyf * f(_frame_scale(scale, x))
+    (float64 for float64 dy): dx of mlp_block for the output gradient dy,
+    weights frozen, from the forward's h1 and src (x on V1, f on V2), in dy's
+    dtype."""
+    dyf = upcast(dy)
+    f = lambda t: t.to(dyf.dtype)
+    g = dyf if scale is None else dyf * f(_frame_scale(scale, dy))
+    w1, w2, gelu_d = f(w1t).t(), f(w2t).t(), gelu_grad(f(h1))
     if pre_norm:
-        h1 = torch.matmul(layer_norm(xf, ln_w, ln_b, eps), w1f.t()) + f(b1)
-        d_h1 = torch.matmul(g, w2f) * gelu_grad(h1)
-        dx = dyf + layer_norm_backward(torch.matmul(d_h1, w1f), xf, ln_w, eps)
+        d_h1 = torch.matmul(g, w2) * gelu_d
+        dx = dyf + layer_norm_backward(torch.matmul(d_h1, w1), src, ln_w, eps)
     else:
-        h1 = torch.matmul(xf, w1f.t()) + f(b1)
-        h2 = torch.matmul(F.gelu(h1, approximate="none"), w2f.t()) + f(b2)
-        d_h1 = torch.matmul(layer_norm_backward(g, h2, ln_w, eps), w2f) * gelu_grad(h1)
-        dx = dyf + torch.matmul(d_h1, w1f)
-    return dx.to(x.dtype)
+        d_h1 = torch.matmul(layer_norm_backward(g, src, ln_w, eps), w2) * gelu_d
+        dx = dyf + torch.matmul(d_h1, w1)
+    return dx.to(dy.dtype)
 
 
 def _check(x, ln_w, ln_b, w1, b1, w2, b2) -> None:
@@ -165,11 +172,11 @@ def sm_count(device_index: int) -> int:
 def _library() -> ctypes.CDLL:
     lib = _build.load("mlp_block")
     fn = lib.mlp_block_fwd
-    fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 7
+    fn.argtypes = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 7
                    + [ctypes.c_float, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     fn = lib.mlp_block_bwd
-    fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] + [ctypes.c_void_p] * 5
+    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] + [ctypes.c_void_p] * 3
                    + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     fn = lib.mlp_block_gemm_bf16
@@ -180,11 +187,11 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
-def _check_bf16_layout(x, w1, w2, **more) -> None:
-    """What the bf16 kernel needs beyond the contract: 16-byte rows."""
-    if x.shape[-1] % 8:
-        raise ValueError(f"bfloat16 on the card needs C % 8 == 0, got C={x.shape[-1]}")
-    for name, t in (("x", x), ("w1", w1), ("w2", w2), *more.items()):
+def _check_bf16_layout(C: int, **tensors) -> None:
+    """What the bf16 kernels need beyond the contract: 16-byte rows."""
+    if C % 8:
+        raise ValueError(f"bfloat16 on the card needs C % 8 == 0, got C={C}")
+    for name, t in tensors.items():
         if t.data_ptr() % 16:
             raise ValueError(f"bfloat16 on the card needs {name} on a 16-byte boundary")
 
@@ -238,45 +245,48 @@ def _scale_args(scale, x):
 
 class MlpBlockBackward:
     """Callable wrapper of K2b: dx of the block for the gradient dy, weights
-    frozen; `launches` counts calls that launched it (three or four products
-    and one or two row passes)."""
+    frozen, from the forward's h1 and src (x on V1, f on V2); `launches`
+    counts calls that launched it (two products and one row pass)."""
 
     def __init__(self):
         self.launches = 0
 
-    def __call__(self, x, dy, ln_w, ln_b, w1, b1, w2, b2, w1t, w2t, *, pre_norm: bool,
-                 eps: float = 1e-5, scale=None) -> torch.Tensor:
-        _check(x, ln_w, ln_b, w1, b1, w2, b2)
-        _check_scale(scale, x)
-        C, Hd = x.shape[-1], w1.shape[0]
-        for name, t, shape in (("dy", dy, tuple(x.shape)), ("w1t", w1t, (C, Hd)),
-                               ("w2t", w2t, (Hd, C))):
-            if tuple(t.shape) != shape or t.dtype != x.dtype or t.device != x.device:
-                raise ValueError(f"{name} must be {x.dtype} {shape} on {x.device}, got "
+    def __call__(self, dy, h1, src, ln_w, w1t, w2t, *, pre_norm: bool, eps: float = 1e-5,
+                 scale=None) -> torch.Tensor:
+        if dy.dtype not in _DTYPE_CODE:
+            raise ValueError(f"unsupported dtype {dy.dtype}; expected float32 or bfloat16")
+        C, Hd = dy.shape[-1], w1t.shape[-1]
+        for name, t, shape, dtype in (
+                ("src", src, tuple(dy.shape), dy.dtype),
+                ("h1", h1, (*dy.shape[:-1], Hd), dy.dtype),
+                ("w1t", w1t, (C, Hd), dy.dtype), ("w2t", w2t, (Hd, C), dy.dtype),
+                ("ln_w", ln_w, (C,), torch.float32)):
+            if tuple(t.shape) != shape or t.dtype != dtype or t.device != dy.device:
+                raise ValueError(f"{name} must be {dtype} {shape} on {dy.device}, got "
                                  f"{t.dtype} {tuple(t.shape)} on {t.device}")
             if not t.is_contiguous():
                 raise ValueError(f"{name} must be contiguous")
-        if x.device.type == "cpu":
-            return mlp_block_backward_plain(x, dy, ln_w, ln_b, w1, b1, w2, b2,
-                                            pre_norm=pre_norm, eps=eps, scale=scale)
-        if x.device.type != "cuda":
-            raise ValueError(f"mlp_block_bwd: unsupported device {x.device}")
-        R = x.numel() // C
-        hA = torch.empty((R, Hd), dtype=x.dtype, device=x.device)
-        hB = torch.empty_like(hA)
-        cA = torch.empty((R, C), dtype=x.dtype, device=x.device)
-        cB = torch.empty_like(cA)
-        dx = torch.empty_like(x)
-        if x.dtype == torch.bfloat16:
-            _check_bf16_layout(x, w1, w2, dy=dy, w1t=w1t, w2t=w2t)
-        sms = sm_count(_device_index(x))
-        sp, rpf = _scale_args(scale, x)
+        if not dy.is_contiguous():
+            raise ValueError("dy must be contiguous")
+        _check_scale(scale, dy)
+        if dy.device.type == "cpu":
+            return mlp_block_backward_plain(dy, h1, src, ln_w, w1t, w2t, pre_norm=pre_norm,
+                                            eps=eps, scale=scale)
+        if dy.device.type != "cuda":
+            raise ValueError(f"mlp_block_bwd: unsupported device {dy.device}")
+        if dy.dtype == torch.bfloat16:
+            _check_bf16_layout(C, dy=dy, h1=h1, src=src, w1t=w1t, w2t=w2t)
+        R = dy.numel() // C
+        hA = torch.empty((R, Hd), dtype=dy.dtype, device=dy.device)
+        cA = torch.empty((R, C), dtype=dy.dtype, device=dy.device)
+        dx = torch.empty_like(dy)
+        sms = sm_count(_device_index(dy))
+        sp, rpf = _scale_args(scale, dy)
         err = _library().mlp_block_bwd(
-            x.data_ptr(), dy.data_ptr(), ln_w.data_ptr(), ln_b.data_ptr(), w1.data_ptr(),
-            b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), w1t.data_ptr(), w2t.data_ptr(), sp, rpf,
-            hA.data_ptr(), hB.data_ptr(), cA.data_ptr(), cB.data_ptr(), dx.data_ptr(),
-            R, C, Hd, int(pre_norm), _DTYPE_CODE[x.dtype], pick_tile(R, Hd, C, sms),
-            pick_tile(R, C, Hd, sms), eps, torch.cuda.current_stream(x.device).cuda_stream)
+            dy.data_ptr(), h1.data_ptr(), src.data_ptr(), ln_w.data_ptr(), w1t.data_ptr(),
+            w2t.data_ptr(), sp, rpf, hA.data_ptr(), cA.data_ptr(), dx.data_ptr(), R, C, Hd,
+            int(pre_norm), _DTYPE_CODE[dy.dtype], pick_tile(R, Hd, C, sms),
+            pick_tile(R, C, Hd, sms), eps, torch.cuda.current_stream(dy.device).cuda_stream)
         if err != 0:
             raise RuntimeError(f"mlp_block_bwd kernel failed: CUDA error {err}")
         self.launches += 1
@@ -287,24 +297,25 @@ mlp_block_bwd = MlpBlockBackward()
 
 
 class _MlpBlockFn(torch.autograd.Function):
-    """K2 forward, K2b backward (dx only; the weights are frozen)."""
+    """K2 forward keeping h1 (and f on V2), K2b backward (dx only; the
+    weights are frozen)."""
 
     @staticmethod
     def forward(ctx, x, ln_w, ln_b, w1, b1, w2, b2, scale, w1t, w2t, pre_norm, eps):
-        out = mlp_block.forward_only(x, ln_w, ln_b, w1, b1, w2, b2, pre_norm=pre_norm,
-                                     eps=eps, scale=scale)
-        ctx.save_for_backward(x, ln_w, ln_b, w1, b1, w2, b2, scale, w1t, w2t)
+        out, h1, f = mlp_block.forward_only(x, ln_w, ln_b, w1, b1, w2, b2, pre_norm=pre_norm,
+                                            eps=eps, scale=scale, keep=True)
+        ctx.save_for_backward(h1, x if pre_norm else f, ln_w, scale, w1t, w2t)
         ctx.pre_norm, ctx.eps = pre_norm, eps
         return out
 
     @staticmethod
     def backward(ctx, dy):
-        x, ln_w, ln_b, w1, b1, w2, b2, scale, w1t, w2t = ctx.saved_tensors
+        h1, src, ln_w, scale, w1t, w2t = ctx.saved_tensors
         dy = dy.contiguous()
         if dy.data_ptr() % 16:     # a view off the bf16 kernel's 16-byte boundary
             dy = dy.clone()
-        dx = mlp_block_bwd(x, dy, ln_w, ln_b, w1, b1, w2, b2, w1t, w2t,
-                           pre_norm=ctx.pre_norm, eps=ctx.eps, scale=scale)
+        dx = mlp_block_bwd(dy, h1, src, ln_w, w1t, w2t, pre_norm=ctx.pre_norm, eps=ctx.eps,
+                           scale=scale)
         return (dx,) + (None,) * 11
 
 
@@ -335,15 +346,19 @@ class MlpBlock:
         return _MlpBlockFn.apply(x, ln_w, ln_b, w1, b1, w2, b2, scale, w1t, w2t, pre_norm, eps)
 
     def forward_only(self, x, ln_w, ln_b, w1, b1, w2, b2, *, pre_norm: bool,
-                     eps: float = 1e-5, scale=None) -> torch.Tensor:
-        """The kernels (plain version on the CPU), no autograd."""
+                     eps: float = 1e-5, scale=None, keep: bool = False):
+        """The kernels (plain version on the CPU), no autograd. With `keep`
+        (training) it returns (out, h1, f): fc1's pre-activation h1 (..., Hd)
+        and fc2's output f (..., C), which K2b reads (f is None on the card
+        for V1, whose fc2 adds the residual in its epilogue)."""
         if x.device.type == "cpu":
-            return mlp_block_plain(x, ln_w, ln_b, w1, b1, w2, b2, pre_norm=pre_norm, eps=eps,
-                                   scale=scale)
+            res = mlp_block_forward_plain(x, ln_w, ln_b, w1, b1, w2, b2, pre_norm=pre_norm,
+                                          eps=eps, scale=scale)
+            return res if keep else res[0]
         if x.device.type != "cuda":
             raise ValueError(f"mlp_block: unsupported device {x.device}")
         if x.dtype == torch.bfloat16:
-            _check_bf16_layout(x, w1, w2)
+            _check_bf16_layout(x.shape[-1], x=x, w1=w1, w2=w2)
         lib = _library()
         C = x.shape[-1]
         R = x.numel() // C
@@ -352,19 +367,20 @@ class MlpBlock:
         h_ln = torch.empty_like(x) if pre_norm else None
         hid = torch.empty((R, Hd), dtype=x.dtype, device=x.device)
         f = None if pre_norm else torch.empty_like(x)
+        h1 = torch.empty((*x.shape[:-1], Hd), dtype=x.dtype, device=x.device) if keep else None
         out = torch.empty_like(x)
         sp, rpf = _scale_args(scale, x)
+        ptr = lambda t: 0 if t is None else t.data_ptr()
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.mlp_block_fwd(
             x.data_ptr(), ln_w.data_ptr(), ln_b.data_ptr(), w1.data_ptr(), b1.data_ptr(),
-            w2.data_ptr(), b2.data_ptr(), 0 if h_ln is None else h_ln.data_ptr(),
-            hid.data_ptr(), 0 if f is None else f.data_ptr(), out.data_ptr(),
-            R, C, Hd, int(pre_norm), _DTYPE_CODE[x.dtype], pick_tile(R, Hd, C, sms),
+            w2.data_ptr(), b2.data_ptr(), ptr(h_ln), hid.data_ptr(), ptr(f), out.data_ptr(),
+            ptr(h1), R, C, Hd, int(pre_norm), _DTYPE_CODE[x.dtype], pick_tile(R, Hd, C, sms),
             pick_tile(R, C, Hd, sms), eps, sp, rpf, stream)
         if err != 0:
             raise RuntimeError(f"mlp_block kernel failed: CUDA error {err}")
         self.launches += 1
-        return out
+        return (out, h1, f) if keep else out
 
 
 mlp_block = MlpBlock()

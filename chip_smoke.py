@@ -299,7 +299,7 @@ def phase_k2(gen):
         + ", ".join(f"{w}: {ctas_per_sm(w)}" for w in TILE_WIDTHS))
     max_err = 0.0
     tot = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, products_ms=0.0, cublas_ms=0.0,
-               bytes=0.0, ops=0.0)
+               train_ms=0.0, bytes=0.0, ops=0.0)
     for R, C, pre, calls in k2_shapes(BATCH * 10):
         Hd = 4 * C
         x32 = torch.randn(R, C, device=dev, generator=gen)
@@ -319,6 +319,9 @@ def phase_k2(gen):
                       torch.bfloat16, f"K2 bf16 {shape}")
         max_err = max(max_err, err)
         ms = time_ms(lambda: mlp_block(x, lw, lb, w1h, b1, w2h, b2, pre_norm=pre))
+        # a train forward's K2 also writes fc1's pre-activation h1 for K2b
+        train_ms = time_ms(lambda: mlp_block.forward_only(x, lw, lb, w1h, b1, w2h, b2,
+                                                          pre_norm=pre, keep=True))
         plain_ms = time_ms(lambda: mlp_block_plain(x, lw, lb, w1h, b1, w2h, b2, pre_norm=pre))
         cublas_ms = time_ms(lambda: F.linear(F.linear(x, w1h), w2h))
         # the products alone, fc1 (GELU) then fc2 (+ b2, + x on V1), at each width
@@ -335,7 +338,8 @@ def phase_k2(gen):
         nbytes = 2 * R * C * 2 + 2 * C * Hd * 2 + (Hd + 3 * C) * 4
         ops = 4 * R * C * Hd
         b_ms, b_by = bound(nbytes, ops, BF16_FLOPS)
-        log(f"[K2] rows,C={shape} x{calls}/fwd  bf16 {ms:.4f} ms  plain {plain_ms:.4f} ms  "
+        log(f"[K2] rows,C={shape} x{calls}/fwd  bf16 {ms:.4f} ms (train, h1 kept: "
+            f"{train_ms:.4f} ms)  plain {plain_ms:.4f} ms  "
             f"bound {b_ms:.4f} ms ({b_by})  err {err:.2e}  tiles fc1 {picks[0]} fc2 "
             f"{picks[1]}: products alone {products_ms:.4f} ms "
             f"({ops / products_ms / 1e9:.1f} TFLOP/s)  cuBLAS products only (no GELU, LN, "
@@ -345,12 +349,12 @@ def phase_k2(gen):
             f"({busiest_sm_tiles(R, C, w, sms)})" for w, f1, f2 in by_width))
         for key, val in (("ms", ms), ("plain_ms", plain_ms), ("bound_ms", b_ms),
                          ("products_ms", products_ms), ("cublas_ms", cublas_ms),
-                         ("bytes", nbytes), ("ops", ops)):
+                         ("train_ms", train_ms), ("bytes", nbytes), ("ops", ops)):
             tot[key] += calls * val
         del x32, x, hid, ref
-    log(f"[K2] per forward: {tot['ms']:.3f} ms, of which products alone {tot['products_ms']:.3f} "
-        f"ms; plain {tot['plain_ms']:.3f} ms; cuBLAS products only {tot['cublas_ms']:.3f} ms; "
-        f"bound {tot['bound_ms']:.3f} ms")
+    log(f"[K2] per forward: {tot['ms']:.3f} ms (a train forward, h1 kept: {tot['train_ms']:.3f} "
+        f"ms), of which products alone {tot['products_ms']:.3f} ms; plain {tot['plain_ms']:.3f} "
+        f"ms; cuBLAS products only {tot['cublas_ms']:.3f} ms; bound {tot['bound_ms']:.3f} ms")
     return max_err, tot
 
 
@@ -801,38 +805,30 @@ def phase_k2b(gen):
         # times at the shape's own norm with the DropPath scale, as in a train step
         x, dy, W1, W2 = x32.bfloat16(), dy32.bfloat16(), w1.bfloat16(), w2.bfloat16()
         W1t, W2t = W1.t().contiguous(), W2.t().contiguous()
-        ms = time_ms(lambda: mb.mlp_block_bwd(x, dy, lw, lb, W1, b1, W2, b2, W1t, W2t,
-                                              pre_norm=pre, scale=scale))
+        _, h1, f = mb.mlp_block.forward_only(x, lw, lb, W1, b1, W2, b2, pre_norm=pre,
+                                             scale=scale, keep=True)
+        src = x if pre else f
+        ms = time_ms(lambda: mb.mlp_block_bwd(dy, h1, src, lw, W1t, W2t, pre_norm=pre,
+                                              scale=scale))
         plain_ms = _backward_ms(lambda t: mb.mlp_block_plain(
             t, lw, lb, W1, b1, W2, b2, pre_norm=pre, scale=scale), (x,), dy)
-        # K2b's products alone, and cuBLAS's bf16 products of the same shapes
+        # K2b's two products alone (d_h1 from dy, or from d_h2 = dy on V2, the
+        # LN row pass left out), and cuBLAS's bf16 products of the same shapes
         t1, t2 = mb.pick_tile(R, Hd, C, sms), mb.pick_tile(R, C, Hd, sms)
-        x2, dy2 = x.reshape(R, C), dy.reshape(R, C)
-        h1 = mb.product_bf16(x2, W1, b1, epi=mb.EPI_BIAS, tile=t1)
-        if pre:
-            products = [lambda: mb.product_bf16(x2, W1, b1, epi=mb.EPI_BIAS, tile=t1),
-                        lambda: mb.product_bf16(dy2, W2t, None, epi=mb.EPI_GELU_GRAD, tile=t1,
-                                                resid=h1, scale=scale),
-                        lambda: mb.product_bf16(h1, W1t, None, epi=mb.EPI_PLAIN, tile=t2)]
-            cublas = [lambda: F.linear(x2, W1), lambda: F.linear(dy2, W2t),
-                      lambda: F.linear(h1, W1t)]
-        else:
-            out2 = torch.empty_like(h1)
-            products = [lambda: mb.product_bf16(x2, W1, b1, epi=mb.EPI_GELU_SAVE, tile=t1,
-                                                out2=out2),
-                        lambda: mb.product_bf16(h1, W2, b2, epi=mb.EPI_BIAS, tile=t2),
-                        lambda: mb.product_bf16(dy2, W2t, None, epi=mb.EPI_GELU_GRAD, tile=t1,
-                                                resid=h1),
-                        lambda: mb.product_bf16(h1, W1t, None, epi=mb.EPI_ADD, tile=t2,
-                                                resid=dy2)]
-            cublas = [lambda: F.linear(x2, W1), lambda: F.linear(h1, W2),
-                      lambda: F.linear(dy2, W2t), lambda: F.linear(h1, W1t)]
-        products_ms = sum(time_ms(f) for f in products)
-        cublas_ms = sum(time_ms(f) for f in cublas)
-        # x and dy read and dx written in bf16, w1, w2 and their transposes,
-        # the float32 biases, norm and scale; the recomputed forward products
-        # and the two backward ones
-        nbytes = 3 * R * C * 2 + 4 * C * Hd * 2 + (Hd + 3 * C + frames) * 4
+        dy2, h1_2 = dy.reshape(R, C), h1.reshape(R, Hd)
+        d_h1 = mb.product_bf16(dy2, W2t, None, epi=mb.EPI_GELU_GRAD, tile=t1, resid=h1_2,
+                               scale=scale if pre else None)
+        products = [lambda: mb.product_bf16(dy2, W2t, None, epi=mb.EPI_GELU_GRAD, tile=t1,
+                                            resid=h1_2, scale=scale if pre else None),
+                    lambda: mb.product_bf16(d_h1, W1t, None, epi=mb.EPI_PLAIN if pre else
+                                            mb.EPI_ADD, tile=t2, resid=None if pre else dy2)]
+        cublas = [lambda: F.linear(dy2, W2t), lambda: F.linear(d_h1, W1t)]
+        products_ms = sum(time_ms(fn) for fn in products)
+        cublas_ms = sum(time_ms(fn) for fn in cublas)
+        # dy, x or f read and dx written, h1 read, in bf16; w1t and w2t; the
+        # float32 norm weight and scale; two products (d_h1 not counted: a
+        # fused kernel would not move it)
+        nbytes = 3 * R * C * 2 + R * Hd * 2 + 2 * C * Hd * 2 + (C + frames) * 4
         ops = 2 * R * C * Hd * len(products)
         b_ms, b_by = bound(nbytes, ops, BF16_FLOPS)
         log(f"[K2b] rows,C={(R, C, 'v1' if pre else 'v2')} x{calls}/step  bf16 {ms:.4f} ms  "
@@ -844,7 +840,7 @@ def phase_k2b(gen):
                          ("products_ms", products_ms), ("cublas_ms", cublas_ms),
                          ("bytes", nbytes), ("ops", ops)):
             tot[key] += calls * val
-        del x32, dy32, x, dy, W1, W2, W1t, W2t, h1, out, ref, dx, dx_ref
+        del x32, dy32, x, dy, W1, W2, W1t, W2t, h1, f, src, d_h1, out, ref, dx, dx_ref
         torch.cuda.empty_cache()
     log(f"[K2b] per train step: {tot['ms']:.3f} ms, of which products alone "
         f"{tot['products_ms']:.3f} ms; plain autograd {tot['plain_ms']:.3f} ms; cuBLAS products "

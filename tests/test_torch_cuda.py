@@ -432,9 +432,13 @@ def test_cuda_backward_wrappers_raise_instead_of_falling_back(cuda_device):
     x, lw, lb, w1, b1, w2, b2 = (t.to(cuda_device) for t in _mlp_args(R=8, C=16))
     flat = torch.zeros(8 * 16 + 1, dtype=bf, device=cuda_device)
     dy = flat[1:].view(8, 16)
+    h1 = torch.zeros(8, 64, dtype=bf, device=cuda_device)
+    w1t, w2t = w1.to(bf).t().contiguous(), w2.to(bf).t().contiguous()
     with pytest.raises(ValueError, match="16-byte"):
-        mlp_block_bwd(x.to(bf), dy, lw, lb, w1.to(bf), b1, w2.to(bf), b2,
-                      w1.to(bf).t().contiguous(), w2.to(bf).t().contiguous(), pre_norm=True)
+        mlp_block_bwd(dy, h1, x.to(bf), lw, w1t, w2t, pre_norm=True)
+    h1_off = torch.zeros(8 * 64 + 1, dtype=bf, device=cuda_device)[1:].view(8, 64)
+    with pytest.raises(ValueError, match="h1 on a 16-byte"):
+        mlp_block_bwd(x.to(bf), h1_off, x.to(bf), lw, w1t, w2t, pre_norm=False)
 
 
 @pytest.mark.cuda
@@ -465,3 +469,26 @@ def test_cuda_mlp_product_train_epilogues_match_plain(cuda_device, width, epi):
     _check(out, ref, torch.bfloat16)
     if epi == 4:
         _check(out2, v + bias, torch.bfloat16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pre_norm", [True, False])
+def test_cuda_mlp_block_train_forward_keeps_h1_and_f_bit_for_bit(cuda_device, pre_norm):
+    """A train forward (keep=True) gives the eval forward's bits and keeps
+    fc1's pre-activation h1: on V2 the EPI_BIAS product of x and w1, and f the
+    EPI_BIAS product of the hidden activations and w2, bit for bit."""
+    from avmoe_tpu_torch.kernels.mlp_block import EPI_BIAS, EPI_GELU, sm_count
+
+    R, C = 2900, 192
+    x, lw, lb, w1, b1, w2, b2 = (t.to(cuda_device) for t in _mlp_args(R=R, C=C))
+    x, w1, w2 = x.bfloat16(), w1.bfloat16(), w2.bfloat16()
+    out, h1, f = mlp_block.forward_only(x, lw, lb, w1, b1, w2, b2, pre_norm=pre_norm, keep=True)
+    torch.cuda.synchronize()
+    assert torch.equal(out, mlp_block(x, lw, lb, w1, b1, w2, b2, pre_norm=pre_norm))
+    assert tuple(h1.shape) == (R, 4 * C) and (f is None) == pre_norm
+    if not pre_norm:
+        sms = sm_count(cuda_device.index or 0)
+        t1, t2 = pick_tile(R, 4 * C, C, sms), pick_tile(R, C, 4 * C, sms)
+        assert torch.equal(h1, product_bf16(x, w1, b1, epi=EPI_BIAS, tile=t1))
+        hid = product_bf16(x, w1, b1, epi=EPI_GELU, tile=t1)
+        assert torch.equal(f, product_bf16(hid, w2, b2, epi=EPI_BIAS, tile=t2))

@@ -21,7 +21,8 @@ import torch
 jax = pytest.importorskip("jax")
 jnp = jax.numpy
 
-from avmoe_tpu_torch.kernels.mlp_block import mlp_block, mlp_block_backward_plain, mlp_block_plain
+from avmoe_tpu_torch.kernels.mlp_block import (
+    mlp_block, mlp_block_backward_plain, mlp_block_bwd, mlp_block_forward_plain, mlp_block_plain)
 from avmoe_tpu_torch.kernels.window_attention import (
     window_attention, window_attention_backward_plain, window_attention_plain)
 from avmoe_tpu_torch.ops.dropout import drop_path_scale, dropout
@@ -287,24 +288,83 @@ def test_window_attention_plain_gradcheck_and_backward_plain():
         torch.testing.assert_close(a, b, rtol=0, atol=1e-10)
 
 
+def _mlp_f64(C):
+    return (1 + 0.1 * _f64(C, seed=7), 0.1 * _f64(C, seed=8),
+            _f64(4 * C, C, seed=9) / C ** 0.5, 0.1 * _f64(4 * C, seed=10),
+            _f64(C, 4 * C, seed=11) / (2 * C ** 0.5), 0.1 * _f64(C, seed=12))
+
+
 @pytest.mark.parametrize("pre_norm", [True, False])
 def test_mlp_block_plain_gradcheck_and_backward_plain_with_droppath(pre_norm):
+    """The plain K2b, from the plain forward's kept h1 and f, against the
+    plain forward's autograd (itself held by gradcheck) in float64."""
     C = 8
     x = _f64(3, 5, C, seed=6).requires_grad_()
-    ln_w, ln_b = 1 + 0.1 * _f64(C, seed=7), 0.1 * _f64(C, seed=8)
-    w1, b1 = _f64(4 * C, C, seed=9) / C ** 0.5, 0.1 * _f64(4 * C, seed=10)
-    w2, b2 = _f64(C, 4 * C, seed=11) / (2 * C ** 0.5), 0.1 * _f64(C, seed=12)
+    ln_w, ln_b, w1, b1, w2, b2 = _mlp_f64(C)
     scale = torch.tensor([1 / 0.9, 0.0, 1 / 0.9], dtype=torch.float64)
     f = lambda t: mlp_block_plain(t, ln_w, ln_b, w1, b1, w2, b2, pre_norm=pre_norm, scale=scale)
     assert torch.autograd.gradcheck(f, (x,))
-    out = f(x)
+    out, h1, fc2 = mlp_block_forward_plain(x.detach(), ln_w, ln_b, w1, b1, w2, b2,
+                                           pre_norm=pre_norm, scale=scale)
+    assert torch.equal(out, f(x).detach())
     dy = _f64(*out.shape, seed=13)
-    ref, = torch.autograd.grad(out, x, dy)
-    got = mlp_block_backward_plain(x.detach(), dy, ln_w, ln_b, w1, b1, w2, b2,
-                                   pre_norm=pre_norm, scale=scale)
+    ref, = torch.autograd.grad(f(x), x, dy)
+    got = mlp_block_backward_plain(dy, h1, x.detach() if pre_norm else fc2, ln_w,
+                                   w1.t().contiguous(), w2.t().contiguous(), pre_norm=pre_norm,
+                                   scale=scale)
     torch.testing.assert_close(got, ref, rtol=0, atol=1e-10)
     # the dropped frame's branch has no gradient: dx = dy there
     torch.testing.assert_close(got[1], dy[1], rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("version", ["v1", "v2"])
+def test_mlp_block_forward_plain_keeps_jax_fc1_and_fc2_outputs(version):
+    """h1 and f, which K2b reads, are the JAX package's fc1 and fc2 Dense
+    outputs of its MLP sub-block, on the same weights (convert.py)."""
+    from avmoe_tpu.ops.swin import SwinBlock as JSwinBlock
+
+    from avmoe_tpu_torch.convert import load_jax_variables
+    from avmoe_tpu_torch.ops.swin import SwinBlock
+    from torch_port_harness import jax_variables, to_jax
+
+    dim, res = 16, 8
+    kw = dict(pretrained_window=4) if version == "v2" else {}
+    jm = JSwinBlock(dim=dim, input_resolution=(res, res), num_heads=2, window_size=4,
+                    shift_size=0, version=version, **kw)
+    pm = SwinBlock(dim, (res, res), 2, 4, 0, version=version, **kw)
+    x = np.random.RandomState(3).randn(3, res * res, dim).astype(np.float32)
+    variables = jax_variables(jm, jnp.asarray(x), seed=5)
+    load_jax_variables(pm, variables)
+    _, state = jm.apply(to_jax(variables), jnp.asarray(x), method=JSwinBlock.mlp_residual,
+                        capture_intermediates=True)
+    inter = state["intermediates"]["mlp"]
+    want_h1, want_f = (np.asarray(inter[k]["__call__"][0]) for k in ("fc1", "fc2"))
+    m = pm.mlp
+    _, h1, f = mlp_block_forward_plain(torch.from_numpy(x), pm.norm2.weight.detach(),
+                                       pm.norm2.bias.detach(), m.fc1.weight.detach(),
+                                       m.fc1.bias.detach(), m.fc2.weight.detach(),
+                                       m.fc2.bias.detach(), pre_norm=version == "v1")
+    np.testing.assert_allclose(h1.numpy(), want_h1, rtol=2e-3, atol=1e-5)
+    np.testing.assert_allclose(f.numpy(), want_f, rtol=2e-3, atol=1e-5)
+
+
+@pytest.mark.parametrize("with_scale", [False, True])
+@pytest.mark.parametrize("pre_norm", [True, False])
+def test_mlp_block_autograd_function_dx_matches_plain_autograd(pre_norm, with_scale):
+    """On the CPU the autograd Function runs the plain forward (keeping h1
+    and f) and the plain K2b through K2b's wrapper; dx equals plain autograd's."""
+    C = 16
+    x = _f64(4, 6, C, seed=14).float().requires_grad_()
+    w = [t.float() for t in _mlp_f64(C)]
+    scale = torch.tensor([1.25, 0.0, 1.0, 0.5]) if with_scale else None
+    before = mlp_block_bwd.launches
+    out = mlp_block(x, *w, pre_norm=pre_norm, scale=scale)
+    assert out.grad_fn is not None and "MlpBlockFn" in type(out.grad_fn).__name__
+    dy = _f64(*out.shape, seed=15).float()
+    got, = torch.autograd.grad(out, x, dy)
+    assert mlp_block_bwd.launches == before    # CPU tensors take the plain version
+    ref, = torch.autograd.grad(mlp_block_plain(x, *w, pre_norm=pre_norm, scale=scale), x, dy)
+    torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-5)
 
 
 def test_kernel_wrappers_differentiate_through_their_backward_on_the_cpu(monkeypatch):
