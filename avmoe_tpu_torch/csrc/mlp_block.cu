@@ -48,16 +48,23 @@
 // numbers above are unchanged (the scaled ones are other instantiations).
 //
 // K2b, the backward (mlp_block_bwd): dx only, the weights frozen, from what
-// the forward kept in training: fc1's pre-activation h1 (fc1's epilogue
-// writes it beside gelu(h1)) and, on V2, fc2's output f. With g = s (.) dy:
+// the forward kept in training: fc1's pre-activation h1 (fc1's kEpiGeluSave
+// epilogue writes it beside gelu(h1); eval forwards keep kEpiGelu) and, on
+// V2, fc2's output f. With g = s (.) dy:
 //   V2: d_h2 = LN-backward(g; f) (row pass); d_h1 = (d_h2 w2) (.) gelu'(h1);
 //       dx = dy + d_h1 w1
 //   V1: d_h1 = (g w2) (.) gelu'(h1); dx = dy + LN-backward(d_h1 w1; x) (row
 //       pass, x's statistics recomputed)
-// Two products, no recompute. They take B as the transposed copies
-// w1t = w1^T (C, Hd) and w2t = w2^T (Hd, C), which the wrapper keeps once
-// per model and dtype. Their epilogues: x gelu'(h1) (and x s on V1); + dy
-// without a bias; none.
+// Two products, 4 R C Hd operations, and no forward product run again. What
+// bounds K2b: at every main-path shape but Swin-V2 stage 1 and HTS-AT stages
+// 1-2 (bound by their bytes: h1 is read once, (R, Hd)) the two products
+// bound it, so in bf16 they run on the wgmma kernel of gemm_wgmma.cuh (TMA
+// ring, two consumer warpgroups, 128 x BN tiles picked per product by the
+// wrapper), the only route to the tensor cores' full rate; their B operands
+// are the transposed copies w1t = w1^T (C, Hd) and w2t = w2^T (Hd, C), which
+// the wrapper keeps once per model and dtype, so both operands are K-major.
+// Their epilogues: x gelu'(h1) (and x s on V1); + dy without a bias; none.
+// float32 takes the CUDA-core product (exact, for the gradient checks).
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -67,6 +74,7 @@
 #include "attention_mma.cuh"
 #include "common.cuh"
 #include "cp_async.cuh"
+#include "gemm_wgmma.cuh"
 
 namespace {
 
@@ -278,7 +286,7 @@ mlp_gemm_bf16(const bf16* __restrict__ A, const bf16* __restrict__ B,
         v[2 * e] += f.x;
         v[2 * e + 1] += f.y;
       }
-    } else if (EPI == kEpiResidScale || EPI == kEpiGeluGrad || EPI == kEpiAdd) {
+    } else if (EPI == kEpiResidScale) {
       const uint4 x = *reinterpret_cast<const uint4*>(resid + idx);
       const __nv_bfloat162* xp = reinterpret_cast<const __nv_bfloat162*>(&x);
 #pragma unroll
@@ -621,6 +629,24 @@ int gemm(int dtype, int tile_n, const void* A, const void* B, const float* bias,
   return gemm_f32<EPI>(A, B, bias, resid, C, M, N, K, s, scale, rpf, out2);
 }
 
+// K2b's products: bf16 on the wgmma kernel (gemm_wgmma.cuh), float32 on
+// the CUDA cores
+template <int EPI> struct ProductEpi {
+  static constexpr bool kReadsAux = EPI != kEpiPlain;
+  EpiExtra<bf16> ex;
+  __device__ __forceinline__ float operator()(float v, float aux, int row) const {
+    return finish<EPI>(v, aux, row, ex);
+  }
+};
+
+template <int EPI>
+int gemm_bwd(int dtype, int tile_n, const void* A, const void* B, const void* aux, void* C,
+             int M, int N, int K, cudaStream_t s, const float* scale = nullptr, int rpf = 1) {
+  if (dtype == 1)
+    return wg::gemm(tile_n, A, B, aux, C, M, N, K, ProductEpi<EPI>{{scale, rpf, nullptr}}, s);
+  return gemm_f32<EPI>(A, B, nullptr, aux, C, M, N, K, s, scale, rpf);
+}
+
 template <typename T>
 int mlp_block(const void* x, const float* ln_w, const float* ln_b, const void* w1,
               const float* b1, const void* w2, const float* b2, void* h_ln, void* hid,
@@ -634,7 +660,8 @@ int mlp_block(const void* x, const float* ln_w, const float* ln_b, const void* w
   }
   // fc1; in training it also keeps its pre-activation h1 for K2b
   if (h1)
-    err = gemm<kEpiGeluSave>(dtype, tile1, a1, w1, b1, nullptr, hid, R, Hd, C, s, nullptr, 1, h1);
+    err = gemm<kEpiGeluSave>(dtype, tile1, a1, w1, b1, nullptr, hid, R, Hd, C, s, nullptr, 1,
+                             h1);
   else
     err = gemm<kEpiGelu>(dtype, tile1, a1, w1, b1, nullptr, hid, R, Hd, C, s);
   if (err) return err;
@@ -659,11 +686,9 @@ int mlp_block_bwd(const void* dy, const void* h1, const void* src, const float* 
   int err;
   if (pre_norm) {
     // hA = d_h1 = (s dy w2) gelu'(h1); cA = d_h1 w1; dx = dy + LN-backward(cA; x)
-    if ((err = gemm<kEpiGeluGrad>(dtype, tile1, dy, w2t, nullptr, h1, hA, R, Hd, C, s, scale,
-                                  rpf)))
+    if ((err = gemm_bwd<kEpiGeluGrad>(dtype, tile1, dy, w2t, h1, hA, R, Hd, C, s, scale, rpf)))
       return err;
-    if ((err = gemm<kEpiPlain>(dtype, tile2, hA, w1t, nullptr, nullptr, cA, R, C, Hd, s)))
-      return err;
+    if ((err = gemm_bwd<kEpiPlain>(dtype, tile2, hA, w1t, nullptr, cA, R, C, Hd, s))) return err;
     return launch_ln_bwd<T, true, false>(src, cA, ln_w, dy, dx, R, C, eps, nullptr, 1, s);
   }
   // cA = d_h2 = LN-backward(s dy; f); hA = d_h1 = (d_h2 w2) gelu'(h1); dx = dy + d_h1 w1
@@ -672,9 +697,8 @@ int mlp_block_bwd(const void* dy, const void* h1, const void* src, const float* 
   else
     err = launch_ln_bwd<T, false, false>(src, dy, ln_w, nullptr, cA, R, C, eps, nullptr, 1, s);
   if (err) return err;
-  if ((err = gemm<kEpiGeluGrad>(dtype, tile1, cA, w2t, nullptr, h1, hA, R, Hd, C, s)))
-    return err;
-  return gemm<kEpiAdd>(dtype, tile2, hA, w1t, nullptr, dy, dx, R, C, Hd, s);
+  if ((err = gemm_bwd<kEpiGeluGrad>(dtype, tile1, cA, w2t, h1, hA, R, Hd, C, s))) return err;
+  return gemm_bwd<kEpiAdd>(dtype, tile2, hA, w1t, dy, dx, R, C, Hd, s);
 }
 
 template <int BN>
@@ -754,20 +778,17 @@ extern "C" int mlp_block_bwd(const void* dy, const void* h1, const void* src, co
   return (int)cudaErrorInvalidValue;
 }
 
-// One bf16 product of the block alone, C = epi(A B^T [+ bias]) with one of
-// the epilogues (kEpi* codes 0 to 7), at output tile width tile_n: the
-// kernel mlp_block_fwd and mlp_block_bwd launch, exported to time the
-// products apart from the row passes. resid is the residual (codes 2, 3, 6)
-// or the GELU input h1 (code 5), out2 code 4's second output, scale /
-// rows_per_frame the per-frame scale (code 3, and optional on code 5).
+// One bf16 product of the forward alone, C = epi(A B^T + bias) with one of
+// its epilogues (kEpi* codes 0 to 4), at output tile width tile_n: the
+// mma.sync kernel mlp_block_fwd launches, exported to time the products
+// apart from the row passes. resid is the residual (codes 2 and 3), out2
+// code 4's second output, scale / rows_per_frame the per-frame scale (code 3).
 extern "C" int mlp_block_gemm_bf16(const void* A, const void* B, const void* bias,
                                    const void* resid, void* C, void* out2, const void* scale,
                                    int rows_per_frame, int M, int N, int K, int epi,
                                    int tile_n, void* stream) {
-  const bool need_resid = epi == kEpiResid || epi == kEpiResidScale || epi == kEpiGeluGrad ||
-                          epi == kEpiAdd;
-  if (M < 1 || N < 1 || K < 1 || K % 8 || N % 8 || epi < 0 || epi > kEpiPlain ||
-      (need_resid && resid == nullptr) || (epi <= kEpiGeluSave && bias == nullptr) ||
+  if (M < 1 || N < 1 || K < 1 || K % 8 || N % 8 || epi < 0 || epi > kEpiGeluSave ||
+      bias == nullptr || ((epi == kEpiResid || epi == kEpiResidScale) && resid == nullptr) ||
       (epi == kEpiGeluSave && out2 == nullptr) || (epi == kEpiResidScale && scale == nullptr) ||
       (scale && (rows_per_frame < 1 || M % rows_per_frame)) || !aligned16(A) ||
       !aligned16(B) || !aligned16(C) || (resid && !aligned16(resid)) ||
@@ -785,10 +806,29 @@ extern "C" int mlp_block_gemm_bf16(const void* A, const void* B, const void* bia
       return gemm_bf16<kEpiResidScale>(tile_n, A, B, b, resid, C, M, N, K, s, sc, r);
     case kEpiGeluSave:
       return gemm_bf16<kEpiGeluSave>(tile_n, A, B, b, resid, C, M, N, K, s, nullptr, 1, out2);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+// One bf16 product of K2b alone on the wgmma kernel, C = epi(A B^T, aux), at
+// output tile width tile_n (256, 192, 128 or 96): epi kEpiGeluGrad (5; aux =
+// h1, scale optional), kEpiAdd (6; aux the residual) or kEpiPlain (7; no
+// aux). Exported to time and test the products apart from the row pass.
+extern "C" int mlp_block_gemm_wgmma(const void* A, const void* B, const void* aux, void* C,
+                                    const void* scale, int rows_per_frame, int M, int N, int K,
+                                    int epi, int tile_n, void* stream) {
+  if (M < 1 || N < 1 || K < 1 || K % 8 || N % 8 || epi < kEpiGeluGrad || epi > kEpiPlain ||
+      ((epi == kEpiPlain) != (aux == nullptr)) || (scale && epi != kEpiGeluGrad) ||
+      (scale && (rows_per_frame < 1 || M % rows_per_frame)) || !aligned16(A) ||
+      !aligned16(B) || !aligned16(C) || (aux && !aligned16(aux)))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* sc = static_cast<const float*>(scale);
+  switch (epi) {
     case kEpiGeluGrad:
-      return gemm_bf16<kEpiGeluGrad>(tile_n, A, B, b, resid, C, M, N, K, s, sc, r);
-    case kEpiAdd: return gemm_bf16<kEpiAdd>(tile_n, A, B, b, resid, C, M, N, K, s);
-    case kEpiPlain: return gemm_bf16<kEpiPlain>(tile_n, A, B, b, resid, C, M, N, K, s);
+      return gemm_bwd<kEpiGeluGrad>(1, tile_n, A, B, aux, C, M, N, K, s, sc, rows_per_frame);
+    case kEpiAdd: return gemm_bwd<kEpiAdd>(1, tile_n, A, B, aux, C, M, N, K, s);
+    case kEpiPlain: return gemm_bwd<kEpiPlain>(1, tile_n, A, B, aux, C, M, N, K, s);
   }
   return (int)cudaErrorInvalidValue;
 }

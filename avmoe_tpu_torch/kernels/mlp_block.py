@@ -23,11 +23,14 @@ Function. Its forward keeps fc1's pre-activation h1 (fc1's epilogue writes
 it beside gelu(h1)) and, on V2, fc2's output f; its backward is K2b
 (`mlp_block_bwd` in the same CUDA source; plain version
 `mlp_block_backward_plain`): dx only, from those and the output's gradient,
-with no product of the forward run again. The weights are frozen: on the
-card a weight that needs a gradient raises; on the CPU that case takes plain
-autograd. The backward products take the transposed weights w1t = w1ᵀ
-(C, Hd) and w2t = w2ᵀ (Hd, C), which the caller keeps (SwinBlock does, once
-per dtype).
+with no product of the forward run again. K2b runs two products and one
+LayerNorm-backward row pass; in bf16 its products run on the wgmma kernel
+(`csrc/gemm_wgmma.cuh`, TMA-fed, output tiles 128 x `pick_wgmma_tile`'s
+width), since they, not the bytes, bound K2b at most shapes. The weights are
+frozen: on the card a weight that needs a gradient raises; on the CPU that
+case takes plain autograd. The backward products take the transposed
+weights w1t = w1ᵀ (C, Hd) and w2t = w2ᵀ (Hd, C), which the caller keeps
+(SwinBlock does, once per dtype).
 """
 
 from __future__ import annotations
@@ -163,6 +166,32 @@ def pick_tile(M: int, N: int, K: int, sms: int) -> int:
     return min(TILE_WIDTHS, key=lambda w: (product_seconds(M, N, K, w, sms), -w))
 
 
+# output tile widths of K2b's bf16 product kernel (csrc/gemm_wgmma.cuh), one
+# 128-row tile a CTA and one CTA an SM; what a tile costs on an H100, per
+# column of its width: a 64-deep step of its products at about 600 TFLOP/s
+# over 132 SMs, and its epilogue's aux read and bf16 store (4 bytes a row)
+# at the SM's share of 3.35 TB/s; and per tile the ring's fill and launch
+WGMMA_WIDTHS = (256, 192, 128, 96)
+WGMMA_STEP_S = 2 * TILE_ROWS * 64 / 4.5e12
+WGMMA_EPI_S = TILE_ROWS * 4 / 25e9
+WGMMA_TILE_S = 2e-6
+
+
+def wgmma_seconds(M: int, N: int, K: int, width: int, sms: int) -> float:
+    """Modelled time of an (M, N, K) product on the wgmma kernel at tile
+    width `width`: the busiest SM's tiles, each of `width` columns (the
+    columns past N computed all the same) through ceil(K / 64) steps and an
+    epilogue, plus its fill."""
+    per_tile = width * (math.ceil(K / 64) * WGMMA_STEP_S + WGMMA_EPI_S) + WGMMA_TILE_S
+    return busiest_sm_tiles(M, N, width, sms) * per_tile
+
+
+def pick_wgmma_tile(M: int, N: int, K: int, sms: int) -> int:
+    """The wgmma kernel's output tile width for an (M, N, K) product on
+    `sms` SMs: the least modelled time, the widest on a tie."""
+    return min(WGMMA_WIDTHS, key=lambda w: (wgmma_seconds(M, N, K, w, sms), -w))
+
+
 @functools.lru_cache(maxsize=None)
 def sm_count(device_index: int) -> int:
     return torch.cuda.get_device_properties(device_index).multi_processor_count
@@ -182,6 +211,9 @@ def _library() -> ctypes.CDLL:
     fn = lib.mlp_block_gemm_bf16
     fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
+    fn = lib.mlp_block_gemm_wgmma
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
     lib.mlp_block_ctas_per_sm.argtypes = [ctypes.c_int, ctypes.c_void_p]
     lib.mlp_block_ctas_per_sm.restype = ctypes.c_int
     return lib
@@ -196,30 +228,53 @@ def _check_bf16_layout(C: int, **tensors) -> None:
             raise ValueError(f"bfloat16 on the card needs {name} on a 16-byte boundary")
 
 
-# the product kernel's epilogues (csrc/mlp_block.cu kEpi*): the forward's
-# + bias, GELU, + bias + resid and its DropPath form; K2b's kept h1 beside
-# GELU, x gelu'(h1), + resid without a bias, none
+# the product kernels' epilogues (csrc/mlp_block.cu kEpi*): the forward's
+# + bias, GELU, + bias + resid and its DropPath form, fc1's GELU keeping its
+# input (mma.sync, `product_bf16`); K2b's x gelu'(h1), + resid without a
+# bias, none (wgmma, `product_wgmma`)
 EPI_BIAS, EPI_GELU, EPI_RESID, EPI_RESID_SCALE = 0, 1, 2, 3
 EPI_GELU_SAVE, EPI_GELU_GRAD, EPI_ADD, EPI_PLAIN = 4, 5, 6, 7
 
 
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
 def product_bf16(a, w, bias, *, epi: int, tile: int, resid=None, out2=None,
                  scale=None) -> torch.Tensor:
-    """One bf16 product of the block alone on the card, epi(a w^T [+ bias])
-    with one of the EPI_* epilogues, at output tile width `tile`: the kernel
-    `mlp_block` and `mlp_block_bwd` launch, to time the products apart from
-    the row passes. `resid` is the residual (or h1 for EPI_GELU_GRAD), `out2`
-    EPI_GELU_SAVE's second output, `scale` the per-frame scale (rows of a
-    frame: M / len(scale)). Not on any path and not counted."""
+    """One bf16 product of the forward alone on the card, epi(a w^T + bias)
+    with one of EPI_BIAS to EPI_GELU_SAVE, at output tile width `tile`: the
+    mma.sync kernel `mlp_block` launches, to time the products apart from the
+    row passes. `resid` is the residual, `out2` EPI_GELU_SAVE's second output,
+    `scale` the per-frame scale (rows of a frame: M / len(scale)). Not on any
+    path and not counted."""
     M, K = a.shape
     out = torch.empty((M, w.shape[0]), dtype=a.dtype, device=a.device)
     ptr = lambda t: 0 if t is None else t.data_ptr()
     err = _library().mlp_block_gemm_bf16(
         a.data_ptr(), w.data_ptr(), ptr(bias), ptr(resid), out.data_ptr(), ptr(out2),
         ptr(scale), 1 if scale is None else M // scale.shape[0], M, w.shape[0], K, epi, tile,
-        torch.cuda.current_stream(a.device).cuda_stream)
+        _stream(a))
     if err != 0:
         raise RuntimeError(f"mlp_block product failed: CUDA error {err}")
+    return out
+
+
+def product_wgmma(a, bt, *, epi: int, tile: int, aux=None, scale=None) -> torch.Tensor:
+    """One bf16 product of K2b alone on the card, epi(a btᵀ, aux) on the
+    wgmma kernel at output tile width `tile` (one of WGMMA_WIDTHS): EPI_GELU_GRAD
+    (aux = h1; `scale` optional, rows of a frame M / len(scale)), EPI_ADD (aux
+    the residual) or EPI_PLAIN (no aux). The kernel `mlp_block_bwd` launches,
+    to time and test the products apart from the row pass. Not on any path
+    and not counted."""
+    M, K = a.shape
+    out = torch.empty((M, bt.shape[0]), dtype=a.dtype, device=a.device)
+    err = _library().mlp_block_gemm_wgmma(
+        a.data_ptr(), bt.data_ptr(), 0 if aux is None else aux.data_ptr(), out.data_ptr(),
+        0 if scale is None else scale.data_ptr(), 1 if scale is None else M // scale.shape[0],
+        M, bt.shape[0], K, epi, tile, _stream(a))
+    if err != 0:
+        raise RuntimeError(f"mlp_block wgmma product failed: CUDA error {err}")
     return out
 
 
@@ -285,8 +340,8 @@ class MlpBlockBackward:
         err = _library().mlp_block_bwd(
             dy.data_ptr(), h1.data_ptr(), src.data_ptr(), ln_w.data_ptr(), w1t.data_ptr(),
             w2t.data_ptr(), sp, rpf, hA.data_ptr(), cA.data_ptr(), dx.data_ptr(), R, C, Hd,
-            int(pre_norm), _DTYPE_CODE[dy.dtype], pick_tile(R, Hd, C, sms),
-            pick_tile(R, C, Hd, sms), eps, torch.cuda.current_stream(dy.device).cuda_stream)
+            int(pre_norm), _DTYPE_CODE[dy.dtype], pick_wgmma_tile(R, Hd, C, sms),
+            pick_wgmma_tile(R, C, Hd, sms), eps, _stream(dy))
         if err != 0:
             raise RuntimeError(f"mlp_block_bwd kernel failed: CUDA error {err}")
         self.launches += 1
@@ -371,12 +426,11 @@ class MlpBlock:
         out = torch.empty_like(x)
         sp, rpf = _scale_args(scale, x)
         ptr = lambda t: 0 if t is None else t.data_ptr()
-        stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.mlp_block_fwd(
             x.data_ptr(), ln_w.data_ptr(), ln_b.data_ptr(), w1.data_ptr(), b1.data_ptr(),
             w2.data_ptr(), b2.data_ptr(), ptr(h_ln), hid.data_ptr(), ptr(f), out.data_ptr(),
             ptr(h1), R, C, Hd, int(pre_norm), _DTYPE_CODE[x.dtype], pick_tile(R, Hd, C, sms),
-            pick_tile(R, C, Hd, sms), eps, sp, rpf, stream)
+            pick_tile(R, C, Hd, sms), eps, sp, rpf, _stream(x))
         if err != 0:
             raise RuntimeError(f"mlp_block kernel failed: CUDA error {err}")
         self.launches += 1

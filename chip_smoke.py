@@ -12,16 +12,19 @@ script exits non-zero without printing the result line):
 
   1. card: nvidia-smi name and power limit, torch / CUDA versions;
   2. build: the four CUDA sources with nvcc (one process each, in parallel);
-     the tensor-core instructions (HMMA) in the SASS of K1, K2, K3 and K1b,
-     which must be there (their bf16 code runs on mma.sync); K1b's ptxas
-     registers and spills per instantiation, none of its bf16 ones spilling;
+     the tensor-core instructions in the SASS of K1, K2, K3 and K1b: HMMA
+     (mma.sync) in each, and HGMMA (wgmma, K2b's products) in the mlp_block
+     library; ptxas registers and spills per instantiation of K1b and of
+     K2b's wgmma product, none of K1b's bf16 ones nor of the wgmma ones
+     spilling;
   3. window-attention kernel vs its plain version at every main-path shape,
      float32 (rtol 1e-4, atol 1e-5) and bfloat16 (|d| <= 2e-2 (1 + |ref|)
      against the float32 plain version of the same bf16 inputs);
   4. MLP-block kernel vs its plain version, the same way (TF32 off); per
-     shape also its two products alone at each output tile width (the one
-     the wrapper picks marked) and, as a products-only yardstick, two
-     cuBLAS bf16 products (F.linear fc1, F.linear fc2: no GELU, no LN, no
+     shape also a train forward's time (fc1's pre-activation h1 kept for
+     K2b), its two products alone at each output tile width (the one the
+     wrapper picks marked) and, as a products-only yardstick, two cuBLAS
+     bf16 products (F.linear fc1, F.linear fc2: no GELU, no LN, no
      residual, so not a call that computes the block);
   5. block-chain kernel vs its plain version at every chain geometry of the
      chain path (seeded blocks), float32 (|d| <= 1e-4 + 1e-4 |ref|) and
@@ -48,8 +51,9 @@ script exits non-zero without printing the result line):
      achieved TFLOP/s and the share of the bound;
  11. K2b (MLP-block backward) the same way at every main-path shape, both
      norms, with and without a DropPath scale that has zeros in it (K2's
-     forward with the scale checked too); times beside the plain autograd's,
-     the bound, its products alone and cuBLAS's for the same products;
+     forward with the scale checked too); times, from the forward's kept h1
+     (and f on V2), beside the plain autograd's, the bound, its two wgmma
+     products alone at each tile width and cuBLAS's for the same products;
  12. tiny AVE model in float32, deterministic (AVMOE_DETERMINISTIC_TRAIN=1):
      4 train steps on the card (kernels) against 4 on the CPU (plain
      versions) from the same weights and batches, mixup λ given: losses
@@ -236,22 +240,33 @@ def phase_build():
                  if "Used" in ln and "registers" in ln]
     log(f"[build] {secs:.1f} s; ptxas: " + " | ".join(regs))
     # K1b per instantiation: its bf16 (tensor-core) kernels must not spill
-    k1b = ptxas_report(_build.BUILD_LOGS["window_attention_bwd"],
-                       Path(_build.nvcc_path()).with_name("cu++filt"))
+    cxxfilt = Path(_build.nvcc_path()).with_name("cu++filt")
+    k1b = ptxas_report(_build.BUILD_LOGS["window_attention_bwd"], cxxfilt)
     for fn, nreg, st, ld in k1b:
         log(f"[build] K1b {fn}: {nreg} registers, spill stores {st} B, spill loads {ld} B")
     mma_fns = [r for r in k1b if "window_attention_bwd_mma_kernel" in r[0]]
     check(len(mma_fns) > 0, "no bf16 K1b kernel in the ptxas report")
     check(all(st == 0 and ld == 0 for _, _, st, ld in mma_fns),
           f"a bf16 K1b instantiation spills: {mma_fns}")
+    # K2b's bf16 products (wgmma, gemm_wgmma.cuh): no spills either
+    wg = [r for r in ptxas_report(_build.BUILD_LOGS["mlp_block"], cxxfilt)
+          if "mlp_gemm_wgmma" in r[0]]
+    for fn, nreg, st, ld in wg:
+        log(f"[build] K2b {fn}: {nreg} registers, spill stores {st} B, spill loads {ld} B")
+    check(len(wg) > 0, "no wgmma product kernel in the mlp_block ptxas report")
+    check(all(st == 0 and ld == 0 for _, _, st, ld in wg),
+          f"a wgmma product instantiation spills: {wg}")
     cuobjdump = Path(_build.nvcc_path()).with_name("cuobjdump")
-    hmma = {}
+    counts = {}
     for name in ("window_attention", "mlp_block", "block_chain", "window_attention_bwd"):
         sass = subprocess.run([str(cuobjdump), "-sass", str(_build.library_path(name))],
                               capture_output=True, text=True, check=True, timeout=300).stdout
-        hmma[name] = sum(1 for ln in sass.splitlines() if "HMMA" in ln)
-    log("[build] HMMA instructions in the SASS: " + ", ".join(f"{k} {v}" for k, v in hmma.items()))
-    check(all(v > 0 for v in hmma.values()), f"no tensor-core instructions in {hmma}")
+        counts[name] = {op: sum(1 for ln in sass.splitlines() if op in ln)
+                        for op in ("HMMA", "HGMMA")}
+    log("[build] tensor-core instructions in the SASS (HMMA: mma.sync, HGMMA: wgmma): "
+        + ", ".join(f"{k} {v['HMMA']} / {v['HGMMA']}" for k, v in counts.items()))
+    check(all(v["HMMA"] > 0 for v in counts.values()), f"no HMMA instructions in {counts}")
+    check(counts["mlp_block"]["HGMMA"] > 0, "no HGMMA (wgmma) instructions in mlp_block")
 
 
 def phase_k1(gen):
@@ -812,29 +827,39 @@ def phase_k2b(gen):
                                               scale=scale))
         plain_ms = _backward_ms(lambda t: mb.mlp_block_plain(
             t, lw, lb, W1, b1, W2, b2, pre_norm=pre, scale=scale), (x,), dy)
-        # K2b's two products alone (d_h1 from dy, or from d_h2 = dy on V2, the
-        # LN row pass left out), and cuBLAS's bf16 products of the same shapes
-        t1, t2 = mb.pick_tile(R, Hd, C, sms), mb.pick_tile(R, C, Hd, sms)
+        # K2b's two products alone on the wgmma kernel (d_h1 from dy, or from
+        # d_h2 = dy on V2, the LN row pass left out) at the picked widths and
+        # at each width, and cuBLAS's bf16 products of the same shapes
+        picks = (mb.pick_wgmma_tile(R, Hd, C, sms), mb.pick_wgmma_tile(R, C, Hd, sms))
         dy2, h1_2 = dy.reshape(R, C), h1.reshape(R, Hd)
-        d_h1 = mb.product_bf16(dy2, W2t, None, epi=mb.EPI_GELU_GRAD, tile=t1, resid=h1_2,
-                               scale=scale if pre else None)
-        products = [lambda: mb.product_bf16(dy2, W2t, None, epi=mb.EPI_GELU_GRAD, tile=t1,
-                                            resid=h1_2, scale=scale if pre else None),
-                    lambda: mb.product_bf16(d_h1, W1t, None, epi=mb.EPI_PLAIN if pre else
-                                            mb.EPI_ADD, tile=t2, resid=None if pre else dy2)]
-        cublas = [lambda: F.linear(dy2, W2t), lambda: F.linear(d_h1, W1t)]
-        products_ms = sum(time_ms(fn) for fn in products)
-        cublas_ms = sum(time_ms(fn) for fn in cublas)
+        sc1 = scale if pre else None
+        epi2, aux2 = (mb.EPI_PLAIN, None) if pre else (mb.EPI_ADD, dy2)
+        d_h1 = mb.product_wgmma(dy2, W2t, epi=mb.EPI_GELU_GRAD, tile=picks[0], aux=h1_2,
+                                scale=sc1)
+        by_width = []
+        for w in mb.WGMMA_WIDTHS:
+            p1 = time_ms(lambda: mb.product_wgmma(dy2, W2t, epi=mb.EPI_GELU_GRAD, tile=w,
+                                                  aux=h1_2, scale=sc1))
+            p2 = time_ms(lambda: mb.product_wgmma(d_h1, W1t, epi=epi2, tile=w, aux=aux2))
+            by_width.append((w, p1, p2))
+        products_ms = (next(t for w, t, _ in by_width if w == picks[0])
+                       + next(t for w, _, t in by_width if w == picks[1]))
+        cublas_ms = time_ms(lambda: F.linear(dy2, W2t)) + time_ms(lambda: F.linear(d_h1, W1t))
+        n_products = 2
         # dy, x or f read and dx written, h1 read, in bf16; w1t and w2t; the
         # float32 norm weight and scale; two products (d_h1 not counted: a
         # fused kernel would not move it)
         nbytes = 3 * R * C * 2 + R * Hd * 2 + 2 * C * Hd * 2 + (C + frames) * 4
-        ops = 2 * R * C * Hd * len(products)
+        ops = 2 * R * C * Hd * n_products
         b_ms, b_by = bound(nbytes, ops, BF16_FLOPS)
-        log(f"[K2b] rows,C={(R, C, 'v1' if pre else 'v2')} x{calls}/step  bf16 {ms:.4f} ms  "
-            f"plain autograd {plain_ms:.4f} ms  bound {b_ms:.4f} ms ({b_by})  err {shape_err:.2e}"
-            f"  its {len(products)} products alone {products_ms:.4f} ms "
+        log(f"[K2b] rows,C={(R, C, 'v1' if pre else 'v2')} x{calls}/step  bf16 {ms:.4f} ms "
+            f"({ops / ms / 1e9:.1f} TFLOP/s)  plain autograd {plain_ms:.4f} ms  bound {b_ms:.4f} "
+            f"ms ({b_by})  err {shape_err:.2e}  widths {picks[0]} / {picks[1]}: its "
+            f"{n_products} products alone {products_ms:.4f} ms "
             f"({ops / products_ms / 1e9:.1f} TFLOP/s), cuBLAS's {cublas_ms:.4f} ms")
+        log("[K2b]   products alone by tile width, ms (busiest SM's tiles): " + "; ".join(
+            f"{w}: d_h1 {a:.4f} ({mb.busiest_sm_tiles(R, Hd, w, sms)}) dx {b:.4f} "
+            f"({mb.busiest_sm_tiles(R, C, w, sms)})" for w, a, b in by_width))
         max_err = max(max_err, shape_err)
         for key, val in (("ms", ms), ("plain_ms", plain_ms), ("bound_ms", b_ms),
                          ("products_ms", products_ms), ("cublas_ms", cublas_ms),
@@ -842,9 +867,12 @@ def phase_k2b(gen):
             tot[key] += calls * val
         del x32, dy32, x, dy, W1, W2, W1t, W2t, h1, f, src, d_h1, out, ref, dx, dx_ref
         torch.cuda.empty_cache()
-    log(f"[K2b] per train step: {tot['ms']:.3f} ms, of which products alone "
-        f"{tot['products_ms']:.3f} ms; plain autograd {tot['plain_ms']:.3f} ms; cuBLAS products "
-        f"only {tot['cublas_ms']:.3f} ms; bound {tot['bound_ms']:.3f} ms")
+    log(f"[K2b] per train step: {tot['ms']:.3f} ms ({tot['ops'] / tot['ms'] * 1e-9:.1f} "
+        f"TFLOP/s), of which products alone {tot['products_ms']:.3f} ms "
+        f"({tot['ops'] / tot['products_ms'] * 1e-9:.1f} TFLOP/s, "
+        f"{tot['products_ms'] / tot['cublas_ms']:.3f} x cuBLAS's); plain autograd "
+        f"{tot['plain_ms']:.3f} ms; cuBLAS products only {tot['cublas_ms']:.3f} ms; bound "
+        f"{tot['bound_ms']:.3f} ms")
     return max_err, tot
 
 

@@ -26,7 +26,8 @@ from torch_port_harness import attn_inputs
 from avmoe_tpu_torch.kernels.block_chain import (
     block_chain, block_chain_plain, chain_groups, stack_chain)
 from avmoe_tpu_torch.kernels.mlp_block import (
-    TILE_WIDTHS, mlp_block, mlp_block_bwd, mlp_block_plain, pick_tile, product_bf16)
+    EPI_ADD, EPI_GELU_GRAD, EPI_PLAIN, TILE_WIDTHS, WGMMA_WIDTHS, gelu_grad, mlp_block,
+    mlp_block_bwd, mlp_block_plain, pick_tile, pick_wgmma_tile, product_bf16, product_wgmma)
 from avmoe_tpu_torch.models.ave import init_parameters
 from avmoe_tpu_torch.ops.swin import SwinBlock, partition_windows
 from avmoe_tpu_torch.kernels.window_attention import (
@@ -368,7 +369,8 @@ def test_cuda_window_attention_backward_bf16_is_bitwise_deterministic(cuda_devic
 
 
 _MLP_BWD_CASES = [(4, 2304, 192, False), (5, 144, 768, False), (3, 36, 1536, False),
-                  (4, 1024, 96, True), (3, 64, 768, True), (2, 16, 16, True), (3, 25, 200, False)]
+                  (4, 1024, 96, True), (3, 64, 768, True), (2, 16, 16, True), (3, 25, 200, False),
+                  (4, 2560, 384, True)]
 
 
 @pytest.mark.cuda
@@ -442,12 +444,11 @@ def test_cuda_backward_wrappers_raise_instead_of_falling_back(cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("epi", [3, 4, 5, 6, 7])
+@pytest.mark.parametrize("epi", [3, 4])
 @pytest.mark.parametrize("width", TILE_WIDTHS)
 def test_cuda_mlp_product_train_epilogues_match_plain(cuda_device, width, epi):
-    # the DropPath (3) and K2b (4-7) epilogues, ragged M, N and K as above
-    from avmoe_tpu_torch.kernels.mlp_block import gelu_grad
-
+    # the forward's train epilogues on the mma.sync kernel, DropPath (3) and
+    # fc1 keeping h1 (4); ragged M, N and K as above
     g = torch.Generator().manual_seed(10)
     M, N, K = 1000, 200, 392
     a = torch.randn(M, K, generator=g).bfloat16().to(cuda_device)
@@ -457,18 +458,74 @@ def test_cuda_mlp_product_train_epilogues_match_plain(cuda_device, width, epi):
     scale = torch.tensor([0.0, 1.25, 0.5, 1.0] * 2, device=cuda_device)   # 125 rows a frame
     rows = scale.repeat_interleave(M // 8)[:, None]
     out2 = torch.empty_like(resid) if epi == 4 else None
-    out = product_bf16(a, w, bias, epi=epi, tile=width, resid=None if epi in (4, 7) else resid,
-                       out2=out2, scale=scale if epi in (3, 5) else None)
+    out = product_bf16(a, w, bias, epi=epi, tile=width, resid=resid if epi == 3 else None,
+                       out2=out2, scale=scale if epi == 3 else None)
     torch.cuda.synchronize()
     v = a.float() @ w.float().t()
     ref = {3: rows * (v + bias) + resid.float(),
-           4: torch.nn.functional.gelu(v + bias, approximate="none"),
-           5: v * gelu_grad(resid.float()) * rows,
-           6: v + resid.float(),
-           7: v}[epi]
+           4: torch.nn.functional.gelu(v + bias, approximate="none")}[epi]
     _check(out, ref, torch.bfloat16)
     if epi == 4:
         _check(out2, v + bias, torch.bfloat16)
+
+
+# K2b's wgmma product: M, N and K ragged against the 128-row tile, every
+# width and the 64-deep step (M = 1440, N = 96, K = 96: one 64-deep step and
+# a half-empty one), and 16384 rows with N = 200, K = 392
+_WGMMA_CASES = [(1440, 96, 96), (16384, 200, 392)]
+_WGMMA_EPIS = [(EPI_GELU_GRAD, False), (EPI_GELU_GRAD, True), (EPI_ADD, False),
+               (EPI_PLAIN, False)]
+
+
+def _wgmma_operands(M, N, K, device, seed=11):
+    g = torch.Generator().manual_seed(seed)
+    a = torch.randn(M, K, generator=g).bfloat16().to(device)
+    bt = (torch.randn(N, K, generator=g) / K ** 0.5).bfloat16().to(device)
+    aux = torch.randn(M, N, generator=g).bfloat16().to(device)
+    # 8 frames: 180 or 2048 rows a frame, a dropped one among them
+    scale = torch.tensor([0.0, 1.25, 0.5, 1.0] * 2, device=device)
+    return a, bt, aux, scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("epi,scaled", _WGMMA_EPIS)
+@pytest.mark.parametrize("width", WGMMA_WIDTHS)
+@pytest.mark.parametrize("M,N,K", _WGMMA_CASES)
+def test_cuda_wgmma_product_matches_matmul(cuda_device, M, N, K, width, epi, scaled):
+    """The wgmma product and each K2b epilogue against torch.matmul in float32
+    on the same bf16 operands: one bf16 rounding of the output, so |d| <=
+    4e-3 |ref| + 1e-3; and two calls give the same bits."""
+    a, bt, aux, scale = _wgmma_operands(M, N, K, cuda_device)
+    kw = dict(epi=epi, tile=width, aux=None if epi == EPI_PLAIN else aux,
+              scale=scale if scaled else None)
+    out = product_wgmma(a, bt, **kw)
+    torch.cuda.synchronize()
+    v = a.float() @ bt.float().t()
+    rows = scale.repeat_interleave(M // 8)[:, None] if scaled else 1.0
+    ref = {EPI_GELU_GRAD: v * gelu_grad(aux.float()) * rows, EPI_ADD: v + aux.float(),
+           EPI_PLAIN: v}[epi]
+    d = (out.float() - ref).abs()
+    assert bool((d <= 4e-3 * ref.abs() + 1e-3).all()), f"max |d| {d.max().item():.3e}"
+    assert torch.equal(out, product_wgmma(a, bt, **kw))
+
+
+@pytest.mark.cuda
+def test_cuda_wgmma_product_raises_on_what_it_does_not_take(cuda_device):
+    a, bt, aux, _ = _wgmma_operands(256, 96, 96, cuda_device)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        product_wgmma(a, bt, epi=EPI_PLAIN, tile=64)          # no such width
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        product_wgmma(a[:, :90], bt[:, :90], epi=EPI_PLAIN, tile=96)   # K % 8
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        product_wgmma(a, bt, epi=EPI_ADD, tile=96)            # EPI_ADD without aux
+
+
+def test_mlp_block_bwd_cases_reach_every_wgmma_width():
+    # on an H100's 132 SMs the picks of the K2b cases above (d_h1: N = 4C,
+    # K = C; dx: N = C, K = 4C) take every width the wgmma kernel has
+    picked = {pick_wgmma_tile(f * L, n, k, 132) for f, L, C, _ in _MLP_BWD_CASES
+              for n, k in ((4 * C, C), (C, 4 * C))}
+    assert picked == set(WGMMA_WIDTHS)
 
 
 @pytest.mark.cuda
