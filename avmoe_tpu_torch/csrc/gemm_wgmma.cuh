@@ -21,9 +21,11 @@
 //     shared-memory descriptors, one commit group in flight (wait_group 1)
 //     while the next is issued, the stage released to the producer when its
 //     group retires;
-//   - the epilogue stages the float32 tile in the drained ring, then each
-//     thread takes 8-column chunks of a row: 16-byte loads of aux, epi, one
-//     rounding to bf16, 16-byte stores, masked at the ragged edges.
+//   - each consumer thread loads the aux of its epilogue chunks (8 columns
+//     of a row, 16 bytes) before the main loop, so that their latency hides
+//     under the products; the epilogue stages the float32 tile in the
+//     drained ring, then each thread takes its chunks: epi, one rounding to
+//     bf16, 16-byte stores, masked at the ragged edges.
 // Not yet: a persistent scheduler (one tile's epilogue under the next one's
 // loads), TMA multicast across a cluster, fusing two products on chip.
 #pragma once
@@ -43,8 +45,6 @@ namespace {
 using bf16 = __nv_bfloat16;
 
 constexpr int kBM = 128, kBK = 64, kConsumerThreads = 256;
-// consumers' float32 staging rows: BN + 8 floats keep a quad's float2
-// stores of eight rows on distinct banks
 template <int BN> struct Shape {
   static constexpr int CTAS = 1;   // CTAs an SM
   // the producer: a warpgroup whose registers setmaxnreg hands to the
@@ -55,6 +55,8 @@ template <int BN> struct Shape {
   static constexpr int STAGE_A = kBM * kBK * 2, STAGE_B = BN * kBK * 2;
   static constexpr int STAGE = STAGE_A + STAGE_B;   // a multiple of 1024 bytes
   static constexpr int STAGES = CTAS == 2 ? 3 : STAGE * 5 <= 200 * 1024 ? 5 : 4;
+  // the float32 tile's staging rows: BN + 8 floats keep a quad's float2
+  // stores of eight rows on distinct banks
   static constexpr int LDC = BN + 8;
   static constexpr size_t RING = (size_t)STAGES * STAGE;
   // ring, then 2 STAGES mbarriers; 1024 bytes of slack to align the ring
@@ -286,6 +288,23 @@ mlp_gemm_wgmma(const __grid_constant__ CUtensorMap map_a, const __grid_constant_
       asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(S::CONSUMER_REGS));
     const int wr = threadIdx.x / 128;   // this warpgroup's 64 rows of the tile
     const int t = threadIdx.x % 128;
+    // the epilogue's 8-column chunks of this thread (chunk i: row rl[i] of the
+    // warpgroup's 64, columns cl[i] to + 7); their aux is loaded before the
+    // main loop, 16 bytes a chunk, so that its latency hides under the
+    // products
+    constexpr int CHUNKS = BN / 8, ITERS = 64 * CHUNKS / 128;
+    uint4 ax[ITERS];
+    int rl[ITERS], cl[ITERS];
+#pragma unroll
+    for (int i = 0; i < ITERS; ++i) {
+      const int c = t + 128 * i;
+      rl[i] = c / CHUNKS;
+      cl[i] = (c % CHUNKS) * 8;
+      const int row = m0 + wr * 64 + rl[i];
+      ax[i] = make_uint4(0, 0, 0, 0);
+      if (Epi::kReadsAux && row < M && n0 + cl[i] < N)
+        ax[i] = __ldg(reinterpret_cast<const uint4*>(aux + (size_t)row * N + n0 + cl[i]));
+    }
     float d[BN / 2];
 #pragma unroll
     for (int i = 0; i < BN / 2; ++i) d[i] = 0.f;
@@ -306,7 +325,8 @@ mlp_gemm_wgmma(const __grid_constant__ CUtensorMap map_a, const __grid_constant_
     fence_regs(d);
 
     // epilogue: both consumers are done with the ring, which now stages the
-    // float32 tile
+    // float32 tile; then each thread takes its chunks: epi with the aux it
+    // holds, one rounding to bf16, a 16-byte store
     asm volatile("bar.sync 1, 256;\n" ::: "memory");
     float* cs = reinterpret_cast<float*>(ring) + wr * 64 * S::LDC;
     const int w = t / 32, g = (t % 32) / 4, q = t % 4;
@@ -317,43 +337,22 @@ mlp_gemm_wgmma(const __grid_constant__ CUtensorMap map_a, const __grid_constant_
       *reinterpret_cast<float2*>(p + 8 * S::LDC) = make_float2(d[4 * j + 2], d[4 * j + 3]);
     }
     asm volatile("bar.sync %0, 128;\n" ::"r"(2 + wr) : "memory");
-    constexpr int CHUNKS = BN / 8, ITERS = 64 * CHUNKS / 128, UNROLL = 4;
-    constexpr int U = ITERS % UNROLL == 0 ? UNROLL : 2;
-    static_assert(ITERS % U == 0, "chunks per thread");
-#pragma unroll 1
-    for (int i0 = 0; i0 < ITERS; i0 += U) {
-      // U chunks a thread: their aux loads in flight together
-      uint4 a[U];
-      int rl[U], cl[U];
-      bool ok[U];
 #pragma unroll
-      for (int u = 0; u < U; ++u) {
-        const int c = t + 128 * (i0 + u);
-        rl[u] = c / CHUNKS;
-        cl[u] = (c % CHUNKS) * 8;
-        ok[u] = m0 + wr * 64 + rl[u] < M && n0 + cl[u] < N;
-        a[u] = make_uint4(0, 0, 0, 0);
-        if (Epi::kReadsAux && ok[u])
-          a[u] = *reinterpret_cast<const uint4*>(aux + (size_t)(m0 + wr * 64 + rl[u]) * N + n0 +
-                                                 cl[u]);
+    for (int i = 0; i < ITERS; ++i) {
+      const int row = m0 + wr * 64 + rl[i];
+      if (row >= M || n0 + cl[i] >= N) continue;
+      const float4 lo = *reinterpret_cast<const float4*>(cs + rl[i] * S::LDC + cl[i]);
+      const float4 hi = *reinterpret_cast<const float4*>(cs + rl[i] * S::LDC + cl[i] + 4);
+      const float v[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
+      const __nv_bfloat162* ap = reinterpret_cast<const __nv_bfloat162*>(&ax[i]);
+      uint4 o;
+      unsigned* op = reinterpret_cast<unsigned*>(&o);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float2 x = __bfloat1622float2(ap[e]);
+        op[e] = pack2(epi(v[2 * e], x.x, row), epi(v[2 * e + 1], x.y, row));
       }
-#pragma unroll
-      for (int u = 0; u < U; ++u) {
-        if (!ok[u]) continue;
-        const int row = m0 + wr * 64 + rl[u];
-        const float4 lo = *reinterpret_cast<const float4*>(cs + rl[u] * S::LDC + cl[u]);
-        const float4 hi = *reinterpret_cast<const float4*>(cs + rl[u] * S::LDC + cl[u] + 4);
-        const float v[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
-        const __nv_bfloat162* ap = reinterpret_cast<const __nv_bfloat162*>(&a[u]);
-        uint4 o;
-        unsigned* op = reinterpret_cast<unsigned*>(&o);
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const float2 x = __bfloat1622float2(ap[e]);
-          op[e] = pack2(epi(v[2 * e], x.x, row), epi(v[2 * e + 1], x.y, row));
-        }
-        *reinterpret_cast<uint4*>(C + (size_t)row * N + n0 + cl[u]) = o;
-      }
+      *reinterpret_cast<uint4*>(C + (size_t)row * N + n0 + cl[i]) = o;
     }
   }
 }

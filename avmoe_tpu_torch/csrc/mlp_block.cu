@@ -629,13 +629,30 @@ int gemm(int dtype, int tile_n, const void* A, const void* B, const float* bias,
   return gemm_f32<EPI>(A, B, bias, resid, C, M, N, K, s, scale, rpf, out2);
 }
 
+// gelu'(x) = Phi(x) + x phi(x) for the bf16 products' epilogue, with Phi
+// from Abramowitz and Stegun 7.1.26 (|error| of erf <= 1.5e-7, far below the
+// output's bf16 rounding), which shares phi's exponential: one exp and one
+// reciprocal, no branch, where erff's two ranges diverge within a warp and
+// made the d_h1 product's epilogue 1 ms of K2b's step (PERF.md). float32 keeps
+// erff and expf.
+__device__ __forceinline__ float gelu_grad_fast(float x) {
+  const float e = __expf(-0.5f * x * x);
+  const float t = __fdividef(1.f, fmaf(0.3275911f * 0.70710678118654752f, fabsf(x), 1.f));
+  const float poly = fmaf(t, fmaf(t, fmaf(t, fmaf(t, 1.061405429f, -1.453152027f),
+                                          1.421413741f), -0.284496736f), 0.254829592f);
+  const float tail = 0.5f * t * poly * e;   // 1 - Phi(|x|)
+  return fmaf(x * 0.39894228040143268f, e, x >= 0.f ? 1.f - tail : tail);
+}
+
 // K2b's products: bf16 on the wgmma kernel (gemm_wgmma.cuh), float32 on
 // the CUDA cores
 template <int EPI> struct ProductEpi {
   static constexpr bool kReadsAux = EPI != kEpiPlain;
   EpiExtra<bf16> ex;
   __device__ __forceinline__ float operator()(float v, float aux, int row) const {
-    return finish<EPI>(v, aux, row, ex);
+    if (EPI != kEpiGeluGrad) return finish<EPI>(v, aux, row, ex);
+    v *= gelu_grad_fast(aux);
+    return ex.scale ? v * ex.scale[row / ex.rpf] : v;
   }
 };
 

@@ -1,11 +1,11 @@
 """Time K2b's bf16 wgmma product under design variants and ablations.
 
-    python3 tools/k2b_wgmma_variants.py      # repo root, one NVIDIA GPU
+    python3 tools/k2b_wgmma_variants.py [--only VARIANT ...]   # one NVIDIA GPU
 
 Builds copies of `avmoe_tpu_torch/csrc/mlp_block.cu` with its product
 header `gemm_wgmma.cuh`, each copy with one set of text edits of the
-header's constants (producer warps, CTAs an SM, ring stages, epilogue
-chunks in flight) or an ablation, in parallel, and times each copy's product alone
+header's constants (producer warps, CTAs an SM, ring stages) or an
+ablation, in parallel, and times each copy's product alone
 (`mlp_block_gemm_wgmma`, CUDA events) at every K2b product of the batch-4
 AVE train step (d_h1 = (g w2) gelu'(h1) [s], and dx = d_h1 w1 [+ dy]) at
 each output tile width, beside cuBLAS's bf16 product of the same shape.
@@ -19,8 +19,8 @@ float32 product. Builds go to avmoe_tpu_torch/_build/k2b_variants/.
 from __future__ import annotations
 
 import ctypes
+import math
 import re
-import shutil
 import subprocess
 import sys
 from pathlib import Path
@@ -38,26 +38,69 @@ from avmoe_tpu_torch.kernels import mlp_block as mb  # noqa: E402
 CTAS = "  static constexpr int CTAS = 1;   // CTAs an SM"
 WARPS = "  static constexpr int PRODUCER_WARPS = 4;"
 STAGES = "  static constexpr int STAGES = CTAS == 2 ? 3 : STAGE * 5 <= 200 * 1024 ? 5 : 4;"
-UNROLL = "ITERS = 64 * CHUNKS / 128, UNROLL = 4;"
 ONE_WARP = [(WARPS, WARPS.replace("= 4;", "= 1;"))]
 TWO_CTAS = ONE_WARP + [(CTAS, CTAS.replace("= 1;", "= BN <= 128 ? 2 : 1;"))]
-# variant -> [(text in gemm_wgmma.cuh, text of the variant)]. The ablation
-# computes wrong results: its epilogue reads no aux and stores nothing (the
-# store stays behind a test that fails at run time)
-ABLATIONS = ("no epilogue loads or stores",)
+# variant -> [([file,] text in it, text of the variant)], the file
+# gemm_wgmma.cuh unless named. The ablations compute wrong results: one
+# epilogue reads no aux and stores nothing (the load and store stay behind a
+# test that fails at run time), one multiplies by h1 instead of gelu'(h1)
+ABLATIONS = ("no epilogue loads or stores", "gelu'(h1) left out of the d_h1 epilogue")
 VARIANTS = {
     "kept kernel": [],
     "1 producer warp (no setmaxnreg)": ONE_WARP,
     "1 producer warp, 2 CTAs an SM at widths 128 and 96 (3 stages)": TWO_CTAS,
-    "1 producer warp, 2 CTAs an SM at 128 and 96, 8 chunks in flight": TWO_CTAS + [
-        (UNROLL, UNROLL.replace("UNROLL = 4", "UNROLL = 8"))],
     "4 stages at every width": [(STAGES, STAGES.replace("STAGE * 5 <= 200 * 1024 ? 5 : 4", "4"))],
     "3 stages at every width": [(STAGES, STAGES.replace("STAGE * 5 <= 200 * 1024 ? 5 : 4", "3"))],
+    "gelu'(h1) left out of the d_h1 epilogue": [
+        ("mlp_block.cu", "    v *= gelu_grad_fast(aux);", "    v *= aux;")],
     "no epilogue loads or stores": [
-        ("if (Epi::kReadsAux && ok[u])", "if (Epi::kReadsAux && ok[u] && M < 0)"),
-        ("        *reinterpret_cast<uint4*>(C + (size_t)row * N + n0 + cl[u]) = o;",
-         "        if (M < 0) *reinterpret_cast<uint4*>(C + (size_t)row * N + n0 + cl[u]) = o;")],
+        ("      if (Epi::kReadsAux && row < M && n0 + cl[i] < N)",
+         "      if (Epi::kReadsAux && row < M && n0 + cl[i] < N && M < 0)"),
+        ("      if (row >= M || n0 + cl[i] >= N) continue;",
+         "      if (row >= M || n0 + cl[i] >= N || M > 0) continue;")],
 }
+
+# the kept kernel with time stamps (%globaltimer) per CTA: entry, barriers
+# initialised, first stage landed, main loop retired, both consumers done,
+# epilogue done; and the SM it ran on
+TIMELINE = "kept kernel, time stamps"
+_STAMP = """
+__device__ unsigned long long g_stamp[4096 * 8];
+__device__ __forceinline__ void stamp(int i) {
+  const unsigned cta = blockIdx.x + gridDim.x * blockIdx.y;
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  if (cta >= 4096) return;
+  g_stamp[cta * 8 + i] = t;
+  if (i == 0) {
+    unsigned sm;
+    asm volatile("mov.u32 %0, %%smid;" : "=r"(sm));
+    g_stamp[cta * 8 + 7] = sm;
+  }
+}
+"""
+EPI_END = ("      *reinterpret_cast<uint4*>(C + (size_t)row * N + n0 + cl[i]) = o;\n"
+           "    }\n")
+VARIANTS[TIMELINE] = [
+    ("using bf16 = __nv_bfloat16;\n", "using bf16 = __nv_bfloat16;\n" + _STAMP),
+    ("  const int nk = (K + kBK - 1) / kBK;\n",
+     "  const int nk = (K + kBK - 1) / kBK;\n  if (threadIdx.x == 0) stamp(0);\n"),
+    ("  __syncthreads();\n", "  __syncthreads();\n  if (threadIdx.x == 0) stamp(1);\n"),
+    ("      mbar_wait(&full[s], (kt / STAGES) & 1);\n",
+     "      mbar_wait(&full[s], (kt / STAGES) & 1);\n"
+     "      if (kt == 0 && threadIdx.x == 0) stamp(2);\n"),
+    ("    fence_regs(d);\n", "    fence_regs(d);\n    if (threadIdx.x == 0) stamp(3);\n"),
+    ('    asm volatile("bar.sync 1, 256;\\n" ::: "memory");\n',
+     '    asm volatile("bar.sync 1, 256;\\n" ::: "memory");\n'
+     "    if (threadIdx.x == 0) stamp(4);\n"),
+    (EPI_END, EPI_END + "    if (threadIdx.x == 0) stamp(5);\n"),
+    ("}  // namespace avmoe\n", "}  // namespace avmoe\n" + """
+extern "C" int wg_stamps(void* host) {
+  return (int)cudaMemcpyFromSymbol(host, avmoe::wg::g_stamp, sizeof(avmoe::wg::g_stamp));
+}
+""")]
+ABLATIONS = ABLATIONS + (TIMELINE,)
+PHASES = ("init", "first stage", "main loop", "other consumer", "epilogue")
 
 _ENTRY = re.compile(r"Compiling entry function '(\S+)'")
 _REGS = re.compile(r"Used (\d+) registers")
@@ -83,19 +126,20 @@ def wgmma_report(log: str) -> str:
 
 
 def build(out_dir: Path):
-    src = (_build.CSRC_DIR / "gemm_wgmma.cuh").read_text()
+    files = ("gemm_wgmma.cuh", "mlp_block.cu")
     out_dir.mkdir(parents=True, exist_ok=True)
     procs = []
     for i, (name, edits) in enumerate(VARIANTS.items()):
-        text = src
-        for old, new in edits:
-            if text.count(old) != 1:
-                raise RuntimeError(f"{name}: {old!r} is not once in gemm_wgmma.cuh")
-            text = text.replace(old, new)
+        texts = {f: (_build.CSRC_DIR / f).read_text() for f in files}
+        for edit in edits:
+            f, old, new = edit if len(edit) == 3 else ("gemm_wgmma.cuh", *edit)
+            if texts[f].count(old) != 1:
+                raise RuntimeError(f"{name}: {old!r} is not once in {f}")
+            texts[f] = texts[f].replace(old, new)
         vdir = out_dir / f"v{i}"
         vdir.mkdir(exist_ok=True)
-        shutil.copy(_build.CSRC_DIR / "mlp_block.cu", vdir / "mlp_block.cu")
-        (vdir / "gemm_wgmma.cuh").write_text(text)
+        for f, text in texts.items():
+            (vdir / f).write_text(text)
         so = vdir / "libv.so"
         procs.append((name, so, subprocess.Popen(
             [_build.nvcc_path(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC_DIR), "-o", str(so),
@@ -126,6 +170,36 @@ def product(lib, a, bt, epi, width, aux=None, scale=None):
     return out
 
 
+def timeline(lib, label, M, N, K, width, run):
+    """Per-CTA phases of one call of the time-stamped kernel: medians over
+    the CTAs, the busiest SM's CTAs, the median gap on an SM between one
+    CTA's end and the next one's start, and the call's span."""
+    import numpy as np
+
+    run()
+    torch.cuda.synchronize()
+    buf = (ctypes.c_ulonglong * (4096 * 8))()
+    err = lib.wg_stamps(ctypes.byref(buf))
+    if err:
+        raise RuntimeError(f"stamps: CUDA error {err}")
+    tiles = min(4096, math.ceil(M / 128) * math.ceil(N / width))
+    a = np.frombuffer(buf, dtype=np.uint64).reshape(4096, 8)[:tiles].astype(np.int64)
+    us = lambda x: float(np.median(x)) / 1e3
+    parts = [us(a[:, i + 1] - a[:, i]) for i in range(5)]
+    gaps, per_sm = [], {}
+    for row in a:
+        per_sm.setdefault(int(row[7]), []).append(row)
+    for rows in per_sm.values():
+        rows.sort(key=lambda r: r[0])
+        gaps += [int(b[0] - e[5]) for e, b in zip(rows, rows[1:])]
+    span = (a[:, 5].max() - a[:, 0].min()) / 1e3
+    print(f"[timeline] {label} M={M} N={N} K={K} width {width}: {tiles} CTAs on "
+          f"{len(per_sm)} SMs (busiest {max(len(r) for r in per_sm.values())}); median per CTA, "
+          f"us: " + ", ".join(f"{p} {t:.2f}" for p, t in zip(PHASES, parts))
+          + f"; median gap between CTAs on an SM {us(gaps) if gaps else 0:.2f} us; span "
+          f"{span:.2f} us", flush=True)
+
+
 def products():
     """(label, M, N, K, epi, scaled, launches per train step) of every K2b product."""
     out = []
@@ -137,6 +211,14 @@ def products():
 
 
 def main():
+    import argparse
+
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--only", action="append", choices=list(VARIANTS),
+                    help="build and time this variant only (repeatable)")
+    args = ap.parse_args()
+    for name in set(VARIANTS) - set(args.only or VARIANTS):
+        del VARIANTS[name]
     cs.phase_card()
     libs = build(_build.BUILD_DIR / "k2b_variants")
     sms = mb.sm_count(torch.cuda.current_device())
@@ -163,6 +245,20 @@ def main():
         except (RuntimeError, AssertionError) as e:
             print(f"[variant] {name}: left out: {e}", flush=True)
             del libs[name]
+
+    if TIMELINE in libs:
+        lib = libs[TIMELINE][0]
+        lib.wg_stamps.argtypes = [ctypes.c_void_p]
+        for label, M, N, K, epi, scaled, calls in products():
+            a = torch.randn(M, K, device="cuda", generator=gen).bfloat16()
+            bt = (torch.randn(N, K, device="cuda", generator=gen) / K ** 0.5).bfloat16()
+            aux = None if epi == mb.EPI_PLAIN else torch.randn(M, N, device="cuda",
+                                                               generator=gen).bfloat16()
+            width = mb.pick_wgmma_tile(M, N, K, sms)
+            timeline(lib, label, M, N, K, width, lambda: product(
+                lib, a, bt, epi, width, aux, scale if scaled else None))
+            del a, bt, aux
+        del libs[TIMELINE]
 
     picked = {name: 0.0 for name in libs}
     best = {name: 0.0 for name in libs}
