@@ -6,28 +6,32 @@
 //
 // What bounds such a product on the H100 is the tensor cores' rate (989
 // TFLOP/s bf16), which only wgmma reaches: mma.sync tops out near 360
-// (PERF.md, PR 5). The design, after the hopper-kernels guide's section 1:
-//   - a CTA owns a 128 x BN output tile (BN a multiple of 8 up to 256, picked
-//     per product by the wrapper); one CTA an SM, grid N-tiles fastest, so
-//     neighbouring CTAs share their A rows in L2;
+// (PERF.md, PR 5); and beside it, for K2b's d_h1 product, the epilogue's
+// bytes (h1 read, d_h1 written: as many as A and B's) and its exp. The
+// design, after the hopper-kernels guide's section 1:
+//   - persistent: one CTA an SM walks 128 x BN output tiles (BN of 128, 192
+//     or 256, picked per product by the wrapper), N-tiles fastest, so CTAs
+//     at work together share their A rows in L2;
 //   - K walks in 64-deep steps (one 128-byte swizzle row of bf16) through a
-//     ring of STAGES shared-memory stages; each stage's A (128 x 64) and B
-//     (BN x 64) tiles arrive by two 2-D TMA copies with
-//     CU_TENSOR_MAP_SWIZZLE_128B, whose zero fill pads ragged M, N and K;
-//     a full and an empty mbarrier per stage;
-//   - warpgroups 0 and 1 are the consumers, each owning 64 rows, warpgroup
-//     2 the producer (one thread issues the copies; setmaxnreg gives its
-//     registers to the consumers): per stage four wgmma.mma_async m64nBNk16 from
-//     shared-memory descriptors, one commit group in flight (wait_group 1)
-//     while the next is issued, the stage released to the producer when its
-//     group retires;
-//   - each consumer thread loads the aux of its epilogue chunks (8 columns
-//     of a row, 16 bytes) before the main loop, so that their latency hides
-//     under the products; the epilogue stages the float32 tile in the
-//     drained ring, then each thread takes its chunks: epi, one rounding to
-//     bf16, 16-byte stores, masked at the ragged edges.
-// Not yet: a persistent scheduler (one tile's epilogue under the next one's
-// loads), TMA multicast across a cluster, fusing two products on chip.
+//     ring of shared-memory stages; each stage's A (128 x 64) and B (BN x 64)
+//     tiles arrive by two 2-D TMA copies with CU_TENSOR_MAP_SWIZZLE_128B,
+//     whose zero fill pads ragged M, N and K; a full and an empty mbarrier a
+//     stage. One producer thread keeps the ring full across tiles, so the
+//     next tile's first stages land during this tile's epilogue;
+//   - warpgroups 0 and 1 are the consumers, each owning 64 rows of a tile
+//     (setmaxnreg gives them the producer warpgroup's registers): per stage
+//     four wgmma.mma_async m64nBNk16 from shared-memory descriptors, one
+//     commit group in flight (wait_group 1) while the next is issued, the
+//     stage released when its group retires;
+//   - the epilogue works in place in a tile-sized shared buffer (128 x 64
+//     boxes, 128-byte swizzled): a second producer thread loads a tile's aux
+//     into it by TMA while the tile's products run, each consumer thread
+//     reads its accumulator elements' aux there, applies epi, rounds to bf16
+//     once and writes the result back, and that thread stores the tile by
+//     TMA (which clips the ragged edges) while the consumers go on to the
+//     next tile.
+// Not yet: TMA multicast across a cluster, two consumer tiles in ping-pong
+// (one's epilogue under the other's products), fusing two products on chip.
 #pragma once
 
 #include <cuda.h>
@@ -44,25 +48,22 @@ namespace {
 
 using bf16 = __nv_bfloat16;
 
-constexpr int kBM = 128, kBK = 64, kConsumerThreads = 256;
+constexpr int kBM = 128, kBK = 64, kConsumerThreads = 256, kThreads = 384;
+// the epilogue's tile (aux in, C out) as boxes of 128 rows x 64 columns, one
+// 128-byte swizzle row of bf16 each
+constexpr int kBoxN = 64, kBox = kBM * kBoxN * 2;
 template <int BN> struct Shape {
-  static constexpr int CTAS = 1;   // CTAs an SM
-  // the producer: a warpgroup whose registers setmaxnreg hands to the
-  // consumers (4 warps), or one warp
-  static constexpr int PRODUCER_WARPS = 4;
-  static constexpr int THREADS = kConsumerThreads + 32 * PRODUCER_WARPS;
-  static constexpr int PRODUCER_REGS = 40, CONSUMER_REGS = 232;
+  static_assert(BN % kBoxN == 0 && BN <= 256, "tile widths: multiples of 64 up to 256");
   static constexpr int STAGE_A = kBM * kBK * 2, STAGE_B = BN * kBK * 2;
   static constexpr int STAGE = STAGE_A + STAGE_B;   // a multiple of 1024 bytes
-  static constexpr int STAGES = CTAS == 2 ? 3 : STAGE * 5 <= 200 * 1024 ? 5 : 4;
-  // the float32 tile's staging rows: BN + 8 floats keep a quad's float2
-  // stores of eight rows on distinct banks
-  static constexpr int LDC = BN + 8;
+  static constexpr int IO = kBM * BN * 2;             // the epilogue's tile
+  // as many stages as fit beside it in 208 KB, at most 5
+  static constexpr int STAGES = (208 * 1024 - IO) / STAGE < 5 ? (208 * 1024 - IO) / STAGE : 5;
   static constexpr size_t RING = (size_t)STAGES * STAGE;
-  // ring, then 2 STAGES mbarriers; 1024 bytes of slack to align the ring
-  static constexpr size_t SMEM = RING + 2 * STAGES * 8 + 1024;
-  static_assert((size_t)kBM * LDC * 4 <= RING, "the staged tile must fit the ring");
-  static_assert(BN % 8 == 0 && BN <= 256 && STAGE % 1024 == 0, "wgmma N / swizzle alignment");
+  // ring, io tile, then 2 STAGES + 2 mbarriers; 1024 bytes of slack to
+  // align the ring
+  static constexpr size_t SMEM = RING + IO + (2 * STAGES + 2) * 8 + 1024;
+  static_assert(STAGES >= 3 && SMEM <= 227 * 1024, "shared memory");
 };
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -106,6 +107,31 @@ __device__ __forceinline__ void tma_load_2d(void* smem, const CUtensorMap* map, 
       : "memory");
 }
 
+// the (c0, c1) box of `map` from smem, in this thread's bulk group; the box's
+// part outside the tensor is not written
+__device__ __forceinline__ void tma_store_2d(const CUtensorMap* map, const void* smem, int c0,
+                                             int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(smem)), "r"(c0), "r"(c1)
+      : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+// wait until this thread's bulk stores have read their shared memory
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+// generic-proxy writes to shared memory, made visible to the TMA (async proxy)
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
 // --- wgmma ------------------------------------------------------------------------
 // descriptor of a K-major operand tile whose 8-row groups of 128-byte rows
 // (128-byte swizzle, as TMA wrote them) lie 1024 bytes apart
@@ -131,25 +157,6 @@ template <int R> __device__ __forceinline__ void fence_regs(float (&d)[R]) {
 
 // d (64 x N, the m64nNk16 accumulator fragment) += A (64 x 16) B (N x 16)^T
 template <int N> __device__ void wgmma_bf16(float (&d)[N / 2], uint64_t da, uint64_t db);
-
-template <>
-__device__ __forceinline__ void wgmma_bf16<96>(float (&d)[48], uint64_t da, uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %50, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47"
-      "}, %48, %49, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
-        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
-        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
-        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
-      : "l"(da), "l"(db), "r"(1));
-}
 
 template <>
 __device__ __forceinline__ void wgmma_bf16<128>(float (&d)[64], uint64_t da, uint64_t db) {
@@ -244,115 +251,305 @@ __device__ __forceinline__ unsigned pack2(float lo, float hi) {
   return *reinterpret_cast<const unsigned*>(&h);
 }
 
-// Epi: a functor with `static constexpr bool kReadsAux` and
-// `__device__ float operator()(float acc, float aux, int row) const`
-// (aux is 0 when kReadsAux is false)
+// Epi: a functor with `static constexpr bool kReadsAux`, `__device__ float
+// pre(float aux) const`, `float row_factor(int row) const` (read once a row) and
+// `float operator()(float acc, float pre, float row_factor) const`: C =
+// epi(acc, pre(aux), row_factor(row)), aux 0 when kReadsAux is false; rows
+// past M are computed and not stored. Persistent: CTA c takes the tiles c,
+// c + gridDim.x, ..., tile t at N-tile t % ntn and M-tile t / ntn.
 template <int BN, class Epi>
-__global__ void __launch_bounds__(Shape<BN>::THREADS, Shape<BN>::CTAS)
+__global__ void __launch_bounds__(kThreads, 1)
 mlp_gemm_wgmma(const __grid_constant__ CUtensorMap map_a, const __grid_constant__ CUtensorMap map_b,
-               const bf16* __restrict__ aux, bf16* __restrict__ C, int M, int N, int K, Epi epi) {
+               const __grid_constant__ CUtensorMap map_aux,
+               const __grid_constant__ CUtensorMap map_c, int M, int N, int K, Epi epi) {
   using S = Shape<BN>;
-  constexpr int STAGES = S::STAGES;
+  constexpr int STAGES = S::STAGES, BOXES = BN / kBoxN;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* ring = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
-  uint64_t* full = reinterpret_cast<uint64_t*>(ring + S::RING);
+  unsigned char* io = ring + S::RING;   // the epilogue's tile: aux in, C out, in place
+  uint64_t* full = reinterpret_cast<uint64_t*>(io + S::IO);
   uint64_t* empty = full + STAGES;
-  const int n0 = blockIdx.x * BN, m0 = blockIdx.y * kBM;
+  uint64_t* aux_full = empty + STAGES;   // io holds the tile's aux
+  uint64_t* out_ready = aux_full + 1;    // io holds the tile's output
+  const int ntn = (N + BN - 1) / BN;
+  const int tiles = ntn * ((M + kBM - 1) / kBM);
   const int nk = (K + kBK - 1) / kBK;
   if (threadIdx.x == 0) {
     for (int s = 0; s < STAGES; ++s) {
       mbar_init(&full[s], 1);
       mbar_init(&empty[s], 2);   // one arrival per consumer warpgroup
     }
+    mbar_init(aux_full, 1);
+    mbar_init(out_ready, kConsumerThreads);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
 
   if (threadIdx.x >= kConsumerThreads) {
-    // producer: one thread keeps the ring full
-    if constexpr (S::PRODUCER_WARPS == 4)
-      asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(S::PRODUCER_REGS));
+    // producer warpgroup: its registers go to the consumers
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
     if (threadIdx.x == kConsumerThreads) {
-      for (int kt = 0; kt < nk; ++kt) {
-        const int s = kt % STAGES;
-        if (kt >= STAGES) mbar_wait(&empty[s], (kt / STAGES - 1) & 1);
-        unsigned char* st = ring + (size_t)s * S::STAGE;
-        mbar_expect_tx(&full[s], S::STAGE);
-        tma_load_2d(st, &map_a, &full[s], kt * kBK, m0);
-        tma_load_2d(st + S::STAGE_A, &map_b, &full[s], kt * kBK, n0);
+      // one thread keeps the ring full, across tiles
+      int it = 0;
+      for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+        const int n0 = (tile % ntn) * BN, m0 = (tile / ntn) * kBM;
+        for (int kt = 0; kt < nk; ++kt, ++it) {
+          const int s = it % STAGES;
+          if (it >= STAGES) mbar_wait(&empty[s], (it / STAGES - 1) & 1);
+          unsigned char* st = ring + (size_t)s * S::STAGE;
+          mbar_expect_tx(&full[s], S::STAGE);
+          tma_load_2d(st, &map_a, &full[s], kt * kBK, m0);
+          tma_load_2d(st + S::STAGE_A, &map_b, &full[s], kt * kBK, n0);
+        }
       }
+    } else if (threadIdx.x == kConsumerThreads + 32) {
+      // one thread moves the epilogue's tiles: a tile's output out by TMA
+      // once the consumers have written it, then the next tile's aux in
+      int li = 0, prev_n0 = 0, prev_m0 = 0;
+      for (int tile = blockIdx.x;; tile += gridDim.x, ++li) {
+        if (li > 0) {
+          mbar_wait(out_ready, (li - 1) & 1);
+          for (int b = 0; b < BOXES && prev_n0 + b * kBoxN < N; ++b)
+            tma_store_2d(&map_c, io + b * kBox, prev_n0 + b * kBoxN, prev_m0);
+          bulk_commit();
+          bulk_wait_read();
+        }
+        if (tile >= tiles) break;
+        const int n0 = (tile % ntn) * BN, m0 = (tile / ntn) * kBM;
+        if (Epi::kReadsAux) {
+          const int boxes = min(BOXES, (N - n0 + kBoxN - 1) / kBoxN);
+          mbar_expect_tx(aux_full, boxes * kBox);
+          for (int b = 0; b < boxes; ++b)
+            tma_load_2d(io + b * kBox, &map_aux, aux_full, n0 + b * kBoxN, m0);
+        } else {
+          mbar_arrive(aux_full);
+        }
+        prev_n0 = n0;
+        prev_m0 = m0;
+      }
+      bulk_wait();
     }
   } else {
-    if constexpr (S::PRODUCER_WARPS == 4)
-      asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(S::CONSUMER_REGS));
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
     const int wr = threadIdx.x / 128;   // this warpgroup's 64 rows of the tile
-    const int t = threadIdx.x % 128;
-    // the epilogue's 8-column chunks of this thread (chunk i: row rl[i] of the
-    // warpgroup's 64, columns cl[i] to + 7); their aux is loaded before the
-    // main loop, 16 bytes a chunk, so that its latency hides under the
-    // products
-    constexpr int CHUNKS = BN / 8, ITERS = 64 * CHUNKS / 128;
-    uint4 ax[ITERS];
-    int rl[ITERS], cl[ITERS];
+    const int t = threadIdx.x % 128, w = t / 32, g = (t % 32) / 4, q = t % 4;
+    int it = 0, li = 0;
+    for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x, ++li) {
+      const int m0 = (tile / ntn) * kBM;
+      float d[BN / 2];
 #pragma unroll
-    for (int i = 0; i < ITERS; ++i) {
-      const int c = t + 128 * i;
-      rl[i] = c / CHUNKS;
-      cl[i] = (c % CHUNKS) * 8;
-      const int row = m0 + wr * 64 + rl[i];
-      ax[i] = make_uint4(0, 0, 0, 0);
-      if (Epi::kReadsAux && row < M && n0 + cl[i] < N)
-        ax[i] = __ldg(reinterpret_cast<const uint4*>(aux + (size_t)row * N + n0 + cl[i]));
-    }
-    float d[BN / 2];
+      for (int i = 0; i < BN / 2; ++i) d[i] = 0.f;
+      // this thread's fragment elements (rows 16 w + g and + 8 of the
+      // warpgroup's 64, columns 8 j + 2 q and + 1): each pair's place in io,
+      // 128-byte-swizzled in its 64-column box
+      unsigned* const p0 = reinterpret_cast<unsigned*>(io + (wr * 64 + 16 * w + g) * 128 + 4 * q);
+      auto at = [&](int j, int h) -> unsigned& {
+        return p0[((j / 8) * kBox + h * 8 * 128 + (((j % 8) ^ g) << 4)) / 4];
+      };
+      for (int kt = 0; kt < nk; ++kt, ++it) {
+        const int s = it % STAGES;
+        mbar_wait(&full[s], (it / STAGES) & 1);
+        const unsigned char* st = ring + (size_t)s * S::STAGE;
+        const uint64_t da = smem_desc(st + wr * 64 * kBK * 2), db = smem_desc(st + S::STAGE_A);
+        wgmma_fence();
 #pragma unroll
-    for (int i = 0; i < BN / 2; ++i) d[i] = 0.f;
-    for (int kt = 0; kt < nk; ++kt) {
-      const int s = kt % STAGES;
-      mbar_wait(&full[s], (kt / STAGES) & 1);
-      const unsigned char* st = ring + (size_t)s * S::STAGE;
-      const uint64_t da = smem_desc(st + wr * 64 * kBK * 2), db = smem_desc(st + S::STAGE_A);
-      wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < kBK / 16; ++kk) wgmma_bf16<BN>(d, da + 2 * kk, db + 2 * kk);
-      wgmma_commit();
-      // the group of step kt - 1 has retired: its stage goes back
-      wgmma_wait<1>();
-      if (kt > 0 && t == 0) mbar_arrive(&empty[(kt - 1) % STAGES]);
-    }
-    wgmma_wait<0>();
-    fence_regs(d);
-
-    // epilogue: both consumers are done with the ring, which now stages the
-    // float32 tile; then each thread takes its chunks: epi with the aux it
-    // holds, one rounding to bf16, a 16-byte store
-    asm volatile("bar.sync 1, 256;\n" ::: "memory");
-    float* cs = reinterpret_cast<float*>(ring) + wr * 64 * S::LDC;
-    const int w = t / 32, g = (t % 32) / 4, q = t % 4;
-#pragma unroll
-    for (int j = 0; j < BN / 8; ++j) {
-      float* p = cs + (16 * w + g) * S::LDC + 8 * j + 2 * q;
-      *reinterpret_cast<float2*>(p) = make_float2(d[4 * j], d[4 * j + 1]);
-      *reinterpret_cast<float2*>(p + 8 * S::LDC) = make_float2(d[4 * j + 2], d[4 * j + 3]);
-    }
-    asm volatile("bar.sync %0, 128;\n" ::"r"(2 + wr) : "memory");
-#pragma unroll
-    for (int i = 0; i < ITERS; ++i) {
-      const int row = m0 + wr * 64 + rl[i];
-      if (row >= M || n0 + cl[i] >= N) continue;
-      const float4 lo = *reinterpret_cast<const float4*>(cs + rl[i] * S::LDC + cl[i]);
-      const float4 hi = *reinterpret_cast<const float4*>(cs + rl[i] * S::LDC + cl[i] + 4);
-      const float v[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
-      const __nv_bfloat162* ap = reinterpret_cast<const __nv_bfloat162*>(&ax[i]);
-      uint4 o;
-      unsigned* op = reinterpret_cast<unsigned*>(&o);
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float2 x = __bfloat1622float2(ap[e]);
-        op[e] = pack2(epi(v[2 * e], x.x, row), epi(v[2 * e + 1], x.y, row));
+        for (int kk = 0; kk < kBK / 16; ++kk) wgmma_bf16<BN>(d, da + 2 * kk, db + 2 * kk);
+        wgmma_commit();
+        // the group of the step before has retired: its stage goes back
+        wgmma_wait<1>();
+        if (kt > 0 && t == 0) mbar_arrive(&empty[(it - 1) % STAGES]);
       }
-      *reinterpret_cast<uint4*>(C + (size_t)row * N + n0 + cl[i]) = o;
+      wgmma_wait<0>();
+      fence_regs(d);
+      if (t == 0) mbar_arrive(&empty[(it - 1) % STAGES]);
+
+      // epilogue, in place in io: all loads first, then epi, then all
+      // stores, so that the elements' chains overlap (a store between them
+      // would order the next load after it); each output rounded to bf16 once
+      mbar_wait(aux_full, li & 1);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {   // one of the thread's two rows at a time
+        const int row = m0 + wr * 64 + 16 * w + g + 8 * h;
+        const float rf = row < M ? epi.row_factor(row) : 0.f;
+        unsigned ax[BN / 8];
+#pragma unroll
+        for (int j = 0; j < BN / 8; ++j) ax[j] = Epi::kReadsAux ? at(j, h) : 0u;
+#pragma unroll
+        for (int j = 0; j < BN / 8; ++j) {
+          const float2 x = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&ax[j]));
+          ax[j] = pack2(epi(d[4 * j + 2 * h], epi.pre(x.x), rf),
+                        epi(d[4 * j + 2 * h + 1], epi.pre(x.y), rf));
+        }
+#pragma unroll
+        for (int j = 0; j < BN / 8; ++j) at(j, h) = ax[j];
+      }
+      fence_async_smem();
+      mbar_arrive(out_ready);
+    }
+  }
+}
+
+// Ping-pong (the d_h1 product, whose epilogue computes gelu'(h1) for every
+// output): each consumer warpgroup owns whole 128 x 128 tiles, the CTA's
+// tiles alternating between the two, and the two take turns at the tensor
+// cores (a turn mbarrier each), so that one's epilogue runs under the other's
+// products. Two epilogue tiles in io, one a warpgroup; the ring, the
+// producer and the io thread as in mlp_gemm_wgmma.
+constexpr int kPingBN = 128;
+struct PingShape {
+  static constexpr int STAGE_A = kBM * kBK * 2, STAGE_B = kPingBN * kBK * 2;
+  static constexpr int STAGE = STAGE_A + STAGE_B, STAGES = 4;
+  static constexpr int IO = kBM * kPingBN * 2;
+  static constexpr size_t RING = (size_t)STAGES * STAGE;
+  static constexpr size_t SMEM = RING + 2 * IO + (2 * STAGES + 6) * 8 + 1024;
+  static_assert(SMEM <= 227 * 1024, "shared memory");
+};
+
+template <class Epi>
+__global__ void __launch_bounds__(kThreads, 1)
+mlp_gemm_wgmma_pingpong(const __grid_constant__ CUtensorMap map_a,
+                        const __grid_constant__ CUtensorMap map_b,
+                        const __grid_constant__ CUtensorMap map_aux,
+                        const __grid_constant__ CUtensorMap map_c, int M, int N, int K, Epi epi) {
+  using S = PingShape;
+  constexpr int STAGES = S::STAGES, BOXES = kPingBN / kBoxN;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* ring = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  unsigned char* io = ring + S::RING;   // two epilogue tiles: warpgroup b's at io + b IO
+  uint64_t* full = reinterpret_cast<uint64_t*>(io + 2 * S::IO);
+  uint64_t* empty = full + STAGES;
+  uint64_t* aux_full = empty + STAGES;   // [2]
+  uint64_t* out_ready = aux_full + 2;    // [2]
+  uint64_t* turn = out_ready + 2;        // [2]: warpgroup b may issue its products
+  const int ntn = (N + kPingBN - 1) / kPingBN;
+  const int tiles = ntn * ((M + kBM - 1) / kBM);
+  const int mine = (tiles - (int)blockIdx.x + (int)gridDim.x - 1) / (int)gridDim.x;
+  const int nk = (K + kBK - 1) / kBK;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 1);   // the owning warpgroup's arrival
+    }
+    for (int b = 0; b < 2; ++b) {
+      mbar_init(&aux_full[b], 1);
+      mbar_init(&out_ready[b], 128);
+      mbar_init(&turn[b], 128);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= kConsumerThreads) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (threadIdx.x == kConsumerThreads) {
+      // the ring, across the CTA's tiles in order (tile j: stages j nk on)
+      int it = 0;
+      for (int j = 0; j < mine; ++j) {
+        const int tile = blockIdx.x + j * gridDim.x;
+        const int n0 = (tile % ntn) * kPingBN, m0 = (tile / ntn) * kBM;
+        for (int kt = 0; kt < nk; ++kt, ++it) {
+          const int s = it % STAGES;
+          if (it >= STAGES) mbar_wait(&empty[s], (it / STAGES - 1) & 1);
+          unsigned char* st = ring + (size_t)s * S::STAGE;
+          mbar_expect_tx(&full[s], S::STAGE);
+          tma_load_2d(st, &map_a, &full[s], kt * kBK, m0);
+          tma_load_2d(st + S::STAGE_A, &map_b, &full[s], kt * kBK, n0);
+        }
+      }
+    } else if (threadIdx.x == kConsumerThreads + 32) {
+      // tile j's output out of io[j % 2] by TMA once written, then tile
+      // j + 2's aux in
+      for (int j = 0; j < mine + 2; ++j) {
+        const int b = j & 1;
+        if (j >= 2) {
+          const int tile = blockIdx.x + (j - 2) * gridDim.x;
+          const int n0 = (tile % ntn) * kPingBN, m0 = (tile / ntn) * kBM;
+          mbar_wait(&out_ready[b], (j / 2 - 1) & 1);
+          for (int x = 0; x < BOXES && n0 + x * kBoxN < N; ++x)
+            tma_store_2d(&map_c, io + b * S::IO + x * kBox, n0 + x * kBoxN, m0);
+          bulk_commit();
+          bulk_wait_read();
+        }
+        if (j >= mine) continue;
+        const int tile = blockIdx.x + j * gridDim.x;
+        const int n0 = (tile % ntn) * kPingBN, m0 = (tile / ntn) * kBM;
+        if (Epi::kReadsAux) {
+          const int boxes = min(BOXES, (N - n0 + kBoxN - 1) / kBoxN);
+          mbar_expect_tx(&aux_full[b], boxes * kBox);
+          for (int x = 0; x < boxes; ++x)
+            tma_load_2d(io + b * S::IO + x * kBox, &map_aux, &aux_full[b], n0 + x * kBoxN, m0);
+        } else {
+          mbar_arrive(&aux_full[b]);
+        }
+      }
+      bulk_wait();
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    const int wr = threadIdx.x / 128;   // this warpgroup's tiles: j = wr, wr + 2, ...
+    const int t = threadIdx.x % 128, w = t / 32, g = (t % 32) / 4, q = t % 4;
+    unsigned char* const my_io = io + wr * S::IO;
+    for (int k = 0; 2 * k + wr < mine; ++k) {
+      const int j = 2 * k + wr, tile = blockIdx.x + j * gridDim.x;
+      const int m0 = (tile / ntn) * kBM;
+      float d0[kPingBN / 2], d1[kPingBN / 2];   // rows 0-63 and 64-127
+#pragma unroll
+      for (int i = 0; i < kPingBN / 2; ++i) d0[i] = d1[i] = 0.f;
+      // this warpgroup's turn at the tensor cores (warpgroup 0's first is free)
+      mbar_wait(&turn[wr], (k & 1) ^ (wr == 0 ? 1 : 0));
+      int it = j * nk;
+      for (int kt = 0; kt < nk; ++kt, ++it) {
+        const int s = it % STAGES;
+        mbar_wait(&full[s], (it / STAGES) & 1);
+        const unsigned char* st = ring + (size_t)s * S::STAGE;
+        const uint64_t da = smem_desc(st), db = smem_desc(st + S::STAGE_A);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < kBK / 16; ++kk) {
+          wgmma_bf16<kPingBN>(d0, da + 2 * kk, db + 2 * kk);
+          wgmma_bf16<kPingBN>(d1, da + (64 * kBK * 2 >> 4) + 2 * kk, db + 2 * kk);
+        }
+        wgmma_commit();
+        wgmma_wait<1>();
+        if (kt > 0 && t == 0) mbar_arrive(&empty[(it - 1) % STAGES]);
+      }
+      wgmma_wait<0>();
+      fence_regs(d0);
+      fence_regs(d1);
+      if (t == 0) mbar_arrive(&empty[(it - 1) % STAGES]);
+      mbar_arrive(&turn[wr ^ 1]);   // the other warpgroup's products, under this epilogue
+
+      mbar_wait(&aux_full[wr], k & 1);
+      unsigned* const p0 = reinterpret_cast<unsigned*>(my_io + (16 * w + g) * 128 + 4 * q);
+      auto at = [&](int jc, int tr) -> unsigned& {
+        return p0[((jc / 8) * kBox + tr * 128 + (((jc % 8) ^ g) << 4)) / 4];
+      };
+      // the thread's rows 64 mb + 16 w + g + 8 h of the tile, a row at a time
+      auto rows = [&](const float (&d)[kPingBN / 2], int mb) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int tr = 64 * mb + 8 * h, row = m0 + 16 * w + g + tr;
+          const float rf = row < M ? epi.row_factor(row) : 0.f;
+          unsigned ax[kPingBN / 8];
+#pragma unroll
+          for (int jc = 0; jc < kPingBN / 8; ++jc) ax[jc] = Epi::kReadsAux ? at(jc, tr) : 0u;
+#pragma unroll
+          for (int jc = 0; jc < kPingBN / 8; ++jc) {
+            const float2 x =
+                __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&ax[jc]));
+            ax[jc] = pack2(epi(d[4 * jc + 2 * h], epi.pre(x.x), rf),
+                           epi(d[4 * jc + 2 * h + 1], epi.pre(x.y), rf));
+          }
+#pragma unroll
+          for (int jc = 0; jc < kPingBN / 8; ++jc) at(jc, tr) = ax[jc];
+        }
+      };
+      rows(d0, 0);
+      rows(d1, 1);
+      fence_async_smem();
+      mbar_arrive(&out_ready[wr]);
     }
   }
 }
@@ -365,7 +562,7 @@ typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
 
 // cuTensorMapEncodeTiled through the runtime's driver entry point, so the
 // library needs no link against the driver
-inline EncodeTiledFn encode_tiled() {
+EncodeTiledFn encode_tiled() {
   static EncodeTiledFn fn = nullptr;
   if (fn == nullptr) {
     void* p = nullptr;
@@ -383,12 +580,13 @@ inline EncodeTiledFn encode_tiled() {
   return fn;
 }
 
-// the tensor map of a row-major (rows, K) bf16 matrix read in (box_rows, 64) boxes
-inline bool make_map(CUtensorMap* map, const void* base, int rows, int K, int box_rows) {
+// the tensor map of a row-major (rows, cols) bf16 matrix in (box_rows, 64)
+// boxes, 128-byte swizzled
+bool make_map(CUtensorMap* map, const void* base, int rows, int cols, int box_rows) {
   const EncodeTiledFn encode = encode_tiled();
   if (encode == nullptr) return false;
-  const cuuint64_t dims[2] = {(cuuint64_t)K, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)K * 2};
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * 2};
   const cuuint32_t box[2] = {(cuuint32_t)kBK, (cuuint32_t)box_rows};
   const cuuint32_t elem[2] = {1, 1};
   return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims, strides,
@@ -400,21 +598,61 @@ inline bool make_map(CUtensorMap* map, const void* base, int rows, int K, int bo
 template <int BN, class Epi>
 int launch(const bf16* A, const bf16* B, const bf16* aux, bf16* C, int M, int N, int K,
            const Epi& epi, cudaStream_t stream) {
-  const int mtiles = (M + kBM - 1) / kBM;
-  if (mtiles > 65535) return (int)cudaErrorInvalidValue;
-  CUtensorMap ma, mb;
-  if (!make_map(&ma, A, M, K, kBM) || !make_map(&mb, B, N, K, BN))
-    return (int)cudaErrorInvalidValue;
-  static bool smem_set = false;
-  if (!smem_set) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        mlp_gemm_wgmma<BN, Epi>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)Shape<BN>::SMEM);
-    if (err != cudaSuccess) return (int)err;
-    smem_set = true;
+  static int sms = 0;   // set once, with the shared-memory limit
+  if (sms == 0) {
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(mlp_gemm_wgmma<BN, Epi>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 (int)Shape<BN>::SMEM);
+    if (err != cudaSuccess) {
+      sms = 0;
+      return (int)err;
+    }
   }
-  dim3 grid((N + BN - 1) / BN, mtiles);
-  mlp_gemm_wgmma<BN, Epi><<<grid, Shape<BN>::THREADS, Shape<BN>::SMEM, stream>>>(
-      ma, mb, aux, C, M, N, K, epi);
+  CUtensorMap ma, mb, mx, mc;
+  // without aux its map is C's, never read
+  if (!make_map(&ma, A, M, K, kBM) || !make_map(&mb, B, N, K, BN) ||
+      !make_map(&mx, aux ? aux : C, M, N, kBM) || !make_map(&mc, C, M, N, kBM))
+    return (int)cudaErrorInvalidValue;
+  const long long tiles = (long long)((N + BN - 1) / BN) * ((M + kBM - 1) / kBM);
+  if (tiles > (1ll << 30)) return (int)cudaErrorInvalidValue;
+  const int grid = (int)(tiles < sms ? tiles : sms);
+  mlp_gemm_wgmma<BN, Epi><<<grid, kThreads, Shape<BN>::SMEM, stream>>>(ma, mb, mx, mc, M, N, K,
+                                                                       epi);
+  return (int)cudaGetLastError();
+}
+
+template <class Epi>
+int gemm_pingpong(const void* A, const void* B, const void* aux, void* C, int M, int N, int K,
+                  const Epi& epi, cudaStream_t stream) {
+  static int sms = 0;   // set once, with the shared-memory limit
+  if (sms == 0) {
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(mlp_gemm_wgmma_pingpong<Epi>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 (int)PingShape::SMEM);
+    if (err != cudaSuccess) {
+      sms = 0;
+      return (int)err;
+    }
+  }
+  CUtensorMap ma, mb, mx, mc;
+  if (!make_map(&ma, A, M, K, kBM) || !make_map(&mb, B, N, K, kPingBN) ||
+      !make_map(&mx, aux ? aux : C, M, N, kBM) || !make_map(&mc, C, M, N, kBM))
+    return (int)cudaErrorInvalidValue;
+  const long long tiles = (long long)((N + kPingBN - 1) / kPingBN) * ((M + kBM - 1) / kBM);
+  if (tiles > (1ll << 30)) return (int)cudaErrorInvalidValue;
+  const int grid = (int)(tiles < sms ? tiles : sms);
+  mlp_gemm_wgmma_pingpong<Epi><<<grid, kThreads, PingShape::SMEM, stream>>>(
+      ma, mb, mx, mc, M, N, K, epi);
   return (int)cudaGetLastError();
 }
 
@@ -429,7 +667,6 @@ int gemm(int tile_n, const void* A, const void* B, const void* aux, void* C, int
     case 256: return launch<256>(a, b, x, c, M, N, K, epi, s);
     case 192: return launch<192>(a, b, x, c, M, N, K, epi, s);
     case 128: return launch<128>(a, b, x, c, M, N, K, epi, s);
-    case 96: return launch<96>(a, b, x, c, M, N, K, epi, s);
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -649,19 +649,32 @@ __device__ __forceinline__ float gelu_grad_fast(float x) {
 template <int EPI> struct ProductEpi {
   static constexpr bool kReadsAux = EPI != kEpiPlain;
   EpiExtra<bf16> ex;
-  __device__ __forceinline__ float operator()(float v, float aux, int row) const {
-    if (EPI != kEpiGeluGrad) return finish<EPI>(v, aux, row, ex);
-    v *= gelu_grad_fast(aux);
-    return ex.scale ? v * ex.scale[row / ex.rpf] : v;
+  __device__ __forceinline__ float pre(float aux) const {
+    return EPI == kEpiGeluGrad ? gelu_grad_fast(aux) : aux;
+  }
+  // the DropPath scale of a row (1 without one), read once a row: a branch
+  // or a division per element would keep the elements' chains apart
+  __device__ __forceinline__ float row_factor(int row) const {
+    return EPI == kEpiGeluGrad && ex.scale ? ex.scale[row / ex.rpf] : 1.f;
+  }
+  __device__ __forceinline__ float operator()(float v, float pre, float rf) const {
+    if (EPI == kEpiGeluGrad) return v * pre * rf;
+    return finish<EPI>(v, pre, 0, ex);
   }
 };
 
 template <int EPI>
 int gemm_bwd(int dtype, int tile_n, const void* A, const void* B, const void* aux, void* C,
              int M, int N, int K, cudaStream_t s, const float* scale = nullptr, int rpf = 1) {
-  if (dtype == 1)
-    return wg::gemm(tile_n, A, B, aux, C, M, N, K, ProductEpi<EPI>{{scale, rpf, nullptr}}, s);
-  return gemm_f32<EPI>(A, B, nullptr, aux, C, M, N, K, s, scale, rpf);
+  if (dtype != 1) return gemm_f32<EPI>(A, B, nullptr, aux, C, M, N, K, s, scale, rpf);
+  const ProductEpi<EPI> epi{{scale, rpf, nullptr}};
+  // d_h1's gelu'(h1) epilogue runs under the other warpgroup's products
+  // (ping-pong, 128-wide tiles only); the others on the cooperative kernel
+  if constexpr (EPI == kEpiGeluGrad)
+    return tile_n == wg::kPingBN ? wg::gemm_pingpong(A, B, aux, C, M, N, K, epi, s)
+                                 : (int)cudaErrorInvalidValue;
+  else
+    return wg::gemm(tile_n, A, B, aux, C, M, N, K, epi, s);
 }
 
 template <typename T>
@@ -827,10 +840,11 @@ extern "C" int mlp_block_gemm_bf16(const void* A, const void* B, const void* bia
   return (int)cudaErrorInvalidValue;
 }
 
-// One bf16 product of K2b alone on the wgmma kernel, C = epi(A B^T, aux), at
-// output tile width tile_n (256, 192, 128 or 96): epi kEpiGeluGrad (5; aux =
-// h1, scale optional), kEpiAdd (6; aux the residual) or kEpiPlain (7; no
-// aux). Exported to time and test the products apart from the row pass.
+// One bf16 product of K2b alone on the wgmma kernels, C = epi(A B^T, aux), at
+// output tile width tile_n: epi kEpiGeluGrad (5; aux = h1, scale optional;
+// the ping-pong kernel, width 128), kEpiAdd (6; aux the residual) or
+// kEpiPlain (7; no aux; both on the cooperative kernel, width 256, 192 or
+// 128). Exported to time and test the products apart from the row pass.
 extern "C" int mlp_block_gemm_wgmma(const void* A, const void* B, const void* aux, void* C,
                                     const void* scale, int rows_per_frame, int M, int N, int K,
                                     int epi, int tile_n, void* stream) {

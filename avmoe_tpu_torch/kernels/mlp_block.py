@@ -166,29 +166,32 @@ def pick_tile(M: int, N: int, K: int, sms: int) -> int:
     return min(TILE_WIDTHS, key=lambda w: (product_seconds(M, N, K, w, sms), -w))
 
 
-# output tile widths of K2b's bf16 product kernel (csrc/gemm_wgmma.cuh), one
-# 128-row tile a CTA and one CTA an SM; what a tile costs on an H100, per
-# column of its width: a 64-deep step of its products at about 600 TFLOP/s
-# over 132 SMs, and its epilogue's aux read and bf16 store (4 bytes a row)
-# at the SM's share of 3.35 TB/s; and per tile the ring's fill and launch
-WGMMA_WIDTHS = (256, 192, 128, 96)
-WGMMA_STEP_S = 2 * TILE_ROWS * 64 / 4.5e12
-WGMMA_EPI_S = TILE_ROWS * 4 / 25e9
-WGMMA_TILE_S = 2e-6
+# output tile widths of K2b's bf16 product kernels (csrc/gemm_wgmma.cuh),
+# 128-row tiles walked by one persistent CTA an SM: the d_h1 product (its
+# gelu'(h1) epilogue) runs on the ping-pong kernel's 128-wide tiles, the dx
+# product on the cooperative kernel at a width picked per shape. What a
+# cooperative tile costs on an H100 (tools/k2b_wgmma_variants.py, PERF.md),
+# per column of its width: a 64-deep step of its products and its epilogue;
+# and per tile its barriers and hand-offs
+WGMMA_WIDTHS = (256, 192, 128)
+PINGPONG_WIDTH = 128
+WGMMA_STEP_S = 3.3e-9
+WGMMA_EPI_S = 3e-9
+WGMMA_TILE_S = 5e-7
 
 
 def wgmma_seconds(M: int, N: int, K: int, width: int, sms: int) -> float:
-    """Modelled time of an (M, N, K) product on the wgmma kernel at tile
-    width `width`: the busiest SM's tiles, each of `width` columns (the
-    columns past N computed all the same) through ceil(K / 64) steps and an
-    epilogue, plus its fill."""
+    """Modelled time of an (M, N, K) product on the cooperative wgmma kernel
+    at tile width `width`: the busiest SM's tiles, each of `width` columns
+    (the columns past N computed all the same) through ceil(K / 64) steps
+    and an epilogue."""
     per_tile = width * (math.ceil(K / 64) * WGMMA_STEP_S + WGMMA_EPI_S) + WGMMA_TILE_S
     return busiest_sm_tiles(M, N, width, sms) * per_tile
 
 
 def pick_wgmma_tile(M: int, N: int, K: int, sms: int) -> int:
-    """The wgmma kernel's output tile width for an (M, N, K) product on
-    `sms` SMs: the least modelled time, the widest on a tie."""
+    """The cooperative wgmma kernel's output tile width for an (M, N, K)
+    product on `sms` SMs: the least modelled time, the widest on a tie."""
     return min(WGMMA_WIDTHS, key=lambda w: (wgmma_seconds(M, N, K, w, sms), -w))
 
 
@@ -262,11 +265,11 @@ def product_bf16(a, w, bias, *, epi: int, tile: int, resid=None, out2=None,
 
 def product_wgmma(a, bt, *, epi: int, tile: int, aux=None, scale=None) -> torch.Tensor:
     """One bf16 product of K2b alone on the card, epi(a btᵀ, aux) on the
-    wgmma kernel at output tile width `tile` (one of WGMMA_WIDTHS): EPI_GELU_GRAD
-    (aux = h1; `scale` optional, rows of a frame M / len(scale)), EPI_ADD (aux
-    the residual) or EPI_PLAIN (no aux). The kernel `mlp_block_bwd` launches,
-    to time and test the products apart from the row pass. Not on any path
-    and not counted."""
+    wgmma kernels: EPI_GELU_GRAD (aux = h1; `scale` optional, rows of a frame
+    M / len(scale); the ping-pong kernel, `tile` PINGPONG_WIDTH), EPI_ADD
+    (aux the residual) or EPI_PLAIN (no aux; both cooperative, `tile` one of
+    WGMMA_WIDTHS). The kernels `mlp_block_bwd` launches, to time and test
+    the products apart from the row pass. Not on any path and not counted."""
     M, K = a.shape
     out = torch.empty((M, bt.shape[0]), dtype=a.dtype, device=a.device)
     err = _library().mlp_block_gemm_wgmma(
@@ -340,8 +343,8 @@ class MlpBlockBackward:
         err = _library().mlp_block_bwd(
             dy.data_ptr(), h1.data_ptr(), src.data_ptr(), ln_w.data_ptr(), w1t.data_ptr(),
             w2t.data_ptr(), sp, rpf, hA.data_ptr(), cA.data_ptr(), dx.data_ptr(), R, C, Hd,
-            int(pre_norm), _DTYPE_CODE[dy.dtype], pick_wgmma_tile(R, Hd, C, sms),
-            pick_wgmma_tile(R, C, Hd, sms), eps, _stream(dy))
+            int(pre_norm), _DTYPE_CODE[dy.dtype], PINGPONG_WIDTH, pick_wgmma_tile(R, C, Hd, sms),
+            eps, _stream(dy))
         if err != 0:
             raise RuntimeError(f"mlp_block_bwd kernel failed: CUDA error {err}")
         self.launches += 1

@@ -1,4 +1,4 @@
-"""Time K2b's bf16 wgmma product under design variants and ablations.
+"""Time K2b's bf16 wgmma products under design variants and ablations.
 
     python3 tools/k2b_wgmma_variants.py [--only VARIANT ...]   # one NVIDIA GPU
 
@@ -35,72 +35,91 @@ import chip_smoke as cs  # noqa: E402
 from avmoe_tpu_torch.kernels import _build  # noqa: E402
 from avmoe_tpu_torch.kernels import mlp_block as mb  # noqa: E402
 
-CTAS = "  static constexpr int CTAS = 1;   // CTAs an SM"
-WARPS = "  static constexpr int PRODUCER_WARPS = 4;"
-STAGES = "  static constexpr int STAGES = CTAS == 2 ? 3 : STAGE * 5 <= 200 * 1024 ? 5 : 4;"
-ONE_WARP = [(WARPS, WARPS.replace("= 4;", "= 1;"))]
-TWO_CTAS = ONE_WARP + [(CTAS, CTAS.replace("= 1;", "= BN <= 128 ? 2 : 1;"))]
+STAGES = ("  static constexpr int STAGES = (208 * 1024 - IO) / STAGE < 5 ? (208 * 1024 - IO) "
+          "/ STAGE : 5;")
+GELU_OUT = ("mlp_block.cu", "    return EPI == kEpiGeluGrad ? gelu_grad_fast(aux) : aux;",
+            "    return aux;")
+# d_h1 on the cooperative kernel (at its widths) instead of the ping-pong one
+COOPERATIVE = ("mlp_block.cu", "  if constexpr (EPI == kEpiGeluGrad)\n", "  if constexpr (false)\n")
 # variant -> [([file,] text in it, text of the variant)], the file
 # gemm_wgmma.cuh unless named. The ablations compute wrong results: one
-# epilogue reads no aux and stores nothing (the load and store stay behind a
-# test that fails at run time), one multiplies by h1 instead of gelu'(h1)
-ABLATIONS = ("no epilogue loads or stores", "gelu'(h1) left out of the d_h1 epilogue")
+# moves no epilogue tile on the cooperative kernel (no aux loads, no
+# stores: the TMA copies stay behind a test that fails at run time), one
+# multiplies by h1 instead of gelu'(h1)
+ABLATIONS = ("no epilogue TMA loads or stores", "gelu'(h1) left out of the d_h1 epilogue")
 VARIANTS = {
     "kept kernel": [],
-    "1 producer warp (no setmaxnreg)": ONE_WARP,
-    "1 producer warp, 2 CTAs an SM at widths 128 and 96 (3 stages)": TWO_CTAS,
-    "4 stages at every width": [(STAGES, STAGES.replace("STAGE * 5 <= 200 * 1024 ? 5 : 4", "4"))],
-    "3 stages at every width": [(STAGES, STAGES.replace("STAGE * 5 <= 200 * 1024 ? 5 : 4", "3"))],
-    "gelu'(h1) left out of the d_h1 epilogue": [
-        ("mlp_block.cu", "    v *= gelu_grad_fast(aux);", "    v *= aux;")],
-    "no epilogue loads or stores": [
-        ("      if (Epi::kReadsAux && row < M && n0 + cl[i] < N)",
-         "      if (Epi::kReadsAux && row < M && n0 + cl[i] < N && M < 0)"),
-        ("      if (row >= M || n0 + cl[i] >= N) continue;",
-         "      if (row >= M || n0 + cl[i] >= N || M > 0) continue;")],
+    "d_h1 on the cooperative kernel": [COOPERATIVE],
+    "3 stages at every cooperative width": [(STAGES, STAGES.split("= (")[0] + "= 3;")],
+    "gelu'(h1) left out of the d_h1 epilogue": [GELU_OUT],
+    "no epilogue TMA loads or stores": [
+        ("        if (Epi::kReadsAux) {\n          const int boxes = min(BOXES, (N - n0 + kBoxN - 1) "
+         "/ kBoxN);\n          mbar_expect_tx(aux_full,",
+         "        if (Epi::kReadsAux && M < 0) {\n          const int boxes = min(BOXES, (N - n0 + "
+         "kBoxN - 1) / kBoxN);\n          mbar_expect_tx(aux_full,"),
+        ("          for (int b = 0; b < BOXES && prev_n0 + b * kBoxN < N; ++b)",
+         "          for (int b = 0; b < BOXES && prev_n0 + b * kBoxN < N && M < 0; ++b)")],
 }
 
-# the kept kernel with time stamps (%globaltimer) per CTA: entry, barriers
-# initialised, first stage landed, main loop retired, both consumers done,
-# epilogue done; and the SM it ran on
-TIMELINE = "kept kernel, time stamps"
+# the cooperative kernel with time stamps (%globaltimer) per CTA, d_h1 on it
+# too: entry, barriers initialised; of its first tile: first stage landed,
+# main loop retired, aux landed, epilogue written; its last tile's epilogue
+# written; and the SM
+TIMELINE = "cooperative kernel, time stamps"
 _STAMP = """
 __device__ unsigned long long g_stamp[4096 * 8];
 __device__ __forceinline__ void stamp(int i) {
-  const unsigned cta = blockIdx.x + gridDim.x * blockIdx.y;
   unsigned long long t;
   asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
-  if (cta >= 4096) return;
-  g_stamp[cta * 8 + i] = t;
+  if (blockIdx.x >= 4096) return;
+  g_stamp[blockIdx.x * 8 + i] = t;
   if (i == 0) {
     unsigned sm;
     asm volatile("mov.u32 %0, %%smid;" : "=r"(sm));
-    g_stamp[cta * 8 + 7] = sm;
+    g_stamp[blockIdx.x * 8 + 7] = sm;
   }
 }
 """
-EPI_END = ("      *reinterpret_cast<uint4*>(C + (size_t)row * N + n0 + cl[i]) = o;\n"
-           "    }\n")
+_INIT = ("    mbar_init(out_ready, kConsumerThreads);\n"
+         "    asm volatile(\"fence.mbarrier_init.release.cluster;\\n\" ::: \"memory\");\n"
+         "  }\n  __syncthreads();\n")
+_DESC = ("        const uint64_t da = smem_desc(st + wr * 64 * kBK * 2), "
+         "db = smem_desc(st + S::STAGE_A);\n")
 VARIANTS[TIMELINE] = [
+    COOPERATIVE,
     ("using bf16 = __nv_bfloat16;\n", "using bf16 = __nv_bfloat16;\n" + _STAMP),
-    ("  const int nk = (K + kBK - 1) / kBK;\n",
-     "  const int nk = (K + kBK - 1) / kBK;\n  if (threadIdx.x == 0) stamp(0);\n"),
-    ("  __syncthreads();\n", "  __syncthreads();\n  if (threadIdx.x == 0) stamp(1);\n"),
-    ("      mbar_wait(&full[s], (kt / STAGES) & 1);\n",
-     "      mbar_wait(&full[s], (kt / STAGES) & 1);\n"
-     "      if (kt == 0 && threadIdx.x == 0) stamp(2);\n"),
-    ("    fence_regs(d);\n", "    fence_regs(d);\n    if (threadIdx.x == 0) stamp(3);\n"),
-    ('    asm volatile("bar.sync 1, 256;\\n" ::: "memory");\n',
-     '    asm volatile("bar.sync 1, 256;\\n" ::: "memory");\n'
-     "    if (threadIdx.x == 0) stamp(4);\n"),
-    (EPI_END, EPI_END + "    if (threadIdx.x == 0) stamp(5);\n"),
+    ("  const int ntn = (N + BN - 1) / BN;\n",
+     "  const int ntn = (N + BN - 1) / BN;\n  if (threadIdx.x == 0) stamp(0);\n"),
+    (_INIT, _INIT + "  if (threadIdx.x == 0) stamp(1);\n"),
+    (_DESC, _DESC + "        if (li == 0 && kt == 0 && threadIdx.x == 0) stamp(2);\n"),
+    ("      fence_regs(d);\n", "      fence_regs(d);\n      if (li == 0 && threadIdx.x == 0) stamp(3);\n"),
+    ("      mbar_wait(aux_full, li & 1);\n",
+     "      mbar_wait(aux_full, li & 1);\n      if (li == 0 && threadIdx.x == 0) stamp(4);\n"),
+    ("      mbar_arrive(out_ready);\n",
+     "      mbar_arrive(out_ready);\n      if (threadIdx.x == 0) stamp(li == 0 ? 5 : 6);\n"),
     ("}  // namespace avmoe\n", "}  // namespace avmoe\n" + """
 extern "C" int wg_stamps(void* host) {
   return (int)cudaMemcpyFromSymbol(host, avmoe::wg::g_stamp, sizeof(avmoe::wg::g_stamp));
 }
 """)]
 ABLATIONS = ABLATIONS + (TIMELINE,)
-PHASES = ("init", "first stage", "main loop", "other consumer", "epilogue")
+PHASES = ("init", "first stage", "main loop", "aux wait", "epilogue", "the other tiles")
+# the variants whose d_h1 runs on the cooperative kernel, at its widths
+COOPERATIVE_D_H1 = ("d_h1 on the cooperative kernel", TIMELINE)
+
+
+def widths(name: str, epi: int):
+    """The tile widths a variant's product takes: d_h1 the ping-pong
+    kernel's one, unless the variant moves it to the cooperative kernel."""
+    if epi == mb.EPI_GELU_GRAD and name not in COOPERATIVE_D_H1:
+        return (mb.PINGPONG_WIDTH,)
+    return mb.WGMMA_WIDTHS
+
+
+def pick(name: str, M: int, N: int, K: int, epi: int, sms: int) -> int:
+    w = widths(name, epi)
+    return w[0] if len(w) == 1 else mb.pick_wgmma_tile(M, N, K, sms)
+
 
 _ENTRY = re.compile(r"Compiling entry function '(\S+)'")
 _REGS = re.compile(r"Used (\d+) registers")
@@ -115,8 +134,8 @@ def wgmma_report(log: str) -> str:
     for line in log.splitlines():
         m = _ENTRY.search(line)
         if m:
-            w = re.search(r"mlp_gemm_wgmmaILi(\d+)E", m.group(1))
-            width = w.group(1) if w else None
+            w = re.search(r"mlp_gemm_wgmma(ILi(\d+)E|_pingpong)", m.group(1))
+            width = (w.group(2) or "ping-pong") if w else None
         elif width and _SPILL.search(line):
             out.setdefault(width, set()).add(("spill", int(_SPILL.search(line).group(1))))
         elif width and _REGS.search(line):
@@ -171,9 +190,9 @@ def product(lib, a, bt, epi, width, aux=None, scale=None):
 
 
 def timeline(lib, label, M, N, K, width, run):
-    """Per-CTA phases of one call of the time-stamped kernel: medians over
-    the CTAs, the busiest SM's CTAs, the median gap on an SM between one
-    CTA's end and the next one's start, and the call's span."""
+    """Per-CTA phases of one call of the time-stamped kernel (medians over
+    the CTAs; the first tile's phases, then the CTA's other tiles), the
+    tiles a CTA ran and the call's span."""
     import numpy as np
 
     run()
@@ -182,22 +201,17 @@ def timeline(lib, label, M, N, K, width, run):
     err = lib.wg_stamps(ctypes.byref(buf))
     if err:
         raise RuntimeError(f"stamps: CUDA error {err}")
-    tiles = min(4096, math.ceil(M / 128) * math.ceil(N / width))
-    a = np.frombuffer(buf, dtype=np.uint64).reshape(4096, 8)[:tiles].astype(np.int64)
+    tiles = math.ceil(M / 128) * math.ceil(N / width)
+    ctas = min(tiles, mb.sm_count(torch.cuda.current_device()))
+    a = np.frombuffer(buf, dtype=np.uint64).reshape(4096, 8)[:ctas].astype(np.int64)
+    a[:, 6] = np.where(a[:, 6] > 0, a[:, 6], a[:, 5])    # one tile: no later ones
     us = lambda x: float(np.median(x)) / 1e3
-    parts = [us(a[:, i + 1] - a[:, i]) for i in range(5)]
-    gaps, per_sm = [], {}
-    for row in a:
-        per_sm.setdefault(int(row[7]), []).append(row)
-    for rows in per_sm.values():
-        rows.sort(key=lambda r: r[0])
-        gaps += [int(b[0] - e[5]) for e, b in zip(rows, rows[1:])]
-    span = (a[:, 5].max() - a[:, 0].min()) / 1e3
-    print(f"[timeline] {label} M={M} N={N} K={K} width {width}: {tiles} CTAs on "
-          f"{len(per_sm)} SMs (busiest {max(len(r) for r in per_sm.values())}); median per CTA, "
-          f"us: " + ", ".join(f"{p} {t:.2f}" for p, t in zip(PHASES, parts))
-          + f"; median gap between CTAs on an SM {us(gaps) if gaps else 0:.2f} us; span "
-          f"{span:.2f} us", flush=True)
+    parts = [us(a[:, i + 1] - a[:, i]) for i in range(6)]
+    span = (a[:, 6].max() - a[:, 0].min()) / 1e3
+    print(f"[timeline] {label} M={M} N={N} K={K} width {width}: {tiles} tiles on {ctas} CTAs "
+          f"(up to {math.ceil(tiles / ctas)} a CTA); median per CTA, us: "
+          + ", ".join(f"{p} {t:.2f}" for p, t in zip(PHASES, parts)) + f"; span {span:.2f} us",
+          flush=True)
 
 
 def products():
@@ -236,8 +250,8 @@ def main():
     for name, (lib, report) in list(libs.items()):
         print(f"[variant] {name}: {report}", flush=True)
         try:
-            for width in mb.WGMMA_WIDTHS if name not in ABLATIONS else ():
-                for (epi, scaled), r in refs.items():
+            for (epi, scaled), r in refs.items() if name not in ABLATIONS else ():
+                for width in widths(name, epi):
                     out = product(lib, a, bt, epi, width, None if epi == mb.EPI_PLAIN else aux,
                                   scale if scaled else None)
                     ok = bool(((out.float() - r).abs() <= 4e-3 * r.abs() + 1e-3).all())
@@ -247,18 +261,17 @@ def main():
             del libs[name]
 
     if TIMELINE in libs:
-        lib = libs[TIMELINE][0]
+        lib = libs.pop(TIMELINE)[0]
         lib.wg_stamps.argtypes = [ctypes.c_void_p]
         for label, M, N, K, epi, scaled, calls in products():
             a = torch.randn(M, K, device="cuda", generator=gen).bfloat16()
             bt = (torch.randn(N, K, device="cuda", generator=gen) / K ** 0.5).bfloat16()
             aux = None if epi == mb.EPI_PLAIN else torch.randn(M, N, device="cuda",
                                                                generator=gen).bfloat16()
-            width = mb.pick_wgmma_tile(M, N, K, sms)
+            width = pick(TIMELINE, M, N, K, epi, sms)
             timeline(lib, label, M, N, K, width, lambda: product(
                 lib, a, bt, epi, width, aux, scale if scaled else None))
             del a, bt, aux
-        del libs[TIMELINE]
 
     picked = {name: 0.0 for name in libs}
     best = {name: 0.0 for name in libs}
@@ -272,14 +285,14 @@ def main():
         ops = 2 * M * N * K
         lib_ms = cs.time_ms(lambda: F.linear(a, bt))
         cublas += calls * lib_ms
-        pick = mb.pick_wgmma_tile(M, N, K, sms)
         for name, (lib, _) in libs.items():
             row = {}
-            for width in mb.WGMMA_WIDTHS:
+            for width in widths(name, epi):
                 row[width] = cs.time_ms(lambda: product(lib, a, bt, epi, width, aux, sc))
-            picked[name] += calls * row[pick]
+            chosen = pick(name, M, N, K, epi, sms)
+            picked[name] += calls * row[chosen]
             best[name] += calls * min(row.values())
-            print(f"[product] {label} M={M} N={N} K={K} x{calls}/step (pick {pick}, cuBLAS "
+            print(f"[product] {label} M={M} N={N} K={K} x{calls}/step (pick {chosen}, cuBLAS "
                   f"{lib_ms:.4f})  {name}: " + "; ".join(
                       f"{w}: {ms:.4f} ({ops / ms / 1e9:.0f} TFLOP/s)" for w, ms in row.items()),
                   flush=True)
