@@ -30,8 +30,10 @@
 //     once and writes the result back, and that thread stores the tile by
 //     TMA (which clips the ragged edges) while the consumers go on to the
 //     next tile.
-// Not yet: TMA multicast across a cluster, two consumer tiles in ping-pong
-// (one's epilogue under the other's products), fusing two products on chip.
+// Not yet: TMA multicast across a cluster, fusing the two products on chip.
+// Two consumer warpgroups in ping-pong (each on its own 128 x 128 tiles,
+// taking turns at the tensor cores, one's epilogue under the other's
+// products) timed within 1% of this kernel on K2b's products (PERF.md).
 #pragma once
 
 #include <cuda.h>
@@ -390,170 +392,6 @@ mlp_gemm_wgmma(const __grid_constant__ CUtensorMap map_a, const __grid_constant_
   }
 }
 
-// Ping-pong (the d_h1 product, whose epilogue computes gelu'(h1) for every
-// output): each consumer warpgroup owns whole 128 x 128 tiles, the CTA's
-// tiles alternating between the two, and the two take turns at the tensor
-// cores (a turn mbarrier each), so that one's epilogue runs under the other's
-// products. Two epilogue tiles in io, one a warpgroup; the ring, the
-// producer and the io thread as in mlp_gemm_wgmma.
-constexpr int kPingBN = 128;
-struct PingShape {
-  static constexpr int STAGE_A = kBM * kBK * 2, STAGE_B = kPingBN * kBK * 2;
-  static constexpr int STAGE = STAGE_A + STAGE_B, STAGES = 4;
-  static constexpr int IO = kBM * kPingBN * 2;
-  static constexpr size_t RING = (size_t)STAGES * STAGE;
-  static constexpr size_t SMEM = RING + 2 * IO + (2 * STAGES + 6) * 8 + 1024;
-  static_assert(SMEM <= 227 * 1024, "shared memory");
-};
-
-template <class Epi>
-__global__ void __launch_bounds__(kThreads, 1)
-mlp_gemm_wgmma_pingpong(const __grid_constant__ CUtensorMap map_a,
-                        const __grid_constant__ CUtensorMap map_b,
-                        const __grid_constant__ CUtensorMap map_aux,
-                        const __grid_constant__ CUtensorMap map_c, int M, int N, int K, Epi epi) {
-  using S = PingShape;
-  constexpr int STAGES = S::STAGES, BOXES = kPingBN / kBoxN;
-  extern __shared__ unsigned char smem_raw[];
-  unsigned char* ring = reinterpret_cast<unsigned char*>(
-      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
-  unsigned char* io = ring + S::RING;   // two epilogue tiles: warpgroup b's at io + b IO
-  uint64_t* full = reinterpret_cast<uint64_t*>(io + 2 * S::IO);
-  uint64_t* empty = full + STAGES;
-  uint64_t* aux_full = empty + STAGES;   // [2]
-  uint64_t* out_ready = aux_full + 2;    // [2]
-  uint64_t* turn = out_ready + 2;        // [2]: warpgroup b may issue its products
-  const int ntn = (N + kPingBN - 1) / kPingBN;
-  const int tiles = ntn * ((M + kBM - 1) / kBM);
-  const int mine = (tiles - (int)blockIdx.x + (int)gridDim.x - 1) / (int)gridDim.x;
-  const int nk = (K + kBK - 1) / kBK;
-  if (threadIdx.x == 0) {
-    for (int s = 0; s < STAGES; ++s) {
-      mbar_init(&full[s], 1);
-      mbar_init(&empty[s], 1);   // the owning warpgroup's arrival
-    }
-    for (int b = 0; b < 2; ++b) {
-      mbar_init(&aux_full[b], 1);
-      mbar_init(&out_ready[b], 128);
-      mbar_init(&turn[b], 128);
-    }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
-  __syncthreads();
-
-  if (threadIdx.x >= kConsumerThreads) {
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
-    if (threadIdx.x == kConsumerThreads) {
-      // the ring, across the CTA's tiles in order (tile j: stages j nk on)
-      int it = 0;
-      for (int j = 0; j < mine; ++j) {
-        const int tile = blockIdx.x + j * gridDim.x;
-        const int n0 = (tile % ntn) * kPingBN, m0 = (tile / ntn) * kBM;
-        for (int kt = 0; kt < nk; ++kt, ++it) {
-          const int s = it % STAGES;
-          if (it >= STAGES) mbar_wait(&empty[s], (it / STAGES - 1) & 1);
-          unsigned char* st = ring + (size_t)s * S::STAGE;
-          mbar_expect_tx(&full[s], S::STAGE);
-          tma_load_2d(st, &map_a, &full[s], kt * kBK, m0);
-          tma_load_2d(st + S::STAGE_A, &map_b, &full[s], kt * kBK, n0);
-        }
-      }
-    } else if (threadIdx.x == kConsumerThreads + 32) {
-      // tile j's output out of io[j % 2] by TMA once written, then tile
-      // j + 2's aux in
-      for (int j = 0; j < mine + 2; ++j) {
-        const int b = j & 1;
-        if (j >= 2) {
-          const int tile = blockIdx.x + (j - 2) * gridDim.x;
-          const int n0 = (tile % ntn) * kPingBN, m0 = (tile / ntn) * kBM;
-          mbar_wait(&out_ready[b], (j / 2 - 1) & 1);
-          for (int x = 0; x < BOXES && n0 + x * kBoxN < N; ++x)
-            tma_store_2d(&map_c, io + b * S::IO + x * kBox, n0 + x * kBoxN, m0);
-          bulk_commit();
-          bulk_wait_read();
-        }
-        if (j >= mine) continue;
-        const int tile = blockIdx.x + j * gridDim.x;
-        const int n0 = (tile % ntn) * kPingBN, m0 = (tile / ntn) * kBM;
-        if (Epi::kReadsAux) {
-          const int boxes = min(BOXES, (N - n0 + kBoxN - 1) / kBoxN);
-          mbar_expect_tx(&aux_full[b], boxes * kBox);
-          for (int x = 0; x < boxes; ++x)
-            tma_load_2d(io + b * S::IO + x * kBox, &map_aux, &aux_full[b], n0 + x * kBoxN, m0);
-        } else {
-          mbar_arrive(&aux_full[b]);
-        }
-      }
-      bulk_wait();
-    }
-  } else {
-    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
-    const int wr = threadIdx.x / 128;   // this warpgroup's tiles: j = wr, wr + 2, ...
-    const int t = threadIdx.x % 128, w = t / 32, g = (t % 32) / 4, q = t % 4;
-    unsigned char* const my_io = io + wr * S::IO;
-    for (int k = 0; 2 * k + wr < mine; ++k) {
-      const int j = 2 * k + wr, tile = blockIdx.x + j * gridDim.x;
-      const int m0 = (tile / ntn) * kBM;
-      float d0[kPingBN / 2], d1[kPingBN / 2];   // rows 0-63 and 64-127
-#pragma unroll
-      for (int i = 0; i < kPingBN / 2; ++i) d0[i] = d1[i] = 0.f;
-      // this warpgroup's turn at the tensor cores (warpgroup 0's first is free)
-      mbar_wait(&turn[wr], (k & 1) ^ (wr == 0 ? 1 : 0));
-      int it = j * nk;
-      for (int kt = 0; kt < nk; ++kt, ++it) {
-        const int s = it % STAGES;
-        mbar_wait(&full[s], (it / STAGES) & 1);
-        const unsigned char* st = ring + (size_t)s * S::STAGE;
-        const uint64_t da = smem_desc(st), db = smem_desc(st + S::STAGE_A);
-        wgmma_fence();
-#pragma unroll
-        for (int kk = 0; kk < kBK / 16; ++kk) {
-          wgmma_bf16<kPingBN>(d0, da + 2 * kk, db + 2 * kk);
-          wgmma_bf16<kPingBN>(d1, da + (64 * kBK * 2 >> 4) + 2 * kk, db + 2 * kk);
-        }
-        wgmma_commit();
-        wgmma_wait<1>();
-        if (kt > 0 && t == 0) mbar_arrive(&empty[(it - 1) % STAGES]);
-      }
-      wgmma_wait<0>();
-      fence_regs(d0);
-      fence_regs(d1);
-      if (t == 0) mbar_arrive(&empty[(it - 1) % STAGES]);
-      mbar_arrive(&turn[wr ^ 1]);   // the other warpgroup's products, under this epilogue
-
-      mbar_wait(&aux_full[wr], k & 1);
-      unsigned* const p0 = reinterpret_cast<unsigned*>(my_io + (16 * w + g) * 128 + 4 * q);
-      auto at = [&](int jc, int tr) -> unsigned& {
-        return p0[((jc / 8) * kBox + tr * 128 + (((jc % 8) ^ g) << 4)) / 4];
-      };
-      // the thread's rows 64 mb + 16 w + g + 8 h of the tile, a row at a time
-      auto rows = [&](const float (&d)[kPingBN / 2], int mb) {
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int tr = 64 * mb + 8 * h, row = m0 + 16 * w + g + tr;
-          const float rf = row < M ? epi.row_factor(row) : 0.f;
-          unsigned ax[kPingBN / 8];
-#pragma unroll
-          for (int jc = 0; jc < kPingBN / 8; ++jc) ax[jc] = Epi::kReadsAux ? at(jc, tr) : 0u;
-#pragma unroll
-          for (int jc = 0; jc < kPingBN / 8; ++jc) {
-            const float2 x =
-                __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&ax[jc]));
-            ax[jc] = pack2(epi(d[4 * jc + 2 * h], epi.pre(x.x), rf),
-                           epi(d[4 * jc + 2 * h + 1], epi.pre(x.y), rf));
-          }
-#pragma unroll
-          for (int jc = 0; jc < kPingBN / 8; ++jc) at(jc, tr) = ax[jc];
-        }
-      };
-      rows(d0, 0);
-      rows(d1, 1);
-      fence_async_smem();
-      mbar_arrive(&out_ready[wr]);
-    }
-  }
-}
-
 // --- host -----------------------------------------------------------------------
 typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
                                   const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
@@ -623,36 +461,6 @@ int launch(const bf16* A, const bf16* B, const bf16* aux, bf16* C, int M, int N,
   const int grid = (int)(tiles < sms ? tiles : sms);
   mlp_gemm_wgmma<BN, Epi><<<grid, kThreads, Shape<BN>::SMEM, stream>>>(ma, mb, mx, mc, M, N, K,
                                                                        epi);
-  return (int)cudaGetLastError();
-}
-
-template <class Epi>
-int gemm_pingpong(const void* A, const void* B, const void* aux, void* C, int M, int N, int K,
-                  const Epi& epi, cudaStream_t stream) {
-  static int sms = 0;   // set once, with the shared-memory limit
-  if (sms == 0) {
-    int dev = 0;
-    cudaError_t err = cudaGetDevice(&dev);
-    if (err == cudaSuccess)
-      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (err == cudaSuccess)
-      err = cudaFuncSetAttribute(mlp_gemm_wgmma_pingpong<Epi>,
-                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 (int)PingShape::SMEM);
-    if (err != cudaSuccess) {
-      sms = 0;
-      return (int)err;
-    }
-  }
-  CUtensorMap ma, mb, mx, mc;
-  if (!make_map(&ma, A, M, K, kBM) || !make_map(&mb, B, N, K, kPingBN) ||
-      !make_map(&mx, aux ? aux : C, M, N, kBM) || !make_map(&mc, C, M, N, kBM))
-    return (int)cudaErrorInvalidValue;
-  const long long tiles = (long long)((N + kPingBN - 1) / kPingBN) * ((M + kBM - 1) / kBM);
-  if (tiles > (1ll << 30)) return (int)cudaErrorInvalidValue;
-  const int grid = (int)(tiles < sms ? tiles : sms);
-  mlp_gemm_wgmma_pingpong<Epi><<<grid, kThreads, PingShape::SMEM, stream>>>(
-      ma, mb, mx, mc, M, N, K, epi);
   return (int)cudaGetLastError();
 }
 

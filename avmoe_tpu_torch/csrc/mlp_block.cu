@@ -629,19 +629,23 @@ int gemm(int dtype, int tile_n, const void* A, const void* B, const float* bias,
   return gemm_f32<EPI>(A, B, bias, resid, C, M, N, K, s, scale, rpf, out2);
 }
 
-// gelu'(x) = Phi(x) + x phi(x) for the bf16 products' epilogue, with Phi
-// from Abramowitz and Stegun 7.1.26 (|error| of erf <= 1.5e-7, far below the
-// output's bf16 rounding), which shares phi's exponential: one exp and one
-// reciprocal, no branch, where erff's two ranges diverge within a warp and
-// made the d_h1 product's epilogue 1 ms of K2b's step (PERF.md). float32 keeps
-// erff and expf.
+// gelu'(x) = Phi(x) + x phi(x) for the bf16 products' epilogue, with the
+// normal tail from Abramowitz and Stegun 26.2.17: 1 - Phi(|x|) = phi(x)
+// (b1 t + ... + b5 t^5), t = 1 / (1 + p |x|), |error| < 7.5e-8, far below
+// the output's bf16 rounding. It shares phi's exponential: one ex2 and one
+// rcp, no branch (erff's two ranges diverge within a warp). The d_h1
+// product's epilogue computes it for every output and is bound by these
+// instructions (PERF.md). float32 keeps erff and expf.
 __device__ __forceinline__ float gelu_grad_fast(float x) {
-  const float e = __expf(-0.5f * x * x);
-  const float t = __fdividef(1.f, fmaf(0.3275911f * 0.70710678118654752f, fabsf(x), 1.f));
-  const float poly = fmaf(t, fmaf(t, fmaf(t, fmaf(t, 1.061405429f, -1.453152027f),
-                                          1.421413741f), -0.284496736f), 0.254829592f);
-  const float tail = 0.5f * t * poly * e;   // 1 - Phi(|x|)
-  return fmaf(x * 0.39894228040143268f, e, x >= 0.f ? 1.f - tail : tail);
+  float ph, t;   // phi(x) = 2^(-x^2 log2(e) / 2 + log2(1 / sqrt(2 pi)))
+  asm("ex2.approx.ftz.f32 %0, %1;"
+      : "=f"(ph)
+      : "f"(fmaf(x * x, -0.72134752044448170f, -1.3257480647f)));
+  asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(t) : "f"(fmaf(0.2316419f, fabsf(x), 1.f)));
+  const float poly = fmaf(t, fmaf(t, fmaf(t, fmaf(t, 1.330274429f, -1.821255978f),
+                                          1.781477937f), -0.356563782f), 0.319381530f);
+  const float tail = t * poly * ph;
+  return fmaf(x, ph, x >= 0.f ? 1.f - tail : tail);
 }
 
 // K2b's products: bf16 on the wgmma kernel (gemm_wgmma.cuh), float32 on
@@ -666,15 +670,9 @@ template <int EPI> struct ProductEpi {
 template <int EPI>
 int gemm_bwd(int dtype, int tile_n, const void* A, const void* B, const void* aux, void* C,
              int M, int N, int K, cudaStream_t s, const float* scale = nullptr, int rpf = 1) {
-  if (dtype != 1) return gemm_f32<EPI>(A, B, nullptr, aux, C, M, N, K, s, scale, rpf);
-  const ProductEpi<EPI> epi{{scale, rpf, nullptr}};
-  // d_h1's gelu'(h1) epilogue runs under the other warpgroup's products
-  // (ping-pong, 128-wide tiles only); the others on the cooperative kernel
-  if constexpr (EPI == kEpiGeluGrad)
-    return tile_n == wg::kPingBN ? wg::gemm_pingpong(A, B, aux, C, M, N, K, epi, s)
-                                 : (int)cudaErrorInvalidValue;
-  else
-    return wg::gemm(tile_n, A, B, aux, C, M, N, K, epi, s);
+  if (dtype == 1)
+    return wg::gemm(tile_n, A, B, aux, C, M, N, K, ProductEpi<EPI>{{scale, rpf, nullptr}}, s);
+  return gemm_f32<EPI>(A, B, nullptr, aux, C, M, N, K, s, scale, rpf);
 }
 
 template <typename T>
@@ -840,11 +838,10 @@ extern "C" int mlp_block_gemm_bf16(const void* A, const void* B, const void* bia
   return (int)cudaErrorInvalidValue;
 }
 
-// One bf16 product of K2b alone on the wgmma kernels, C = epi(A B^T, aux), at
-// output tile width tile_n: epi kEpiGeluGrad (5; aux = h1, scale optional;
-// the ping-pong kernel, width 128), kEpiAdd (6; aux the residual) or
-// kEpiPlain (7; no aux; both on the cooperative kernel, width 256, 192 or
-// 128). Exported to time and test the products apart from the row pass.
+// One bf16 product of K2b alone on the wgmma kernel, C = epi(A B^T, aux), at
+// output tile width tile_n (256, 192 or 128): epi kEpiGeluGrad (5; aux = h1,
+// scale optional), kEpiAdd (6; aux the residual) or kEpiPlain (7; no aux).
+// Exported to time and test the products apart from the row pass.
 extern "C" int mlp_block_gemm_wgmma(const void* A, const void* B, const void* aux, void* C,
                                     const void* scale, int rows_per_frame, int M, int N, int K,
                                     int epi, int tile_n, void* stream) {

@@ -25,8 +25,8 @@ it beside gelu(h1)) and, on V2, fc2's output f; its backward is K2b
 `mlp_block_backward_plain`): dx only, from those and the output's gradient,
 with no product of the forward run again. K2b runs two products and one
 LayerNorm-backward row pass; in bf16 its products run on the wgmma kernel
-(`csrc/gemm_wgmma.cuh`, TMA-fed, output tiles 128 x `pick_wgmma_tile`'s
-width), since they, not the bytes, bound K2b at most shapes. The weights are
+(`csrc/gemm_wgmma.cuh`, TMA-fed and persistent, output tiles 128 x
+`pick_wgmma_tile`'s width), since they, not the bytes, bound K2b at most shapes. The weights are
 frozen: on the card a weight that needs a gradient raises; on the CPU that
 case takes plain autograd. The backward products take the transposed
 weights w1t = w1ᵀ (C, Hd) and w2t = w2ᵀ (Hd, C), which the caller keeps
@@ -166,33 +166,31 @@ def pick_tile(M: int, N: int, K: int, sms: int) -> int:
     return min(TILE_WIDTHS, key=lambda w: (product_seconds(M, N, K, w, sms), -w))
 
 
-# output tile widths of K2b's bf16 product kernels (csrc/gemm_wgmma.cuh),
-# 128-row tiles walked by one persistent CTA an SM: the d_h1 product (its
-# gelu'(h1) epilogue) runs on the ping-pong kernel's 128-wide tiles, the dx
-# product on the cooperative kernel at a width picked per shape. What a
-# cooperative tile costs on an H100 (tools/k2b_wgmma_variants.py, PERF.md),
-# per column of its width: a 64-deep step of its products and its epilogue;
-# and per tile its barriers and hand-offs
+# output tile widths of K2b's bf16 product kernel (csrc/gemm_wgmma.cuh),
+# 128-row tiles walked by one persistent CTA an SM; what a tile costs on an
+# H100 (tools/k2b_wgmma_variants.py, PERF.md), per column of its width: a
+# 64-deep step of its products, and its epilogue, the d_h1 product's (its
+# gelu'(h1)) or the dx product's; and per tile its barriers and hand-offs
 WGMMA_WIDTHS = (256, 192, 128)
-PINGPONG_WIDTH = 128
 WGMMA_STEP_S = 3.3e-9
-WGMMA_EPI_S = 3e-9
+WGMMA_EPI_S = {True: 2e-8, False: 3e-9}
 WGMMA_TILE_S = 5e-7
 
 
-def wgmma_seconds(M: int, N: int, K: int, width: int, sms: int) -> float:
-    """Modelled time of an (M, N, K) product on the cooperative wgmma kernel
-    at tile width `width`: the busiest SM's tiles, each of `width` columns
-    (the columns past N computed all the same) through ceil(K / 64) steps
-    and an epilogue."""
-    per_tile = width * (math.ceil(K / 64) * WGMMA_STEP_S + WGMMA_EPI_S) + WGMMA_TILE_S
+def wgmma_seconds(M: int, N: int, K: int, width: int, sms: int, gelu: bool = False) -> float:
+    """Modelled time of an (M, N, K) product on the wgmma kernel at tile
+    width `width`: the busiest SM's tiles, each of `width` columns (the
+    columns past N computed all the same) through ceil(K / 64) steps and an
+    epilogue (`gelu`: the d_h1 product's)."""
+    per_tile = width * (math.ceil(K / 64) * WGMMA_STEP_S + WGMMA_EPI_S[gelu]) + WGMMA_TILE_S
     return busiest_sm_tiles(M, N, width, sms) * per_tile
 
 
-def pick_wgmma_tile(M: int, N: int, K: int, sms: int) -> int:
-    """The cooperative wgmma kernel's output tile width for an (M, N, K)
-    product on `sms` SMs: the least modelled time, the widest on a tie."""
-    return min(WGMMA_WIDTHS, key=lambda w: (wgmma_seconds(M, N, K, w, sms), -w))
+def pick_wgmma_tile(M: int, N: int, K: int, sms: int, gelu: bool = False) -> int:
+    """The wgmma kernel's output tile width for an (M, N, K) product on
+    `sms` SMs (`gelu`: the d_h1 product): the least modelled time, the
+    widest on a tie."""
+    return min(WGMMA_WIDTHS, key=lambda w: (wgmma_seconds(M, N, K, w, sms, gelu), -w))
 
 
 @functools.lru_cache(maxsize=None)
@@ -265,11 +263,11 @@ def product_bf16(a, w, bias, *, epi: int, tile: int, resid=None, out2=None,
 
 def product_wgmma(a, bt, *, epi: int, tile: int, aux=None, scale=None) -> torch.Tensor:
     """One bf16 product of K2b alone on the card, epi(a btᵀ, aux) on the
-    wgmma kernels: EPI_GELU_GRAD (aux = h1; `scale` optional, rows of a frame
-    M / len(scale); the ping-pong kernel, `tile` PINGPONG_WIDTH), EPI_ADD
-    (aux the residual) or EPI_PLAIN (no aux; both cooperative, `tile` one of
-    WGMMA_WIDTHS). The kernels `mlp_block_bwd` launches, to time and test
-    the products apart from the row pass. Not on any path and not counted."""
+    wgmma kernel at output tile width `tile` (one of WGMMA_WIDTHS):
+    EPI_GELU_GRAD (aux = h1; `scale` optional, rows of a frame M /
+    len(scale)), EPI_ADD (aux the residual) or EPI_PLAIN (no aux). The
+    kernel `mlp_block_bwd` launches, to time and test the products apart
+    from the row pass. Not on any path and not counted."""
     M, K = a.shape
     out = torch.empty((M, bt.shape[0]), dtype=a.dtype, device=a.device)
     err = _library().mlp_block_gemm_wgmma(
@@ -343,8 +341,8 @@ class MlpBlockBackward:
         err = _library().mlp_block_bwd(
             dy.data_ptr(), h1.data_ptr(), src.data_ptr(), ln_w.data_ptr(), w1t.data_ptr(),
             w2t.data_ptr(), sp, rpf, hA.data_ptr(), cA.data_ptr(), dx.data_ptr(), R, C, Hd,
-            int(pre_norm), _DTYPE_CODE[dy.dtype], PINGPONG_WIDTH, pick_wgmma_tile(R, C, Hd, sms),
-            eps, _stream(dy))
+            int(pre_norm), _DTYPE_CODE[dy.dtype], pick_wgmma_tile(R, Hd, C, sms, gelu=True),
+            pick_wgmma_tile(R, C, Hd, sms), eps, _stream(dy))
         if err != 0:
             raise RuntimeError(f"mlp_block_bwd kernel failed: CUDA error {err}")
         self.launches += 1

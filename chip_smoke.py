@@ -827,19 +827,24 @@ def phase_k2b(gen):
                                               scale=scale))
         plain_ms = _backward_ms(lambda t: mb.mlp_block_plain(
             t, lw, lb, W1, b1, W2, b2, pre_norm=pre, scale=scale), (x,), dy)
-        # K2b's two products alone on the wgmma kernels (d_h1 from dy, or from
-        # d_h2 = dy on V2, the LN row pass left out; dx at the picked width and
-        # at each width), and cuBLAS's bf16 products of the same shapes
-        picks = (mb.PINGPONG_WIDTH, mb.pick_wgmma_tile(R, C, Hd, sms))
+        # K2b's two products alone on the wgmma kernel (d_h1 from dy, or from
+        # d_h2 = dy on V2, the LN row pass left out) at the picked widths and
+        # at each width, and cuBLAS's bf16 products of the same shapes
+        picks = (mb.pick_wgmma_tile(R, Hd, C, sms, gelu=True),
+                 mb.pick_wgmma_tile(R, C, Hd, sms))
         dy2, h1_2 = dy.reshape(R, C), h1.reshape(R, Hd)
+        sc1 = scale if pre else None
         epi2, aux2 = (mb.EPI_PLAIN, None) if pre else (mb.EPI_ADD, dy2)
-        p1 = lambda: mb.product_wgmma(dy2, W2t, epi=mb.EPI_GELU_GRAD, tile=picks[0], aux=h1_2,
-                                      scale=scale if pre else None)
-        d_h1 = p1()
-        d_h1_ms = time_ms(p1)
-        by_width = [(w, time_ms(lambda: mb.product_wgmma(d_h1, W1t, epi=epi2, tile=w, aux=aux2)))
-                    for w in mb.WGMMA_WIDTHS]
-        products_ms = d_h1_ms + next(t for w, t in by_width if w == picks[1])
+        d_h1 = mb.product_wgmma(dy2, W2t, epi=mb.EPI_GELU_GRAD, tile=picks[0], aux=h1_2,
+                                scale=sc1)
+        by_width = []
+        for w in mb.WGMMA_WIDTHS:
+            p1 = time_ms(lambda: mb.product_wgmma(dy2, W2t, epi=mb.EPI_GELU_GRAD, tile=w,
+                                                  aux=h1_2, scale=sc1))
+            p2 = time_ms(lambda: mb.product_wgmma(d_h1, W1t, epi=epi2, tile=w, aux=aux2))
+            by_width.append((w, p1, p2))
+        products_ms = (next(t for w, t, _ in by_width if w == picks[0])
+                       + next(t for w, _, t in by_width if w == picks[1]))
         cublas_ms = time_ms(lambda: F.linear(dy2, W2t)) + time_ms(lambda: F.linear(d_h1, W1t))
         n_products = 2
         # dy, x or f read and dx written, h1 read, in bf16; w1t and w2t; the
@@ -853,9 +858,9 @@ def phase_k2b(gen):
             f"ms ({b_by})  err {shape_err:.2e}  widths {picks[0]} / {picks[1]}: its "
             f"{n_products} products alone {products_ms:.4f} ms "
             f"({ops / products_ms / 1e9:.1f} TFLOP/s), cuBLAS's {cublas_ms:.4f} ms")
-        log(f"[K2b]   d_h1 (ping-pong, width {picks[0]}) {d_h1_ms:.4f} ms; dx by tile width, ms "
-            f"(busiest SM's tiles): " + "; ".join(
-                f"{w}: {t:.4f} ({mb.busiest_sm_tiles(R, C, w, sms)})" for w, t in by_width))
+        log("[K2b]   products alone by tile width, ms (busiest SM's tiles): " + "; ".join(
+            f"{w}: d_h1 {a:.4f} ({mb.busiest_sm_tiles(R, Hd, w, sms)}) dx {b:.4f} "
+            f"({mb.busiest_sm_tiles(R, C, w, sms)})" for w, a, b in by_width))
         max_err = max(max_err, shape_err)
         for key, val in (("ms", ms), ("plain_ms", plain_ms), ("bound_ms", b_ms),
                          ("products_ms", products_ms), ("cublas_ms", cublas_ms),

@@ -26,9 +26,8 @@ from torch_port_harness import attn_inputs
 from avmoe_tpu_torch.kernels.block_chain import (
     block_chain, block_chain_plain, chain_groups, stack_chain)
 from avmoe_tpu_torch.kernels.mlp_block import (
-    EPI_ADD, EPI_GELU_GRAD, EPI_PLAIN, PINGPONG_WIDTH, TILE_WIDTHS, WGMMA_WIDTHS, gelu_grad,
-    mlp_block, mlp_block_bwd, mlp_block_plain, pick_tile, pick_wgmma_tile, product_bf16,
-    product_wgmma)
+    EPI_ADD, EPI_GELU_GRAD, EPI_PLAIN, TILE_WIDTHS, WGMMA_WIDTHS, gelu_grad, mlp_block,
+    mlp_block_bwd, mlp_block_plain, pick_tile, pick_wgmma_tile, product_bf16, product_wgmma)
 from avmoe_tpu_torch.models.ave import init_parameters
 from avmoe_tpu_torch.ops.swin import SwinBlock, partition_windows
 from avmoe_tpu_torch.kernels.window_attention import (
@@ -474,10 +473,8 @@ def test_cuda_mlp_product_train_epilogues_match_plain(cuda_device, width, epi):
 # width and the 64-deep step (M = 1440, N = 96, K = 96: one 64-deep step and
 # a half-empty one), and 16384 rows with N = 200, K = 392
 _WGMMA_CASES = [(1440, 96, 96), (16384, 200, 392)]
-# (epilogue, scaled, width): d_h1's on the ping-pong kernel, the others on
-# the cooperative one at each of its widths
-_WGMMA_EPIS = [(EPI_GELU_GRAD, False, PINGPONG_WIDTH), (EPI_GELU_GRAD, True, PINGPONG_WIDTH),
-               *((epi, False, w) for epi in (EPI_ADD, EPI_PLAIN) for w in WGMMA_WIDTHS)]
+_WGMMA_EPIS = [(EPI_GELU_GRAD, False), (EPI_GELU_GRAD, True), (EPI_ADD, False),
+               (EPI_PLAIN, False)]
 
 
 def _wgmma_operands(M, N, K, device, seed=11):
@@ -491,7 +488,8 @@ def _wgmma_operands(M, N, K, device, seed=11):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("epi,scaled,width", _WGMMA_EPIS)
+@pytest.mark.parametrize("epi,scaled", _WGMMA_EPIS)
+@pytest.mark.parametrize("width", WGMMA_WIDTHS)
 @pytest.mark.parametrize("M,N,K", _WGMMA_CASES)
 def test_cuda_wgmma_product_matches_matmul(cuda_device, M, N, K, width, epi, scaled):
     """The wgmma product and each K2b epilogue against torch.matmul in float32
@@ -520,16 +518,16 @@ def test_cuda_wgmma_product_raises_on_what_it_does_not_take(cuda_device):
         product_wgmma(a[:, :90], bt[:, :90], epi=EPI_PLAIN, tile=128)  # K % 8
     with pytest.raises(RuntimeError, match="CUDA error"):
         product_wgmma(a, bt, epi=EPI_ADD, tile=128)           # EPI_ADD without aux
-    with pytest.raises(RuntimeError, match="CUDA error"):
-        product_wgmma(a, bt, epi=EPI_GELU_GRAD, tile=192, aux=aux)   # ping-pong: 128 only
 
 
 def test_mlp_block_bwd_cases_reach_every_wgmma_width():
-    # on an H100's 132 SMs the picks for the dx products of the K2b cases
-    # above (N = C, K = 4C) take every width the cooperative kernel has (d_h1
-    # runs on the ping-pong kernel's one width)
-    picked = {pick_wgmma_tile(f * L, C, 4 * C, 132) for f, L, C, _ in _MLP_BWD_CASES}
-    assert picked == set(WGMMA_WIDTHS)
+    # on an H100's 132 SMs the picks of the K2b cases above (d_h1: N = 4C,
+    # K = C; dx: N = C, K = 4C) take every width the wgmma kernel has, for
+    # either product
+    for gelu, (n, k) in ((True, (4, 1)), (False, (1, 4))):
+        picked = {pick_wgmma_tile(f * L, n * C, k * C, 132, gelu=gelu)
+                  for f, L, C, _ in _MLP_BWD_CASES}
+        assert picked == set(WGMMA_WIDTHS), (gelu, picked)
 
 
 @pytest.mark.cuda

@@ -13,7 +13,8 @@ ROOT = pathlib.Path(__file__).resolve().parent.parent
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "avmoe_tpu"}
 SOURCES = sorted((ROOT / "avmoe_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "tools" / "k1b_variants.py",
-    ROOT / "tools" / "k2_tile_variants.py", ROOT / "tools" / "k3_phase_ablation.py",
+    ROOT / "tools" / "k2_tile_variants.py", ROOT / "tools" / "k2b_bit_check.py",
+    ROOT / "tools" / "k2b_wgmma_variants.py", ROOT / "tools" / "k3_phase_ablation.py",
     ROOT / "tools" / "train_grad_conditioning.py"]
 
 

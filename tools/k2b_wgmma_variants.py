@@ -1,4 +1,4 @@
-"""Time K2b's bf16 wgmma products under design variants and ablations.
+"""Time K2b's bf16 wgmma product under design variants and ablations.
 
     python3 tools/k2b_wgmma_variants.py [--only VARIANT ...]   # one NVIDIA GPU
 
@@ -39,18 +39,15 @@ STAGES = ("  static constexpr int STAGES = (208 * 1024 - IO) / STAGE < 5 ? (208 
           "/ STAGE : 5;")
 GELU_OUT = ("mlp_block.cu", "    return EPI == kEpiGeluGrad ? gelu_grad_fast(aux) : aux;",
             "    return aux;")
-# d_h1 on the cooperative kernel (at its widths) instead of the ping-pong one
-COOPERATIVE = ("mlp_block.cu", "  if constexpr (EPI == kEpiGeluGrad)\n", "  if constexpr (false)\n")
 # variant -> [([file,] text in it, text of the variant)], the file
 # gemm_wgmma.cuh unless named. The ablations compute wrong results: one
-# moves no epilogue tile on the cooperative kernel (no aux loads, no
-# stores: the TMA copies stay behind a test that fails at run time), one
-# multiplies by h1 instead of gelu'(h1)
+# moves no epilogue tile (no aux loads, no stores: the TMA copies stay
+# behind a test that fails at run time), one multiplies by h1 instead of
+# gelu'(h1)
 ABLATIONS = ("no epilogue TMA loads or stores", "gelu'(h1) left out of the d_h1 epilogue")
 VARIANTS = {
     "kept kernel": [],
-    "d_h1 on the cooperative kernel": [COOPERATIVE],
-    "3 stages at every cooperative width": [(STAGES, STAGES.split("= (")[0] + "= 3;")],
+    "3 stages at every width": [(STAGES, STAGES.split("= (")[0] + "= 3;")],
     "gelu'(h1) left out of the d_h1 epilogue": [GELU_OUT],
     "no epilogue TMA loads or stores": [
         ("        if (Epi::kReadsAux) {\n          const int boxes = min(BOXES, (N - n0 + kBoxN - 1) "
@@ -61,11 +58,10 @@ VARIANTS = {
          "          for (int b = 0; b < BOXES && prev_n0 + b * kBoxN < N && M < 0; ++b)")],
 }
 
-# the cooperative kernel with time stamps (%globaltimer) per CTA, d_h1 on it
-# too: entry, barriers initialised; of its first tile: first stage landed,
-# main loop retired, aux landed, epilogue written; its last tile's epilogue
-# written; and the SM
-TIMELINE = "cooperative kernel, time stamps"
+# the kept kernel with time stamps (%globaltimer) per CTA: entry, barriers
+# initialised; of its first tile: first stage landed, main loop retired, aux
+# landed, epilogue written; its last tile's epilogue written; and the SM
+TIMELINE = "kept kernel, time stamps"
 _STAMP = """
 __device__ unsigned long long g_stamp[4096 * 8];
 __device__ __forceinline__ void stamp(int i) {
@@ -86,7 +82,6 @@ _INIT = ("    mbar_init(out_ready, kConsumerThreads);\n"
 _DESC = ("        const uint64_t da = smem_desc(st + wr * 64 * kBK * 2), "
          "db = smem_desc(st + S::STAGE_A);\n")
 VARIANTS[TIMELINE] = [
-    COOPERATIVE,
     ("using bf16 = __nv_bfloat16;\n", "using bf16 = __nv_bfloat16;\n" + _STAMP),
     ("  const int ntn = (N + BN - 1) / BN;\n",
      "  const int ntn = (N + BN - 1) / BN;\n  if (threadIdx.x == 0) stamp(0);\n"),
@@ -104,21 +99,10 @@ extern "C" int wg_stamps(void* host) {
 """)]
 ABLATIONS = ABLATIONS + (TIMELINE,)
 PHASES = ("init", "first stage", "main loop", "aux wait", "epilogue", "the other tiles")
-# the variants whose d_h1 runs on the cooperative kernel, at its widths
-COOPERATIVE_D_H1 = ("d_h1 on the cooperative kernel", TIMELINE)
 
 
-def widths(name: str, epi: int):
-    """The tile widths a variant's product takes: d_h1 the ping-pong
-    kernel's one, unless the variant moves it to the cooperative kernel."""
-    if epi == mb.EPI_GELU_GRAD and name not in COOPERATIVE_D_H1:
-        return (mb.PINGPONG_WIDTH,)
-    return mb.WGMMA_WIDTHS
-
-
-def pick(name: str, M: int, N: int, K: int, epi: int, sms: int) -> int:
-    w = widths(name, epi)
-    return w[0] if len(w) == 1 else mb.pick_wgmma_tile(M, N, K, sms)
+def pick(M: int, N: int, K: int, epi: int, sms: int) -> int:
+    return mb.pick_wgmma_tile(M, N, K, sms, gelu=epi == mb.EPI_GELU_GRAD)
 
 
 _ENTRY = re.compile(r"Compiling entry function '(\S+)'")
@@ -134,8 +118,8 @@ def wgmma_report(log: str) -> str:
     for line in log.splitlines():
         m = _ENTRY.search(line)
         if m:
-            w = re.search(r"mlp_gemm_wgmma(ILi(\d+)E|_pingpong)", m.group(1))
-            width = (w.group(2) or "ping-pong") if w else None
+            w = re.search(r"mlp_gemm_wgmmaILi(\d+)E", m.group(1))
+            width = w.group(1) if w else None
         elif width and _SPILL.search(line):
             out.setdefault(width, set()).add(("spill", int(_SPILL.search(line).group(1))))
         elif width and _REGS.search(line):
@@ -251,7 +235,7 @@ def main():
         print(f"[variant] {name}: {report}", flush=True)
         try:
             for (epi, scaled), r in refs.items() if name not in ABLATIONS else ():
-                for width in widths(name, epi):
+                for width in mb.WGMMA_WIDTHS:
                     out = product(lib, a, bt, epi, width, None if epi == mb.EPI_PLAIN else aux,
                                   scale if scaled else None)
                     ok = bool(((out.float() - r).abs() <= 4e-3 * r.abs() + 1e-3).all())
@@ -268,7 +252,7 @@ def main():
             bt = (torch.randn(N, K, device="cuda", generator=gen) / K ** 0.5).bfloat16()
             aux = None if epi == mb.EPI_PLAIN else torch.randn(M, N, device="cuda",
                                                                generator=gen).bfloat16()
-            width = pick(TIMELINE, M, N, K, epi, sms)
+            width = pick(M, N, K, epi, sms)
             timeline(lib, label, M, N, K, width, lambda: product(
                 lib, a, bt, epi, width, aux, scale if scaled else None))
             del a, bt, aux
@@ -287,9 +271,9 @@ def main():
         cublas += calls * lib_ms
         for name, (lib, _) in libs.items():
             row = {}
-            for width in widths(name, epi):
+            for width in mb.WGMMA_WIDTHS:
                 row[width] = cs.time_ms(lambda: product(lib, a, bt, epi, width, aux, sc))
-            chosen = pick(name, M, N, K, epi, sms)
+            chosen = pick(M, N, K, epi, sms)
             picked[name] += calls * row[chosen]
             best[name] += calls * min(row.values())
             print(f"[product] {label} M={M} N={N} K={K} x{calls}/step (pick {chosen}, cuBLAS "
