@@ -846,17 +846,16 @@ def phase_k2b(gen):
         products_ms = (next(t for w, t, _ in by_width if w == picks[0])
                        + next(t for w, _, t in by_width if w == picks[1]))
         cublas_ms = time_ms(lambda: F.linear(dy2, W2t)) + time_ms(lambda: F.linear(d_h1, W1t))
-        n_products = 2
         # dy, x or f read and dx written, h1 read, in bf16; w1t and w2t; the
         # float32 norm weight and scale; two products (d_h1 not counted: a
         # fused kernel would not move it)
         nbytes = 3 * R * C * 2 + R * Hd * 2 + 2 * C * Hd * 2 + (C + frames) * 4
-        ops = 2 * R * C * Hd * n_products
+        ops = 4 * R * C * Hd
         b_ms, b_by = bound(nbytes, ops, BF16_FLOPS)
         log(f"[K2b] rows,C={(R, C, 'v1' if pre else 'v2')} x{calls}/step  bf16 {ms:.4f} ms "
             f"({ops / ms / 1e9:.1f} TFLOP/s)  plain autograd {plain_ms:.4f} ms  bound {b_ms:.4f} "
-            f"ms ({b_by})  err {shape_err:.2e}  widths {picks[0]} / {picks[1]}: its "
-            f"{n_products} products alone {products_ms:.4f} ms "
+            f"ms ({b_by})  err {shape_err:.2e}  widths {picks[0]} / {picks[1]}: its 2 "
+            f"products alone {products_ms:.4f} ms "
             f"({ops / products_ms / 1e9:.1f} TFLOP/s), cuBLAS's {cublas_ms:.4f} ms")
         log("[K2b]   products alone by tile width, ms (busiest SM's tiles): " + "; ".join(
             f"{w}: d_h1 {a:.4f} ({mb.busiest_sm_tiles(R, Hd, w, sms)}) dx {b:.4f} "
