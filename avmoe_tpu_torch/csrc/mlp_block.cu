@@ -58,9 +58,9 @@
 // Two products, 4 R C Hd operations, and no forward product run again. What
 // bounds K2b: at every main-path shape but Swin-V2 stage 1 and HTS-AT stages
 // 1-2 (bound by their bytes: h1 is read once, (R, Hd)) the two products
-// bound it, so in bf16 they run on the wgmma kernel of gemm_wgmma.cuh (TMA
-// ring, two consumer warpgroups, 128 x BN tiles picked per product by the
-// wrapper), the only route to the tensor cores' full rate; their B operands
+// bound it, so in bf16 they run on the wgmma kernel of gemm_wgmma.cuh
+// (persistent, TMA ring, two consumer warpgroups, 128 x BN tiles picked per
+// product by the wrapper), the only route to the tensor cores' full rate; their B operands
 // are the transposed copies w1t = w1^T (C, Hd) and w2t = w2^T (Hd, C), which
 // the wrapper keeps once per model and dtype, so both operands are K-major.
 // Their epilogues: x gelu'(h1) (and x s on V1); + dy without a bias; none.

@@ -26,11 +26,11 @@ it beside gelu(h1)) and, on V2, fc2's output f; its backward is K2b
 with no product of the forward run again. K2b runs two products and one
 LayerNorm-backward row pass; in bf16 its products run on the wgmma kernel
 (`csrc/gemm_wgmma.cuh`, TMA-fed and persistent, output tiles 128 x
-`pick_wgmma_tile`'s width), since they, not the bytes, bound K2b at most shapes. The weights are
-frozen: on the card a weight that needs a gradient raises; on the CPU that
-case takes plain autograd. The backward products take the transposed
-weights w1t = w1ᵀ (C, Hd) and w2t = w2ᵀ (Hd, C), which the caller keeps
-(SwinBlock does, once per dtype).
+`pick_wgmma_tile`'s width), since they, not the bytes, bound K2b at most
+shapes. The weights are frozen: on the card a weight that needs a gradient
+raises; on the CPU that case takes plain autograd. The backward products
+take the transposed weights w1t = w1ᵀ (C, Hd) and w2t = w2ᵀ (Hd, C), which
+the caller keeps (SwinBlock does, once per dtype).
 """
 
 from __future__ import annotations

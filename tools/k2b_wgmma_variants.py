@@ -50,10 +50,10 @@ VARIANTS = {
     "3 stages at every width": [(STAGES, STAGES.split("= (")[0] + "= 3;")],
     "gelu'(h1) left out of the d_h1 epilogue": [GELU_OUT],
     "no epilogue TMA loads or stores": [
-        ("        if (Epi::kReadsAux) {\n          const int boxes = min(BOXES, (N - n0 + kBoxN - 1) "
-         "/ kBoxN);\n          mbar_expect_tx(aux_full,",
-         "        if (Epi::kReadsAux && M < 0) {\n          const int boxes = min(BOXES, (N - n0 + "
-         "kBoxN - 1) / kBoxN);\n          mbar_expect_tx(aux_full,"),
+        ("        if (Epi::kReadsAux) {\n          const int boxes = min(BOXES, (N - n0 + "
+         "kBoxN - 1) / kBoxN);\n          mbar_expect_tx(aux_full,",
+         "        if (Epi::kReadsAux && M < 0) {\n          const int boxes = min(BOXES, (N - n0"
+         " + kBoxN - 1) / kBoxN);\n          mbar_expect_tx(aux_full,"),
         ("          for (int b = 0; b < BOXES && prev_n0 + b * kBoxN < N; ++b)",
          "          for (int b = 0; b < BOXES && prev_n0 + b * kBoxN < N && M < 0; ++b)")],
 }
@@ -87,7 +87,8 @@ VARIANTS[TIMELINE] = [
      "  const int ntn = (N + BN - 1) / BN;\n  if (threadIdx.x == 0) stamp(0);\n"),
     (_INIT, _INIT + "  if (threadIdx.x == 0) stamp(1);\n"),
     (_DESC, _DESC + "        if (li == 0 && kt == 0 && threadIdx.x == 0) stamp(2);\n"),
-    ("      fence_regs(d);\n", "      fence_regs(d);\n      if (li == 0 && threadIdx.x == 0) stamp(3);\n"),
+    ("      fence_regs(d);\n",
+     "      fence_regs(d);\n      if (li == 0 && threadIdx.x == 0) stamp(3);\n"),
     ("      mbar_wait(aux_full, li & 1);\n",
      "      mbar_wait(aux_full, li & 1);\n      if (li == 0 && threadIdx.x == 0) stamp(4);\n"),
     ("      mbar_arrive(out_ready);\n",
