@@ -1,4 +1,5 @@
-"""Configuration of the AVE model and its training, as plain frozen dataclasses.
+"""Configuration of the AVE and AVVP models and their training, as plain
+frozen dataclasses.
 
 Field names and defaults mirror the JAX package's `avmoe_tpu/config.py` so a
 configuration reads the same in both packages. Fields that only select a
@@ -8,6 +9,7 @@ carried over: the port computes the same function without them.
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass, field
 from typing import Tuple
 
@@ -105,7 +107,8 @@ class AdapterConfig:
     vis_use_gate: bool = True
     before_layernorm: bool = True
     post_layernorm: bool = True
-    # only 'none' (the AVE setting) is ported
+    # the unimodal expert's self-attention: 'none' (AVE) and 'bmm' (AVVP) are
+    # ported; 'mha' (AVS) and 'token' (AVQA) are not
     self_attention: str = "none"
 
 
@@ -153,6 +156,31 @@ class AVEConfig:
 
 
 @dataclass(frozen=True)
+class AVVPConfig:
+    """AVVP weakly-supervised parsing (the MGN model): adapters in every stage
+    (num_skip=1), no BatchNorm in the adapters, bmm self-attention unimodal
+    experts, the router's load-balance loss on at the reference's magnitude."""
+
+    num_classes: int = 25
+    num_segments: int = 10
+    audio_len: int = 32_000
+    dim: int = 128
+    st_dim: int = 512              # r2plus1d clip features
+    depth_aud: int = 3
+    depth_vis: int = 3
+    depth_av: int = 6
+    unimodal_assign: str = "soft"   # 'soft' | 'hard'
+    crossmodal_assign: str = "soft"
+    swin: SwinV2Config = field(default_factory=SwinV2Config)
+    htsat: HTSATConfig = field(default_factory=HTSATConfig)
+    moe: MoEConfig = field(default_factory=lambda: MoEConfig(
+        load_balance_loss=True, lb_loss_compat=True,
+        adapter=AdapterConfig(use_bn=False, self_attention="bmm"),
+    ))
+    injection: InjectionConfig = field(default_factory=lambda: InjectionConfig(num_skip=1))
+
+
+@dataclass(frozen=True)
 class TrainConfig:
     """The optimizer's settings of the JAX package's TrainConfig."""
 
@@ -197,3 +225,45 @@ def tiny_ave_config() -> AVEConfig:
         htsat=tiny_htsat(),
         moe=MoEConfig(adapter=AdapterConfig(downsample=4, num_conv_group=2, num_tokens=8)),
     )
+
+
+def tiny_avvp_config() -> AVVPConfig:
+    return AVVPConfig(
+        num_segments=2,
+        audio_len=4000,
+        dim=32,
+        st_dim=16,
+        depth_aud=1, depth_vis=1, depth_av=1,
+        swin=tiny_swin(),
+        htsat=tiny_htsat(),
+        moe=MoEConfig(
+            load_balance_loss=True, lb_loss_compat=True,
+            adapter=AdapterConfig(downsample=4, num_conv_group=2, num_tokens=8,
+                                  use_bn=False, self_attention="bmm"),
+        ),
+        injection=InjectionConfig(num_skip=1),
+    )
+
+
+# "mini" configs: the tiny widths at the datasets' real clip geometry (10
+# one-second segments at 32 kHz)
+
+
+def _mini_frontend() -> AudioFrontendConfig:
+    # 32k samples / hop 1000: the same 32-frame x 16-mel spectrogram as the
+    # tiny front end, so tiny_htsat()'s geometry holds unchanged
+    return AudioFrontendConfig(
+        sample_rate=32000, n_fft=1024, hop_length=1000, win_length=1024,
+        n_mels=16, fmin=50.0, fmax=14000.0,
+        time_drop_width=8, time_stripes_num=2, freq_drop_width=2,
+        freq_stripes_num=2,
+    )
+
+
+def _mini_htsat() -> HTSATConfig:
+    return dataclasses.replace(tiny_htsat(), frontend=_mini_frontend())
+
+
+def mini_avvp_config() -> AVVPConfig:
+    return dataclasses.replace(tiny_avvp_config(), num_segments=10, audio_len=32000,
+                               htsat=_mini_htsat())

@@ -126,19 +126,60 @@ class CrossModalExpert(_Expert):
         return self._tail(xe, train)
 
 
+class _GramBf16(torch.autograd.Function):
+    """x xᵀ in float32 for a bf16 x on the card: one bf16 product that
+    accumulates in float32 on the tensor cores. The products of bf16 values
+    are exact there, as they are in the float32 product of the upcast values.
+    The backward is the float32 one of that product, each operand's part cast
+    to bf16 as the upcast's backward casts it."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor) -> torch.Tensor:
+        ctx.save_for_backward(x)
+        return torch.bmm(x, x.transpose(1, 2), out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor) -> torch.Tensor:
+        (x,) = ctx.saved_tensors
+        xf = x.float()
+        return torch.bmm(g, xf).to(x.dtype) + torch.bmm(g.transpose(1, 2), xf).to(x.dtype)
+
+
+def _gram_f32(x: torch.Tensor) -> torch.Tensor:
+    """(B, N, C) -> (B, N, N) float32 logits x_i . x_j."""
+    if x.is_cuda and x.dtype == torch.bfloat16:
+        return _GramBf16.apply(x)
+    return torch.matmul(x.float(), x.float().transpose(1, 2))
+
+
 class UnimodalExpert(_Expert):
-    """Bottleneck (no activation) on x alone (self_attention='none')."""
+    """Bottleneck (no activation) on x alone, after an optional self-attention:
+    'none' (AVE) or 'bmm' (AVVP), a gated dot-product self-attention with a
+    per-expert gate_av."""
 
     def __init__(self, dim: int, cfg: AdapterConfig, num: int):
-        if cfg.self_attention != "none":
+        if cfg.self_attention not in ("none", "bmm"):
             raise NotImplementedError(
-                f"self_attention={cfg.self_attention!r}: only 'none' (AVE) is ported")
+                f"self_attention={cfg.self_attention!r}: only 'none' (AVE) and 'bmm' (AVVP) "
+                "are ported")
         super().__init__(dim, cfg, num, use_activation=False)
+        if cfg.self_attention == "bmm":
+            self.gate_av = nn.Parameter(torch.zeros(num, 1))
 
     def forward(self, x: torch.Tensor, other: torch.Tensor, train: bool = False) -> torch.Tensor:
+        """x (B, N, C) -> (E, B, N, C)."""
         del other
         E = self.bottleneck.down.kernel.shape[0]
-        return self._tail(x[None].expand(E, *x.shape), train)
+        if self.cfg.self_attention == "none":
+            return self._tail(x[None].expand(E, *x.shape), train)
+        # att[i, j] = softmax_j(x_i . x_j), float32 logits, cast to x's dtype;
+        # res_j = sum_i att[i, j] x_i: the transposed product att^T x. Both
+        # are the same for every expert: only gate_av differs.
+        dt = x.dtype
+        att = torch.softmax(_gram_f32(x), dim=-1).to(dt)
+        res = torch.matmul(att.transpose(1, 2), x)
+        xe = x[None] + _per_expert(self.gate_av, 4).to(dt) * res[None]
+        return self._tail(xe, train)
 
 
 class MoEAdapter(nn.Module):

@@ -18,7 +18,8 @@ block a K=1 'full' chain; the visual MLP sub-block stays on K2.
 `chain_calls` and `kernel_launches` give the K3 calls and the launches per
 forward from the configs alone; `backward_launches` the K1b / K2b launches
 of a train step's backward on the default path. The chain path is eval
-only: its train forward raises (K3 has no backward kernel yet).
+only, as the JAX package's Pallas chain is inference-only: its train forward
+raises.
 """
 
 from __future__ import annotations
@@ -274,8 +275,8 @@ class LockstepEncoder(nn.Module):
         and the summed lb_loss."""
         if train and self.block_chains:
             raise NotImplementedError(
-                "the chain path (block_chains=True) is eval only: K3 has no backward kernel "
-                "(ROADMAP: K3 backward for the chain path); train on the default path")
+                "the chain path (block_chains=True) is eval only, as the JAX package's fused "
+                "block chain is inference-only; train on the default path")
         inj = self.injection_cfg
         swin, htsat = self.swin, self.htsat
         f_v = swin.embed(images)

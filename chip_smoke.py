@@ -7,7 +7,9 @@ nothing of JAX. It drives two paths of the AVE eval forward: the default
 path (K1 window attention + K2 MLP block in every Swin block) and the chain
 path, `AVEModel(cfg, block_chains=True)` (K3 block chains, K2 at the adapter
 seams); then the AVE train step on the default path (K1 and K2 forward, the
-backward kernels K1b and K2b). Phases (any failed check raises, and the
+backward kernels K1b and K2b); then AVVP, `MGNModel(AVVPConfig())`
+(adapters in all four stages, bmm unimodal experts, grouping heads), its
+eval forward and train step through the same kernels. Phases (any failed check raises, and the
 script exits non-zero without printing the result line):
 
   1. card: nvidia-smi name and power limit, torch / CUDA versions;
@@ -70,10 +72,32 @@ script exits non-zero without printing the result line):
      reported: there the adapters' bf16 gradients are not reproducible);
      times (reported, not claimed): train step ms and
      clips/s, peak memory, and a torch.profiler split of one step's device
-     time by kernel.
+     time by kernel;
+ 14. tiny MGNModel (AVVP) in float32: the eval forward on both paths, card
+     vs CPU, every output, gating probs and lb_loss rtol 1e-3, atol 1e-4;
+     one deterministic step's trainable gradients card vs CPU (cosine and
+     every leaf >= 0.9999) and a 2-step train curve (as phase 12), the
+     heads' DropPath off and HAN's Gumbel noise given on both;
+ 15. full AVVPConfig() in bfloat16 on the default path at batch 4 and 1
+     clips, seeded weights with non-zero gates, gate_av and class tokens:
+     K1 / K2 / K3 launches per forward as the plan gives them (36 / 36 /
+     0), shapes, finiteness, gating sums, lb_loss; cosine >= 0.99 of the
+     pooled encoder features f_v and f_a against a float32 forward; the
+     heads' largest differences and HAN's flipped straight-through
+     assignments (reported: an argmax is discontinuous); the F1 suite of
+     make_avvp_eval_fn finite; times and a profile as in phases 8 and 9;
+ 16. the full AVVPConfig() bf16 train step at batch 4 (DropPath, SpecAugment,
+     dropout, Gumbel noise, mixup on): K1 / K2 / K1b / K2b launches per step
+     (36 / 36 / 34 / 35), frozen parameters bit-identical, every trainable
+     one moved, bn0's running stats moved; one deterministic step's
+     trainable gradients in float32 through the kernels against their plain
+     versions at the seeded init, cosine >= 0.9999 overall and on every
+     leaf (bf16 vs fp32 there, and the same at the trained model's noised
+     gates, reported); step ms, clips/s, peak memory and a profile.
 
-The line before the last is a JSON object with the per-kernel summary; the
-last line is {"ok": true, "device": {...}}.
+The line two before the last is a JSON object of the AVVP numbers, the line
+before the last one with the per-kernel summary (AVE's launches and, beside
+them, AVVP's); the last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -465,17 +489,22 @@ def phase_k3(gen):
 
 
 def _nonzero_gates_(model, seed: int) -> None:
-    """Adapter gates (zero at init) and BN running stats made non-trivial."""
+    """Adapter gates and gate_av (the cross-modal and the bmm experts'), the
+    AVVP class tokens (all zero at init) and BN running stats made
+    non-trivial."""
     g = torch.Generator(device="cpu")
     g.manual_seed(seed)
     with torch.no_grad():
         for name, t in list(model.named_parameters()) + list(model.named_buffers()):
             leaf = name.rsplit(".", 1)[-1]
-            if leaf not in ("gate", "gate_av", "running_mean", "running_var"):
+            if leaf not in ("gate", "gate_av", "audio_token", "visual_token", "running_mean",
+                            "running_var"):
                 continue
             noise = torch.randn(t.shape, generator=g).to(t.device)
             if leaf in ("gate", "gate_av"):
                 t.copy_(0.5 + 0.2 * noise)
+            elif leaf in ("audio_token", "visual_token"):
+                t.copy_(noise)
             elif leaf == "running_var" and "bn0" not in name:
                 t.copy_(0.5 + 0.2 * noise.abs())
             elif leaf == "running_mean" and "bn0" not in name:
@@ -570,25 +599,26 @@ def _drive(model, label: str, want, wave, imgs):
     return outs, got
 
 
-def _times(model, label: str, wave, imgs) -> float:
-    """Batch-4 throughput (3 warm-ups, 20 iterations) and batch-1 p50."""
+def _times(model, label: str, *inputs) -> float:
+    """Batch-4 throughput (3 warm-ups, 20 iterations) and batch-1 p50 of
+    model(*inputs), the inputs batch-first."""
     torch.cuda.reset_peak_memory_stats()
     for _ in range(3):
-        model(wave, imgs)
+        model(*inputs)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(20):
-        model(wave, imgs)
+        model(*inputs)
     torch.cuda.synchronize()
     fwd_s = (time.perf_counter() - t0) / 20
-    w1, i1 = wave[:1], imgs[:1]
+    one = tuple(t[:1] for t in inputs)
     for _ in range(3):
-        model(w1, i1)
+        model(*one)
     lat = []
     for _ in range(20):
         torch.cuda.synchronize()
         t1 = time.perf_counter()
-        model(w1, i1)
+        model(*one)
         torch.cuda.synchronize()
         lat.append(time.perf_counter() - t1)
     p50 = float(np.percentile(lat, 50)) * 1e3
@@ -644,16 +674,22 @@ def phase_full():
 
 
 def phase_profile(label: str, run, fwd_ms: float, iters: int = 3,
-                  what: str = "forward") -> None:
+                  what: str = "forward"):
     """Device time per `run()` (a forward or a train step) by kernel
-    (torch.profiler), and the share of its wall time in which the device was
-    idle."""
+    (torch.profiler), and the share of the wall time in which the device was
+    idle: of `fwd_ms`, the unprofiled wall time of the same work, and of the
+    profiled window, whose wall time also holds the profiler's own host work.
+    Returns (device-busy ms, idle share of fwd_ms, idle share of the profiled
+    window), all None where the profiler saw no kernels."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
         for _ in range(iters):
             run()
         torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) / iters * 1e3
     by_name = {}
     for e in prof.events():
         # device-side kernel and memcpy events only: the host ops that
@@ -670,7 +706,10 @@ def phase_profile(label: str, run, fwd_ms: float, iters: int = 3,
     busy = sum(by_name.values())
     if busy == 0:
         log(f"[profile] {label}: device time not measured (the profiler saw no CUDA kernels)")
-        return
+        return None, None, None
+    # one stream, synchronized at both ends of each window: its kernels fit in it
+    for w in (wall, fwd_ms):
+        check(busy <= w, f"{label}: device busy {busy:.3f} ms > wall {w:.3f} ms")
     # first matching group wins
     rules = (("K3 block_chain", ("block_chain_kernel",)),
              ("K1b window_attention_bwd", ("window_attention_bwd",)),
@@ -686,11 +725,13 @@ def phase_profile(label: str, run, fwd_ms: float, iters: int = 3,
         group = next((g for g, keys in rules if any(k in name for k in keys)), "other")
         groups[group] += ms
     log(f"[profile] {label} batch {BATCH}: device busy {busy:.2f} ms of {fwd_ms:.2f} ms wall per "
-        f"{what} (idle share {max(0.0, 1.0 - busy / fwd_ms):.3f}); "
+        f"{what} (idle share {1.0 - busy / fwd_ms:.3f}; of the profiled window's {wall:.2f} ms "
+        f"{1.0 - busy / wall:.3f}); "
         + ", ".join(f"{k} {v:.2f} ms" for k, v in groups.items()))
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
     for name, ms in top:
         log(f"[profile] {label}  {ms:8.3f} ms  {100 * ms / busy:5.1f}%  {name[:100]}")
+    return busy, 1.0 - busy / fwd_ms, 1.0 - busy / wall
 
 
 # ---------------------------------------------------------------------------
@@ -1164,6 +1205,391 @@ def phase_train(model):
     return got, step_ms
 
 
+# ---------------------------------------------------------------------------
+# AVVP: the MGN model (adapters in all four stages, bmm unimodal experts,
+# grouping heads)
+# ---------------------------------------------------------------------------
+
+AVVP_OUT = ("aud_cls_logits", "vis_cls_logits", "global_prob", "a_prob", "v_prob",
+            "a_frame_prob", "v_frame_prob")
+GATING = ("audio_p1", "audio_p2", "video_p1", "video_p2")
+
+
+def _avvp_inputs(cfg, clips: int, seed: int, device):
+    """Seeded waves, frames and r2plus1d features (B, T, st_dim)."""
+    wave, imgs = _inputs(cfg, clips, seed, device)
+    st = np.random.RandomState(seed + 1).randn(clips, cfg.num_segments, cfg.st_dim)
+    return wave, imgs, torch.from_numpy(st.astype(np.float32)).to(device)
+
+
+def _avvp_batches(cfg, clips: int, steps: int, seed: int, device):
+    """Seeded AVVP batches: inputs, weak (B, 25) labels, a per-frame mixup λ."""
+    rng = np.random.RandomState(seed)
+    out = []
+    for _ in range(steps):
+        wave, imgs, st = _avvp_inputs(cfg, clips, int(rng.randint(1 << 30)), device)
+        labels = (rng.rand(clips, cfg.num_classes) < 0.2).astype(np.float32)
+        lam = rng.uniform(0.3, 0.7, clips * cfg.num_segments).astype(np.float32)
+        out.append(dict(wave=wave, images=imgs, video_st=st,
+                        labels=torch.from_numpy(labels).to(device),
+                        mixup_lambda=torch.from_numpy(lam).to(device)))
+    return out
+
+
+@contextlib.contextmanager
+def _heads_without_draws(models, noise: torch.Tensor):
+    """The heads' random draws made the same on the CPU and the card: their
+    DropPath off and HAN's Gumbel noise given (`noise`, (B, T, T))."""
+    import avmoe_tpu_torch.heads.grouping as grouping
+
+    kept = grouping.gumbel_noise
+    rates = [(m, m.drop_path) for model in models for m in model.modules()
+             if isinstance(m, grouping.AttnBlock)]
+    grouping.gumbel_noise = lambda shape, generator, device, dtype: noise.to(device, dtype)
+    for m, _ in rates:
+        m.drop_path = 0.0
+    try:
+        yield
+    finally:
+        grouping.gumbel_noise = kept
+        for m, rate in rates:
+            m.drop_path = rate
+
+
+def _avvp_close(out, ref, label: str) -> float:
+    """Every output, gating probs and lb_loss of a card forward against a CPU
+    one, rtol 1e-3, atol 1e-4; the largest |d| of the outputs."""
+    worst = 0.0
+    for key in AVVP_OUT:
+        a, b = out[key].cpu(), ref[key]
+        worst = max(worst, (a - b).abs().max().item())
+        check(torch.allclose(a, b, rtol=1e-3, atol=1e-4), f"{label} {key}: card vs CPU max "
+              f"|d| {(a - b).abs().max().item():.3e}")
+    for key in GATING + ("lb_loss",):
+        a, b = out["telemetry"][key].cpu(), ref["telemetry"][key]
+        check(torch.allclose(a, b, rtol=1e-3, atol=1e-4), f"{label} {key}: card vs CPU")
+    return worst
+
+
+def phase_avvp_tiny() -> int:
+    """Tiny MGNModel in float32: the eval forward on both paths and a 2-step
+    train curve on the default path, card (kernels) vs CPU (plain
+    versions). Returns the K3 launches of the tiny chain-path forward."""
+    from avmoe_tpu_torch.config import TrainConfig, tiny_avvp_config
+    from avmoe_tpu_torch.kernels.block_chain import block_chain
+    from avmoe_tpu_torch.models.avvp import MGNModel, make_avvp_loss_fn
+    from avmoe_tpu_torch.train.freeze import freeze
+    from avmoe_tpu_torch.train.state import create_train_state
+    from avmoe_tpu_torch.train.steps import make_train_step
+
+    cfg = tiny_avvp_config()
+    cpu = MGNModel(cfg, device="cpu", seed=0)
+    _nonzero_gates_(cpu, 1)
+    ins = _avvp_inputs(cfg, 2, 2, "cpu")
+    chain_launches = 0
+    for chains in (False, True):
+        label = "chain path" if chains else "default path"
+        cpu.encoder.block_chains = chains
+        ref = cpu(*ins)
+        gpu = MGNModel(cfg, device="cuda", seed=None, block_chains=chains)
+        gpu.load_state_dict(cpu.state_dict())
+        block_chain.launches = 0
+        out = gpu(*(t.cuda() for t in ins))
+        torch.cuda.synchronize()
+        check((block_chain.launches > 0) == chains, f"tiny AVVP {label}: K3 launches "
+              f"{block_chain.launches}")
+        if chains:
+            chain_launches = block_chain.launches
+        worst = _avvp_close(out, ref, f"tiny AVVP {label}")
+        log(f"[avvp tiny] fp32 {label}, card (kernels) vs CPU (plain): every output, gating "
+            f"probs and lb_loss within rtol 1e-3, atol 1e-4; outputs max |d| {worst:.3e}")
+    cpu.encoder.block_chains = False
+
+    gpu = MGNModel(cfg, device="cuda", seed=None)
+    gpu.load_state_dict(cpu.state_dict())
+    T = cfg.num_segments
+    noise = torch.from_numpy(np.random.RandomState(3).gumbel(size=(2, T, T)).astype(np.float32))
+    tcfg = TrainConfig(accum_steps=1, lr=1e-5, lr_mlp=1e-5, decay=0.5, decay_epoch=1)
+    counters = _train_counters()
+    with _heads_without_draws((cpu, gpu), noise):
+        grads, kept = {}, {k: v.clone() for k, v in cpu.state_dict().items()}
+        for label, model, dev in (("cpu", cpu, "cpu"), ("card", gpu, "cuda")):
+            freeze(model)
+            batch = _avvp_batches(cfg, 2, 1, 7, dev)[0]
+            grads[label] = _trainable_grads(model, make_avvp_loss_fn(model), batch, 0)
+            model.load_state_dict(kept)
+        whole, low, leaf = _grad_cosines(grads["card"], grads["cpu"])
+        check(whole >= 0.9999 and low >= 0.9999, f"tiny AVVP train gradients card vs CPU: "
+              f"cosine {whole:.7f}, lowest leaf {low:.7f} ({leaf}); want >= 0.9999")
+        runs = {}
+        with _deterministic():
+            for label, model, dev in (("cpu", cpu, "cpu"), ("card", gpu, "cuda")):
+                state = create_train_state(model, tcfg, steps_per_epoch=2)
+                step = make_train_step(make_avvp_loss_fn(model))
+                gen = torch.Generator(device=dev).manual_seed(0)
+                for c in counters.values():
+                    c.launches = 0
+                losses = []
+                for batch in _avvp_batches(cfg, 2, 2, 7, dev):
+                    state, met = step(state, batch, gen)
+                    losses.append(float(met["loss"]))
+                runs[label] = (losses, {k: v.detach().cpu() for k, v in model.state_dict().items()},
+                               {k: c.launches for k, c in counters.items()})
+    (l_cpu, s_cpu, _), (l_gpu, s_gpu, n_gpu) = runs["cpu"], runs["card"]
+    check(all(v > 0 for v in n_gpu.values()), f"tiny AVVP train: launches on the card {n_gpu}")
+    check(np.allclose(l_gpu, l_cpu, rtol=1e-3, atol=0.0),
+          f"tiny AVVP train losses: card {l_gpu} vs CPU {l_cpu}")
+    worst = 0.0
+    for k in s_cpu:
+        a, b = s_gpu[k].float(), s_cpu[k].float()
+        worst = max(worst, (a - b).abs().max().item())
+        check(torch.allclose(a, b, rtol=1e-3, atol=1e-4), f"tiny AVVP train {k}: card vs CPU "
+              f"max |d| {(a - b).abs().max().item():.3e}")
+    log(f"[avvp tiny] fp32 trainable gradients of one deterministic step, card vs CPU: cosine "
+        f"{whole:.7f}, lowest per-leaf cosine {low:.7f} ({leaf}) (>= 0.9999 both); 2 steps at "
+        f"lr 1e-5: losses {[round(v, 6) for v in l_gpu]} vs {[round(v, 6) for v in l_cpu]}; "
+        f"parameters and running stats max |d| {worst:.3e} (rtol 1e-3, atol 1e-4); launches on "
+        f"the card {n_gpu}")
+    return chain_launches
+
+
+def _han_assignments(model, store: list):
+    """Forward hook on HAN's assignment: the group each token's straight-
+    through argmax picks, appended to `store` at every call."""
+    assign = model.audio_cug.han_encoder.assign
+
+    def hook(mod, args, output):
+        q, k = mod.q_proj(args[0]), mod.k_proj(args[1])
+        store.append(torch.einsum("bgc,btc->bgt", q, k).argmax(dim=-2).cpu())
+
+    return assign.register_forward_hook(hook)
+
+
+def phase_avvp_gram(gen):
+    """The bmm expert's float32 logits x xᵀ of a bf16 x (one bf16 product
+    accumulating in float32, `moe/adapter.py` `_gram_f32`) against the
+    product of the upcast values, forward and backward, at each stage's
+    (tokens, channels) for BATCH clips; times of both."""
+    from avmoe_tpu_torch.config import AVVPConfig
+    from avmoe_tpu_torch.moe.adapter import _gram_f32
+
+    cfg = AVVPConfig()
+    plain = lambda x: torch.matmul(x.float(), x.float().transpose(1, 2))
+    rows = BATCH * cfg.num_segments
+    shapes = []
+    for s in range(4):
+        shapes.append(("visual", cfg.swin.patches_resolution[0] ** 2 // 4 ** s,
+                       cfg.swin.embed_dim * 2 ** s))
+        shapes.append(("audio", (cfg.htsat.spec_size // cfg.htsat.patch_size) ** 2 // 4 ** s,
+                       cfg.htsat.embed_dim * 2 ** s))
+    for side, N, C in shapes:
+        x = (torch.randn(rows, N, C, device="cuda", generator=gen) * 0.3).bfloat16()
+        dz = torch.randn(rows, N, N, device="cuda", generator=gen)
+        (out, (dx,)), (ref, (dref,)) = _grads(_gram_f32, [x], dz), _grads(plain, [x], dz)
+        err = ((out - ref).abs().max() / ref.abs().max()).item()
+        derr = ((dx.float() - dref.float()).abs().max() / dref.float().abs().max()).item()
+        check(out.dtype == torch.float32 and err <= 1e-5,
+              f"bmm logits {side} N={N} C={C}: relative error {err:.3e} > 1e-5")
+        check(derr <= 2 ** -7, f"bmm logits backward {side} N={N} C={C}: relative error "
+              f"{derr:.3e} > 2^-7 (one bf16 step)")
+        log(f"[gram] {side} ({rows}, {N}, {C}): forward {time_ms(lambda: _gram_f32(x)):.3f} ms "
+            f"(upcast float32 product {time_ms(lambda: plain(x)):.3f} ms), backward "
+            f"{_backward_ms(_gram_f32, [x], dz):.3f} ms (upcast "
+            f"{_backward_ms(plain, [x], dz):.3f} ms); max relative error {err:.2e}, "
+            f"backward {derr:.2e}")
+        del x, dz, out, dx, ref, dref
+    torch.cuda.empty_cache()
+
+
+def phase_avvp_full():
+    """AVVPConfig() in bfloat16 on the default path at batch 4 and 1 clips:
+    launches, shapes, finiteness, gating sums; bf16 vs fp32 cosine of the
+    pooled encoder features (gated) and the heads' differences (reported);
+    the F1 suite through make_avvp_eval_fn; times and a profile."""
+    from avmoe_tpu_torch.config import AVVPConfig
+    from avmoe_tpu_torch.metrics.avvp import AVVPEvaluator
+    from avmoe_tpu_torch.models.avvp import MGNModel, make_avvp_eval_fn
+    from avmoe_tpu_torch.moe.injection import kernel_launches
+
+    cfg = AVVPConfig()
+    T = cfg.num_segments
+    t0 = time.perf_counter()
+    model = MGNModel(cfg, dtype=torch.bfloat16, device="cuda", seed=0)
+    _nonzero_gates_(model, 1)
+    torch.cuda.synchronize()
+    sites = len(model.encoder.sites)
+    log(f"[avvp] AVVPConfig() bf16 built in {time.perf_counter() - t0:.1f} s, "
+        f"{sum(p.numel() for p in model.parameters())} parameters, {sites} adapter sites")
+    ins = _avvp_inputs(cfg, BATCH, 3, "cuda")
+    want = kernel_launches(cfg.swin, cfg.htsat, cfg.injection, block_chains=False)
+    counters = _counters()
+    for clips in (BATCH, 1):
+        for c in counters.values():
+            c.launches = 0
+        out = model(*(t[:clips] for t in ins))
+        torch.cuda.synchronize()
+        got = {k: c.launches for k, c in counters.items()}
+        check(got == want, f"AVVP batch {clips}: launches per forward {got}, want {want}")
+        shapes = {"aud_cls_logits": (25, 25), "vis_cls_logits": (25, 25),
+                  "global_prob": (clips, 25), "a_prob": (clips, 25), "v_prob": (clips, 25),
+                  "a_frame_prob": (clips, T, 25), "v_frame_prob": (clips, T, 25)}
+        for key, shape in shapes.items():
+            check(tuple(out[key].shape) == shape, f"AVVP {key} shape {tuple(out[key].shape)}")
+            check(bool(torch.isfinite(out[key]).all()), f"AVVP batch {clips}: {key} not finite")
+        for key in GATING:
+            p = out["telemetry"][key]
+            check(tuple(p.shape) == (sites, clips * T, 2), f"AVVP {key} shape {tuple(p.shape)}")
+            check(bool(((p.sum(-1) - 1.0).abs() <= 1e-3).all()), f"AVVP {key} sums")
+        lb = float(out["telemetry"]["lb_loss"])
+        # -sum(log mean p) over 2 experts is >= 2 log 2 per call, 4 calls a site
+        check(math.isfinite(lb) and lb >= 4 * sites * 2 * math.log(2) - 1e-2,
+              f"AVVP lb_loss {lb}")
+        if clips == BATCH:
+            launches = got
+        log(f"[avvp] default path batch {clips}: shapes ok, finite, gating sums ok, lb_loss "
+            f"{lb:.4f}, launches " + " ".join(f"{k} {v}" for k, v in got.items()))
+
+    f32 = MGNModel(cfg, dtype=torch.float32, device="cuda", seed=None)
+    f32.load_state_dict(model.state_dict())
+    frames = (ins[0].reshape(BATCH * T, -1), ins[1].reshape((BATCH * T,) + tuple(ins[1].shape[2:])))
+    with torch.no_grad():
+        (fv16, fa16, _), (fv32, fa32, _) = model.encoder(*frames), f32.encoder(*frames)
+    cos = {name: F.cosine_similarity(a.float().flatten(), b.flatten(), dim=0).item()
+           for name, a, b in (("f_v", fv16, fv32), ("f_a", fa16, fa32))}
+    del fv16, fa16, fv32, fa32
+    check(all(c >= 0.99 for c in cos.values()), f"AVVP bf16 vs fp32 pooled features {cos}")
+    han = {16: [], 32: []}
+    hooks = [_han_assignments(model, han[16]), _han_assignments(f32, han[32])]
+    out16, out32 = model(*ins), f32(*ins)
+    for h in hooks:
+        h.remove()
+    head_d = {k: (out16[k].float() - out32[k]).abs().max().item() for k in AVVP_OUT}
+    flips = int((han[16][0] != han[32][0]).sum())
+    log(f"[avvp] bf16 vs fp32: pooled encoder features cosine f_v {cos['f_v']:.6f}, f_a "
+        f"{cos['f_a']:.6f} (>= 0.99); reported, not gated: heads' max |d| "
+        + ", ".join(f"{k} {v:.3e}" for k, v in head_d.items())
+        + f"; HAN's straight-through assignments flipped {flips} of {han[16][0].numel()}")
+    del f32, out16, out32
+    torch.cuda.empty_cache()
+
+    rng = np.random.RandomState(5)
+    gt_a = {i: (rng.rand(25, T) < 0.3).astype(np.int64) for i in range(BATCH)}
+    gt_v = {i: (rng.rand(25, T) < 0.3).astype(np.int64) for i in range(BATCH)}
+    ev = AVVPEvaluator()
+    make_avvp_eval_fn(model, gt_a, gt_v)(
+        dict(wave=ins[0], images=ins[1], video_st=ins[2], clip_index=torch.arange(BATCH)), ev)
+    summary = ev.summary()
+    check(len(summary) == 10 and all(math.isfinite(v) for v in summary.values()),
+          f"AVVP F1 summary {summary}")
+    log("[avvp] F1 suite of the batch-4 eval outputs against seeded ground truth: "
+        + ", ".join(f"{k} {v:.2f}" for k, v in summary.items()))
+
+    fwd_ms = _times(model, "AVVP default path", *ins)
+    prof = phase_profile("AVVP default path", lambda: model(*ins), fwd_ms)
+    return launches, fwd_ms, prof, model
+
+
+def phase_avvp_train(model):
+    """The full AVVPConfig() train step in bf16 on the default path at batch
+    BATCH, DropPath, SpecAugment, dropout, HAN's Gumbel noise and mixup on;
+    then the fp32 gradient gate; times, peak memory and a profile."""
+    from avmoe_tpu_torch.config import AVVPConfig, TrainConfig
+    from avmoe_tpu_torch.models.avvp import MGNModel, make_avvp_loss_fn
+    from avmoe_tpu_torch.moe.injection import backward_launches, kernel_launches
+    from avmoe_tpu_torch.train.freeze import freeze
+    from avmoe_tpu_torch.train.state import create_train_state
+    from avmoe_tpu_torch.train.steps import make_train_step
+
+    cfg = AVVPConfig()
+    lr = TrainConfig().lr
+    state = create_train_state(model, TrainConfig(accum_steps=1, lr=lr, lr_mlp=lr),
+                               steps_per_epoch=100)
+    loss_fn = make_avvp_loss_fn(model)
+    step = make_train_step(loss_fn)
+    batch = _avvp_batches(cfg, BATCH, 1, 11, "cuda")[0]
+    lam = batch.pop("mixup_lambda")             # λ drawn per frame from Beta(0.5, 0.5)
+    frozen = {n: p.detach().clone() for n, p in model.named_parameters() if not p.requires_grad}
+    start = {n: p.detach().clone() for n, p in state.trainable.items()}
+    stats = {n: b.clone() for n, b in state.batch_stats.items()}
+    fwd = kernel_launches(cfg.swin, cfg.htsat, cfg.injection, block_chains=False)
+    want = {"K1": fwd["K1"], "K2": fwd["K2"], **backward_launches(cfg.swin, cfg.htsat,
+                                                                   cfg.injection)}
+    counters = _train_counters()
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    torch.cuda.reset_peak_memory_stats()
+    losses = []
+    for i in range(3):
+        for c in counters.values():
+            c.launches = 0
+        state, met = step(state, batch, gen)
+        torch.cuda.synchronize()
+        got = {k: c.launches for k, c in counters.items()}
+        check(got == want, f"AVVP train step {i}: launches {got}, want {want}")
+        losses.append(float(met["loss"]))
+        check(math.isfinite(losses[-1]), f"AVVP train step {i}: loss {losses[-1]}")
+    check(all(torch.equal(p, frozen[n]) for n, p in model.named_parameters() if n in frozen),
+          "AVVP: a frozen parameter changed")
+    moved = [n for n, p in state.trainable.items() if not torch.equal(p, start[n])]
+    check(len(moved) == len(start), f"AVVP trainable parameters unchanged: "
+          f"{sorted(set(start) - set(moved))[:5]}")
+    check(stats and all(not torch.equal(state.batch_stats[n], stats[n]) for n in stats),
+          "AVVP running stats (bn0's; the adapters have no BatchNorm) did not move")
+    log(f"[avvp train] AVVPConfig() bf16 batch {BATCH}, default path, DropPath + SpecAugment + "
+        f"dropout + Gumbel + mixup: losses {[round(v, 5) for v in losses]}; {len(frozen)} frozen "
+        f"tensors bit-identical, {len(moved)} trainable tensors moved, bn0 running stats moved; "
+        f"launches per step {got} (plan {want}); peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+    # the gradient gate: fp32 through the kernels vs fp32 through their plain
+    # versions, at the seeded init (gates zero), the same generator seed for
+    # both; reported beside it: bf16 vs fp32 there, and fp32 kernels vs plain
+    # with the trained model's noised gates
+    gbatch = dict(batch, mixup_lambda=torch.full_like(lam, 0.6))
+    plain = _plain_cores()
+    read = {}
+    for label in ("seeded init", "after the steps, gates noised"):
+        src = MGNModel(cfg, dtype=torch.bfloat16, device="cuda", seed=0) if label == "seeded init" \
+            else model
+        f32 = MGNModel(cfg, dtype=torch.float32, device="cuda", seed=None)
+        f32.load_state_dict(src.state_dict())
+        freeze(f32)
+        ref = _trainable_grads(f32, loss_fn, gbatch, 13)
+        read[label] = {"f32 plain / f32": _grad_cosines(
+            _trainable_grads(f32, loss_fn, gbatch, 13, cores=plain), ref)}
+        if src is not model:
+            freeze(src)
+            read[label]["bf16 / f32"] = _grad_cosines(_trainable_grads(src, loss_fn, gbatch, 13),
+                                                      ref)
+        del src, f32, ref
+        torch.cuda.empty_cache()
+        log(f"[avvp train] trainable gradients of one deterministic step, {label}: " + "; ".join(
+            f"{k} cosine {w:.7f}, lowest leaf {lo:.7f} ({leaf})"
+            for k, (w, lo, leaf) in read[label].items()))
+    whole, low, leaf = read["seeded init"]["f32 plain / f32"]
+    check(whole >= 0.9999 and low >= 0.9999, f"AVVP fp32 gradients through the kernels vs their "
+          f"plain versions at the seeded init: cosine {whole:.7f}, leaf {leaf} {low:.7f}; want "
+          f">= 0.9999")
+
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(2):
+        step(state, batch, gen)
+    times = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(state, batch, gen)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    step_ms = float(np.median(times)) * 1e3
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"[time] AVVP train step bf16 batch {BATCH} (default path): median {step_ms:.2f} ms over "
+        f"5 steps ({', '.join(f'{t * 1e3:.2f}' for t in times)} ms), "
+        f"{BATCH / step_ms * 1e3:.3f} clips/s; peak memory {peak:.2f} GiB")
+    prof = phase_profile("AVVP train step", lambda: step(state, batch, gen), step_ms, iters=1,
+                         what="train step")
+    return got, step_ms, prof
+
+
 def _kernel_entry(name: str, source: str, replaces: str, launches: int, err: float, tot,
                   library_ms, **extra):
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -1175,19 +1601,37 @@ def _kernel_entry(name: str, source: str, replaces: str, launches: int, err: flo
 
 
 def main():
+    t0 = time.perf_counter()
+
+    def done(phase: str) -> None:
+        log(f"[phase] {phase} done at {time.perf_counter() - t0:.1f} s")
+
     phase_card()
     phase_build()
+    done("build")
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     k1_err, k1_tot = phase_k1(gen)
     k2_err, k2_tot = phase_k2(gen)
     k3_err, k3_tot = phase_k3(gen)
+    done("K1, K2, K3")
     phase_tiny()
     launches, fwd_ms, model = phase_full()
+    done("AVE eval")
     k1b_err, k1b_tot = phase_k1b(gen)
     k2b_err, k2b_tot = phase_k2b(gen)
+    done("K1b, K2b")
     phase_train_tiny()
     train, step_ms = phase_train(model)
+    done("AVE train")
+    del model
+    torch.cuda.empty_cache()
+    avvp_tiny_k3 = phase_avvp_tiny()
+    phase_avvp_gram(gen)
+    avvp, avvp_fwd_ms, avvp_prof, avvp_model = phase_avvp_full()
+    done("AVVP eval")
+    avvp_train, avvp_step_ms, avvp_step_prof = phase_avvp_train(avvp_model)
+    done("AVVP train")
     default, chain = launches["default path"], launches["chain path"]
     log(f"[time] per batch-{BATCH} forward: K1 {k1_tot['ms']:.3f} ms over {default['K1']} calls "
         f"(bound {k1_tot['bound_ms']:.3f}), K2 {k2_tot['ms']:.3f} ms over {default['K2']} calls "
@@ -1197,30 +1641,40 @@ def main():
     log(f"[time] per batch-{BATCH} train step: K1b {k1b_tot['ms']:.3f} ms over {train['K1b']} "
         f"calls (bound {k1b_tot['bound_ms']:.3f}), K2b {k2b_tot['ms']:.3f} ms over "
         f"{train['K2b']} calls (bound {k2b_tot['bound_ms']:.3f}), whole step {step_ms:.3f} ms")
+    log(json.dumps({"avvp": {
+        "clips": BATCH, "eval_ms": avvp_fwd_ms, "eval_clips_per_s": BATCH / avvp_fwd_ms * 1e3,
+        "eval_device_busy_ms": avvp_prof[0], "eval_idle_share": avvp_prof[1],
+        "eval_idle_share_profiled": avvp_prof[2],
+        "train_step_ms": avvp_step_ms, "train_clips_per_s": BATCH / avvp_step_ms * 1e3,
+        "train_device_busy_ms": avvp_step_prof[0], "train_idle_share": avvp_step_prof[1],
+        "train_idle_share_profiled": avvp_step_prof[2],
+        "launches_per_forward": avvp,
+        "launches_per_step": avvp_train}}))
     kernels = [
         _kernel_entry("window_attention", "avmoe_tpu_torch/csrc/window_attention.cu",
                       "experiments/pallas/window_attn.py:55", default["K1"], k1_err, k1_tot,
-                      k1_tot["library_ms"]),
+                      k1_tot["library_ms"], avvp_launches=avvp["K1"]),
         # the TPU kernel has no backward (JAX differentiates its XLA
         # attention): K1b is the backward of K1's contract; library: the
         # backward of scaled_dot_product_attention; times per train step
         _kernel_entry("window_attention_bwd", "avmoe_tpu_torch/csrc/window_attention_bwd.cu",
                       "experiments/pallas/window_attn.py:55", train["K1b"], k1b_err, k1b_tot,
                       k1b_tot["library_ms"], backward_of="window_attention",
-                      max_rel_err=k1b_tot["max_rel_err"]),
+                      max_rel_err=k1b_tot["max_rel_err"], avvp_launches=avvp_train["K1b"]),
         # no PyTorch call computes the block; its two cuBLAS products alone
         # (no GELU, LN or residual) are a yardstick under a key of their own
         _kernel_entry("mlp_block", "avmoe_tpu_torch/csrc/mlp_block.cu",
                       "experiments/pallas/fused_block.py:315", default["K2"], k2_err, k2_tot,
                       None, products_ms=k2_tot["products_ms"],
-                      cublas_products_only_ms=k2_tot["cublas_ms"]),
+                      cublas_products_only_ms=k2_tot["cublas_ms"], avvp_launches=avvp["K2"]),
         _kernel_entry("mlp_block_bwd", "avmoe_tpu_torch/csrc/mlp_block.cu",
                       "experiments/pallas/fused_block.py:315", train["K2b"], k2b_err, k2b_tot,
                       None, backward_of="mlp_block", products_ms=k2b_tot["products_ms"],
-                      cublas_products_only_ms=k2b_tot["cublas_ms"]),
+                      cublas_products_only_ms=k2b_tot["cublas_ms"],
+                      avvp_launches=avvp_train["K2b"]),
         _kernel_entry("block_chain", "avmoe_tpu_torch/csrc/block_chain.cu",
                       "experiments/pallas/fused_block.py:237", chain["K3"], k3_err, k3_tot,
-                      None),
+                      None, avvp_launches=avvp["K3"], avvp_tiny_chain_launches=avvp_tiny_k3),
     ]
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -551,3 +551,24 @@ def test_cuda_mlp_block_train_forward_keeps_h1_and_f_bit_for_bit(cuda_device, pr
         assert torch.equal(h1, product_bf16(x, w1, b1, epi=EPI_BIAS, tile=t1))
         hid = product_bf16(x, w1, b1, epi=EPI_GELU, tile=t1)
         assert torch.equal(f, product_bf16(hid, w2, b2, epi=EPI_BIAS, tile=t2))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,C", [(4096, 96), (576, 384), (37, 24)])
+def test_cuda_bmm_expert_logits_of_bf16_match_the_upcast_product(cuda_device, N, C):
+    """The bmm expert's float32 logits of a bf16 x (one bf16 product that
+    accumulates in float32) against the float32 product of the upcast values,
+    and their backward against the upcast product's autograd."""
+    from avmoe_tpu_torch.moe.adapter import _gram_f32
+
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    x = (torch.randn(3, N, C, device=cuda_device, generator=gen) * 0.3).bfloat16()
+    dz = torch.randn(3, N, N, device=cuda_device, generator=gen)
+    xa, xb = x.clone().requires_grad_(), x.clone().requires_grad_()
+    out = _gram_f32(xa)
+    ref = torch.matmul(xb.float(), xb.float().transpose(1, 2))
+    assert out.dtype == torch.float32
+    torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-5)
+    (dx,), (dref,) = torch.autograd.grad(out, [xa], dz), torch.autograd.grad(ref, [xb], dz)
+    assert dx.dtype == torch.bfloat16
+    assert (dx.float() - dref.float()).abs().max() <= 2e-2 * (1 + dref.float().abs()).max()
