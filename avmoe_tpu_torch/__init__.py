@@ -1,12 +1,17 @@
 """avmoe_tpu_torch: the PyTorch/CUDA port of AVMoE, for an NVIDIA H100.
 
 The package mirrors the layout of the JAX package `avmoe_tpu` module by
-module. It covers the AVE eval forward and train step: log-mel front end,
-HTS-AT and Swin-V2 backbones in lock-step with MoE adapters, temporal
-attention and the CMBS head, the AVE loss, freezing, the optimizer and the
-train step. Window attention and the Swin MLP sub-block, forward and
-backward, run as hand-written CUDA kernels (`csrc/`) on the card; on CPU
-tensors the same wrappers take their plain PyTorch versions.
+module. It covers three of the four tasks' models, each with its eval
+forward and train step: AVE (`models/ave.py`, temporal attention and the
+CMBS head), AVVP (`models/avvp.py`, the MGN grouping heads) and AVQA
+(`models/avqa.py`, the LSTM question encoder, audio-guided grounding,
+question-as-query attention and the frozen Swin pass over negative frames).
+Under them: the log-mel front end, the HTS-AT and Swin-V2 backbones in
+lock-step with MoE adapters, the losses, metrics, freezing, the optimizer
+and the train step. Window attention, the Swin MLP sub-block (forward and
+backward) and chains of Swin blocks run as hand-written CUDA kernels
+(`csrc/`) on the card; on CPU tensors the same wrappers take their plain
+PyTorch versions.
 """
 
 from __future__ import annotations

@@ -2,7 +2,10 @@
 
 Counterpart of `avmoe_tpu/backbones/swin_v2.py`: patch embed, 4 stages of
 post-norm V2 blocks with PatchMergingV2 downsamples, final norm. The
-lock-step engine (`moe/injection.py`) drives the blocks one by one.
+lock-step engine (`moe/injection.py`) drives the blocks one by one;
+`forward_features` is the plain pass without adapters (AVQA's frozen pass
+over its negative frames), block by block (K1 + K2 each) or, with
+`chains=True`, each stage's blocks as K3 chains.
 """
 
 from __future__ import annotations
@@ -14,6 +17,7 @@ from torch import nn
 
 from avmoe_tpu_torch.backbones.geometry import BlockSpec, stage_boundaries, swin_stage_specs
 from avmoe_tpu_torch.config import SwinV2Config
+from avmoe_tpu_torch.kernels.block_chain import run_chain
 from avmoe_tpu_torch.ops.norm import LayerNorm
 from avmoe_tpu_torch.ops.swin import PatchEmbed, PatchMergingV2, SwinBlock
 
@@ -54,3 +58,18 @@ class SwinV2Encoder(nn.Module):
     def embed(self, images: torch.Tensor) -> torch.Tensor:
         """(B, H, W, 3) images -> (B, N0, embed_dim) tokens (lock-step entry point)."""
         return self.patch_embed(images.to(self.dtype))
+
+    def forward_features(self, x: torch.Tensor, *, chains: bool = False) -> torch.Tensor:
+        """The eval pass: embedded tokens (B, N0, embed_dim) -> (B, N_last,
+        num_features) after the final norm, every stage's blocks, then its
+        downsample. `chains` runs each stage as K3 chains (one per run of
+        one (window, shift), `run_chain`)."""
+        for stage, (lo, hi) in enumerate(self.stage_ranges):
+            if chains:
+                x = run_chain(self.blocks[lo:hi], x, "full")
+            else:
+                for blk in self.blocks[lo:hi]:
+                    x = blk(x)
+            if stage < len(self.downsamples):
+                x = self.downsamples[stage](x)
+        return self.norm(x)

@@ -1,5 +1,5 @@
-"""Configuration of the AVE and AVVP models and their training, as plain
-frozen dataclasses.
+"""Configuration of the AVE, AVVP and AVQA models and their training, as
+plain frozen dataclasses.
 
 Field names and defaults mirror the JAX package's `avmoe_tpu/config.py` so a
 configuration reads the same in both packages. Fields that only select a
@@ -107,8 +107,8 @@ class AdapterConfig:
     vis_use_gate: bool = True
     before_layernorm: bool = True
     post_layernorm: bool = True
-    # the unimodal expert's self-attention: 'none' (AVE) and 'bmm' (AVVP) are
-    # ported; 'mha' (AVS) and 'token' (AVQA) are not
+    # the unimodal expert's self-attention: 'none' (AVE, AVQA) and 'bmm'
+    # (AVVP) are ported; 'mha' (AVS) and 'token' (AVS MS3) are not
     self_attention: str = "none"
 
 
@@ -181,6 +181,32 @@ class AVVPConfig:
 
 
 @dataclass(frozen=True)
+class AVQAConfig:
+    """AVQA question answering (MUSIC-AVQA): 2 latent tokens, no output gate
+    on the audio adapters (the visual ones keep theirs), 1 cross-modal and 2
+    unimodal experts, adapters in every stage, an LSTM question encoder and
+    a 50-way answer head evaluated over the 42-word answer vocab."""
+
+    answer_vocab: int = 42
+    fc_class: int = 50
+    qst_vocab: int = 93
+    max_qst_len: int = 30
+    word_embed: int = 1536
+    qst_hidden: int = 1536
+    d_feat: int = 1536
+    num_segments: int = 10
+    audio_len: int = 32_000
+    swin: SwinV2Config = field(default_factory=SwinV2Config)
+    htsat: HTSATConfig = field(default_factory=HTSATConfig)
+    moe: MoEConfig = field(default_factory=lambda: MoEConfig(
+        num_multimodal_experts=1, num_singlemodal_experts=2,
+        adapter=AdapterConfig(num_tokens=2, use_gate=False, use_bn=False,
+                              num_conv_group=4),
+    ))
+    injection: InjectionConfig = field(default_factory=lambda: InjectionConfig(num_skip=1))
+
+
+@dataclass(frozen=True)
 class TrainConfig:
     """The optimizer's settings of the JAX package's TrainConfig."""
 
@@ -245,6 +271,21 @@ def tiny_avvp_config() -> AVVPConfig:
     )
 
 
+def tiny_avqa_config() -> AVQAConfig:
+    return AVQAConfig(
+        answer_vocab=6, fc_class=8, qst_vocab=20, max_qst_len=6,
+        word_embed=16, qst_hidden=16, d_feat=128,  # == tiny swin num_features
+        num_segments=2, audio_len=4000,
+        swin=tiny_swin(), htsat=tiny_htsat(),
+        moe=MoEConfig(
+            num_multimodal_experts=1, num_singlemodal_experts=2,
+            adapter=AdapterConfig(downsample=4, num_conv_group=2, num_tokens=2,
+                                  use_gate=False, use_bn=False),
+        ),
+        injection=InjectionConfig(num_skip=1),
+    )
+
+
 # "mini" configs: the tiny widths at the datasets' real clip geometry (10
 # one-second segments at 32 kHz)
 
@@ -266,4 +307,12 @@ def _mini_htsat() -> HTSATConfig:
 
 def mini_avvp_config() -> AVVPConfig:
     return dataclasses.replace(tiny_avvp_config(), num_segments=10, audio_len=32000,
+                               htsat=_mini_htsat())
+
+
+def mini_avqa_config() -> AVQAConfig:
+    # vocab sizes of the miniature MUSIC-AVQA json; max_qst_len is the
+    # reader's fixed pad length
+    return dataclasses.replace(tiny_avqa_config(), num_segments=10, audio_len=32000,
+                               max_qst_len=14, qst_vocab=64, answer_vocab=6,
                                htsat=_mini_htsat())

@@ -11,6 +11,9 @@ flax subtree a/b/c, and only the leaf layout differs:
   * LayerNorm        weight <- scale; BatchNorm also running_mean/var <- mean/var
   * LSTMCell         weight_ih / weight_hh / bias <- ii..io / hi..ho kernels
                      transposed and hi..ho biases, gates in the order i, f, g, o
+                     (flax's nn.RNN keeps its cell's scope: QstEncoder's LSTM
+                     is question_encoder/lstm, as the port names it)
+  * nn.Embedding     weight <- embedding (vocab, features)
   * anything else    same name, same layout (GroupedDense (g, i, o) kernels,
                      MHA (C, H, D) / (H, D, C) kernels, raw flax params)
 
@@ -75,6 +78,8 @@ def _value(mod: nn.Module, name: str, prefix: Path, src: _Source) -> np.ndarray:
         return p("kernel").T if name == "weight" else p("bias")
     if isinstance(mod, nn.Conv2d):
         return p("kernel").transpose(3, 2, 0, 1) if name == "weight" else p("bias")
+    if isinstance(mod, nn.Embedding):
+        return p("embedding")
     if isinstance(mod, (LayerNorm, BatchNorm)):
         if name == "running_mean":
             return src.take("batch_stats", prefix + ("mean",))
@@ -130,6 +135,8 @@ def _leaves(mod: nn.Module, name: str, value: np.ndarray) -> Iterable[Tuple[str,
     elif isinstance(mod, nn.Conv2d):
         yield "params", ("kernel",) if name == "weight" else ("bias",), (
             value.transpose(2, 3, 1, 0) if name == "weight" else value)
+    elif isinstance(mod, nn.Embedding):
+        yield "params", ("embedding",), value
     elif isinstance(mod, (LayerNorm, BatchNorm)) and name in ("running_mean", "running_var"):
         yield "batch_stats", ("mean",) if name == "running_mean" else ("var",), value
     elif isinstance(mod, (LayerNorm, BatchNorm)):

@@ -2,7 +2,9 @@
 
 Counterpart of `avmoe_tpu/heads/common.py`. Dropout (rate 0.1 by default:
 attention weights, both residual branches and the feed-forward hidden) runs
-in train mode only, from an explicit generator. Attention follows flax's
+in train mode only, from an explicit generator; on the attention weights its
+mask is one (queries, keys) draw shared by every batch row and head, as
+flax's `broadcast_dropout=True` default draws it. Attention follows flax's
 MultiHeadDotProductAttention: per-head
 query/key/value projections with (C, H, D) kernels and an (H, D, C) output
 projection, q scaled by D**-0.5. The decoder's keys and values are the
@@ -50,7 +52,8 @@ class MultiHeadAttention(nn.Module):
         q, k, v = proj(self.query, q_in), proj(self.key, kv_in), proj(self.value, kv_in)
         q = q / math.sqrt(q.shape[-1])
         w = torch.softmax(torch.einsum("bqhd,bkhd->bhqk", q, k), dim=-1)
-        w = dropout(w, rate, train=train, generator=generator)
+        if rate > 0.0 and train:   # one (q, k) mask for every batch row and head
+            w = w * dropout(w.new_ones(w.shape[-2:]), rate, train=train, generator=generator)
         o = torch.einsum("bhqk,bkhd->bqhd", w, v)
         return torch.einsum("bqhd,hdc->bqc", o, self.out.kernel) + self.out.bias
 
@@ -139,9 +142,10 @@ class LSTMCell(nn.Module):
         self.weight_hh = nn.Parameter(torch.zeros(4 * hidden, hidden))
         self.bias = nn.Parameter(torch.zeros(4 * hidden))
 
-    def forward(self, x: torch.Tensor, reverse: bool = False) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, reverse: bool = False, return_carry: bool = False):
         """(B, T, in) -> (B, T, H); reverse runs from the last step, outputs
-        kept in input order."""
+        kept in input order. With return_carry, (outputs, (h, c)) of the
+        last step run."""
         B, T, _ = x.shape
         xi = F.linear(x, self.weight_ih, self.bias)                 # (B, T, 4H)
         h = x.new_zeros(B, self.hidden)
@@ -153,7 +157,8 @@ class LSTMCell(nn.Module):
             c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
             h = torch.sigmoid(o) * torch.tanh(c)
             outs[t] = h
-        return torch.stack(outs, dim=1)
+        out = torch.stack(outs, dim=1)
+        return (out, (h, c)) if return_carry else out
 
 
 class BiLSTM(nn.Module):

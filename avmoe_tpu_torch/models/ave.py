@@ -135,7 +135,7 @@ def _lecun_(t: torch.Tensor, fan_in: int, gen: torch.Generator) -> None:
 def init_parameters(model: nn.Module, gen: torch.Generator) -> None:
     """Random initialization after the JAX package's flax initializers
     (lecun-normal kernels, zero biases, unit norms, zero adapter gates,
-    uniform latent tokens, log(10) logit scales)."""
+    uniform latent tokens, log(10) logit scales, normal embeddings)."""
     for mod in model.modules():
         for name, p in mod.named_parameters(recurse=False):
             if isinstance(mod, (LayerNorm, BatchNorm)):
@@ -145,6 +145,9 @@ def init_parameters(model: nn.Module, gen: torch.Generator) -> None:
                     _lecun_(p, p.shape[1], gen)
                 else:
                     p.zero_()
+            elif isinstance(mod, nn.Embedding):
+                # flax nn.Embed: normal with variance 1/features
+                p.normal_(0.0, 1.0 / math.sqrt(p.shape[1]), generator=gen)
             elif isinstance(mod, nn.Conv2d):
                 if name == "weight":
                     _lecun_(p, p[0].numel(), gen)

@@ -16,8 +16,10 @@ experiments/pallas/fused_block.py) every run goes through K3 chains
 each site's visual attention sub-block is a K=1 'attn' chain and its audio
 block a K=1 'full' chain; the visual MLP sub-block stays on K2.
 `chain_calls` and `kernel_launches` give the K3 calls and the launches per
-forward from the configs alone; `backward_launches` the K1b / K2b launches
-of a train step's backward on the default path. The chain path is eval
+forward from the configs alone (`swin_chain_calls` and `swin_pass_launches`
+those of a plain Swin-V2 pass, AVQA's frozen negative pass);
+`backward_launches` the K1b / K2b launches of a train step's backward on
+the default path. The chain path is eval
 only, as the JAX package's Pallas chain is inference-only: its train forward
 raises.
 """
@@ -139,6 +141,20 @@ class ChainCall:
     geom: ChainGeom
 
 
+def _chain_group_calls(spec: List[BlockSpec], backbone: str, stage: int, idx: Tuple[int, ...],
+                       part: str, version: str, ratio: float) -> List[ChainCall]:
+    """The K3 calls of one run of blocks: one per maximal same-(window, shift) group."""
+    calls = []
+    for grp in chain_groups(list(idx), key=lambda i: spec[i].window_shift):
+        s0 = spec[grp[0]]
+        geom = ChainGeom(version=version, H=s0.resolution[0], W=s0.resolution[1],
+                         C=s0.dim, num_heads=s0.num_heads, window=s0.window_shift[0],
+                         shifts=tuple(spec[i].window_shift[1] for i in grp),
+                         mlp_hidden=int(s0.dim * ratio), part=part)
+        calls.append(ChainCall(backbone, stage, tuple(grp), geom))
+    return calls
+
+
 def chain_calls(swin_cfg: SwinV2Config, htsat_cfg: HTSATConfig,
                 inj: InjectionConfig) -> List[ChainCall]:
     """The K3 calls of one chain-path forward, in order, from the configs alone."""
@@ -147,15 +163,8 @@ def chain_calls(swin_cfg: SwinV2Config, htsat_cfg: HTSATConfig,
     calls: List[ChainCall] = []
 
     def add(backbone: str, stage: int, idx: Tuple[int, ...], part: str) -> None:
-        version, ratio = meta[backbone]
-        spec = specs[backbone]
-        for grp in chain_groups(list(idx), key=lambda i: spec[i].window_shift):
-            s0 = spec[grp[0]]
-            geom = ChainGeom(version=version, H=s0.resolution[0], W=s0.resolution[1],
-                             C=s0.dim, num_heads=s0.num_heads, window=s0.window_shift[0],
-                             shifts=tuple(spec[i].window_shift[1] for i in grp),
-                             mlp_hidden=int(s0.dim * ratio), part=part)
-            calls.append(ChainCall(backbone, stage, tuple(grp), geom))
+        calls.extend(_chain_group_calls(specs[backbone], backbone, stage, idx, part,
+                                        *meta[backbone]))
 
     for stage, steps in enumerate(plan_stages(swin_cfg, htsat_cfg, inj)):
         for st in steps:
@@ -166,6 +175,25 @@ def chain_calls(swin_cfg: SwinV2Config, htsat_cfg: HTSATConfig,
                 add("swin", stage, st.vis, "attn")
                 add("htsat", stage, st.aud, "full")
     return calls
+
+
+def swin_chain_calls(swin_cfg: SwinV2Config) -> List[ChainCall]:
+    """The K3 calls of a plain Swin-V2 pass on the chain path
+    (`SwinV2Encoder.forward_features(chains=True)`): each stage's blocks,
+    part 'full'."""
+    spec = swin_stage_specs(swin_cfg.embed_dim, swin_cfg.depths, swin_cfg.num_heads,
+                            swin_cfg.patches_resolution, swin_cfg.window_size)
+    return [c for stage, (lo, hi) in enumerate(stage_boundaries(swin_cfg.depths))
+            for c in _chain_group_calls(spec, "swin", stage, tuple(range(lo, hi)), "full",
+                                        "v2", swin_cfg.mlp_ratio)]
+
+
+def swin_pass_launches(swin_cfg: SwinV2Config, block_chains: bool) -> Dict[str, int]:
+    """Launches of K1, K2 and K3 of one plain Swin-V2 pass (no adapters)."""
+    if block_chains:
+        return {"K1": 0, "K2": 0, "K3": len(swin_chain_calls(swin_cfg))}
+    blocks = sum(swin_cfg.depths)
+    return {"K1": blocks, "K2": blocks, "K3": 0}
 
 
 def backward_launches(swin_cfg: SwinV2Config, htsat_cfg: HTSATConfig,

@@ -9,7 +9,11 @@ path, `AVEModel(cfg, block_chains=True)` (K3 block chains, K2 at the adapter
 seams); then the AVE train step on the default path (K1 and K2 forward, the
 backward kernels K1b and K2b); then AVVP, `MGNModel(AVVPConfig())`
 (adapters in all four stages, bmm unimodal experts, grouping heads), its
-eval forward and train step through the same kernels. Phases (any failed check raises, and the
+eval forward and train step through the same kernels; then AVQA,
+`AVQAFusionModel(AVQAConfig())` (three experts, an LSTM question encoder,
+grounding heads, and the negative frames through the frozen Swin-V2 with no
+adapters: K1 + K2 a block, or each stage as K3 chains), its eval forward on
+both paths and its train step. Phases (any failed check raises, and the
 script exits non-zero without printing the result line):
 
   1. card: nvidia-smi name and power limit, torch / CUDA versions;
@@ -93,11 +97,40 @@ script exits non-zero without printing the result line):
      trainable gradients in float32 through the kernels against their plain
      versions at the seeded init, cosine >= 0.9999 overall and on every
      leaf (bf16 vs fp32 there, and the same at the trained model's noised
-     gates, reported); step ms, clips/s, peak memory and a profile.
+     gates, reported); step ms, clips/s, peak memory and a profile;
+ 17. K3 against its plain version at the AVQA chain geometries the AVE chain
+     path does not run, as phase 5 holds them; stage 2's 18 blocks as one
+     chain in bf16 no farther from the float32 plain version than the plain
+     version in bf16 is (`k3_bf16_budget`); with times;
+ 18. tiny AVQAFusionModel in float32: the eval forward on both paths, card
+     vs CPU (every output and the gating probs rtol 1e-3, atol 1e-4), its
+     launches as `avqa_kernel_launches` gives them; one deterministic
+     step's trainable gradients card vs CPU (cosine and every leaf >=
+     0.9999) and a 2-step train curve (as phase 12);
+ 19. full AVQAConfig() in bfloat16 on both paths at batch 4 and 1 clips
+     (positive and negative frames (4, 10, 192, 192, 3), waves (4, 10,
+     32000), questions (4, 30)), seeded weights with noised gates and
+     gate_av: K1 / K2 / K3 launches per forward (60 / 60 / 0 and 0 / 12 /
+     36), shapes, finiteness, gating sums; cosine >= 0.99 of qa_logits, of
+     the pooled encoder features and of the negative pass's pooled features
+     against a float32 forward of the same path and weights, and of the
+     chain path's qa_logits against the
+     default's; the match logits' differences (reported); the accuracy of
+     make_avqa_eval_fn; times, the negative pass alone (CUDA events and a
+     profile) and a profile per path;
+ 20. the full AVQAConfig() bf16 train step at batch 4 (DropPath,
+     SpecAugment, dropout and mixup on): K1 / K2 / K1b / K2b launches per
+     step (60 / 60 / 34 / 35: the negative pass launches no backward),
+     frozen parameters bit-identical, every trainable one moved, bn0's
+     running stats moved; one deterministic step's trainable gradients in
+     float32 through the kernels against their plain versions at the seeded
+     init, cosine >= 0.9999 overall and on every leaf (bf16 vs fp32
+     reported); step ms, clips/s, peak memory and a profile.
 
-The line two before the last is a JSON object of the AVVP numbers, the line
-before the last one with the per-kernel summary (AVE's launches and, beside
-them, AVVP's); the last line is {"ok": true, "device": {...}}.
+The lines three and two before the last are JSON objects of the AVVP and
+the AVQA numbers, the line before the last one with the per-kernel summary
+(AVE's launches and, beside them, AVVP's and AVQA's); the last line is
+{"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -126,6 +159,17 @@ BATCH = 4                        # clips; B' = BATCH * 10 frames
 # lands above the 2e-2 of K1 and K2 at the Swin-V2 stage-2/3 chains, though
 # it rounds less than the Pallas body does (measured errors in PERF.md)
 K3_BF16_TOL = 4e-2
+
+
+def k3_bf16_budget(geom, rel_plain: float) -> float:
+    """The bf16 K3 bound, as max |d| / (1 + |ref|) against the float32 plain
+    version of the same bf16 inputs: K3_BF16_TOL for chains of up to 2
+    blocks; a longer chain (AVQA's negative pass runs stage 2's 18 blocks as
+    one) rounds 4 products' inputs in every block, so it is held to be no
+    farther from float32 than the plain version in bf16, which rounds where
+    the Pallas body rounds (`rel_plain`), and within K3_BF16_TOL where that
+    is looser."""
+    return K3_BF16_TOL if geom.K <= 2 else max(K3_BF16_TOL, rel_plain)
 
 
 def log(*a):
@@ -439,7 +483,10 @@ def k3_cost(geom, G: int):
     return nbytes, ops
 
 
-def phase_k3(gen):
+def phase_k3(gen, shapes=None, tag: str = "K3"):
+    """K3 against its plain version at every (geometry, calls) of `shapes`
+    (the AVE chain path's by default), float32 and bf16, with times; the
+    largest bf16 |d| and the times summed over the calls."""
     from avmoe_tpu_torch.kernels.block_chain import block_chain, block_chain_plain, stack_chain
     from avmoe_tpu_torch.ops.swin import partition_windows
 
@@ -447,7 +494,7 @@ def phase_k3(gen):
     max_err = 0.0
     failed = []
     tot = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, bytes=0.0, ops=0.0)
-    for geom, calls in k3_shapes():
+    for geom, calls in k3_shapes() if shapes is None else shapes:
         G = frames * geom.nW
         blocks = _chain_blocks(geom, gen)
         x = torch.randn(frames, geom.H * geom.W, geom.C, device="cuda", generator=gen)
@@ -469,16 +516,17 @@ def phase_k3(gen):
         rel_plain = ((block_chain_plain(x16, ops, geom).float() - ref).abs()
                      / (1.0 + ref.abs())).max().item()
         err = d.max().item()
-        if not (rel <= K3_BF16_TOL and math.isfinite(err)):
-            failed.append(f"K3 bf16 {shape}: max |d| / (1 + |ref|) {rel:.3e} > {K3_BF16_TOL}")
+        tol = k3_bf16_budget(geom, rel_plain)
+        if not (rel <= tol and math.isfinite(err)):
+            failed.append(f"K3 bf16 {shape}: max |d| / (1 + |ref|) {rel:.3e} > {tol:.3e}")
         max_err = max(max_err, err)
         ms = time_ms(lambda: block_chain.windows(x16, ops, geom))
         plain_ms = time_ms(lambda: block_chain_plain(x16, ops, geom))
         nbytes, nops = k3_cost(geom, G)
         b_ms, b_by = bound(nbytes, nops, BF16_FLOPS)
-        log(f"[K3] {' '.join(shape)} x{calls}/fwd  bf16 {ms:.4f} ms  plain {plain_ms:.4f} ms  "
+        log(f"[{tag}] {' '.join(shape)} x{calls}/fwd  bf16 {ms:.4f} ms  plain {plain_ms:.4f} ms  "
             f"bound {b_ms:.4f} ms ({b_by})  max |d| {err:.2e}, /(1+|ref|) {rel:.2e} "
-            f"(plain bf16 {rel_plain:.2e})")
+            f"(plain bf16 {rel_plain:.2e}, bound {tol:.2e}), f32 {d32.max().item():.2e}")
         for key, val in (("ms", ms), ("plain_ms", plain_ms), ("bound_ms", b_ms),
                          ("bytes", nbytes), ("ops", nops)):
             tot[key] += calls * val
@@ -959,67 +1007,72 @@ def _train_counters():
             "K2b": mlp_block_bwd}
 
 
-def phase_train_tiny():
-    from avmoe_tpu_torch.config import TrainConfig, tiny_ave_config
-    from avmoe_tpu_torch.models.ave import AVEModel, make_ave_loss_fn
+def _tiny_train_vs_cpu(label: str, cpu, gpu, make_loss_fn, batches, steps: int):
+    """Train semantics on the card (kernels) against the CPU (plain versions),
+    float32, from the same weights: one deterministic step's trainable
+    gradients, per leaf (cosine >= 0.9999), then a `steps`-step curve at lr
+    1e-5 (AVMOE_DETERMINISTIC_TRAIN=1): losses rtol 1e-3, parameters and
+    running stats rtol 1e-3, atol 1e-4. `batches(n, device)` gives n seeded
+    batches. At that lr Adam moves a parameter by less than the states'
+    atol, so the curve does not see the gradient's direction; the gradient
+    check does."""
+    from avmoe_tpu_torch.config import TrainConfig
+    from avmoe_tpu_torch.train.freeze import freeze
     from avmoe_tpu_torch.train.state import create_train_state
     from avmoe_tpu_torch.train.steps import make_train_step
 
-    from avmoe_tpu_torch.train.freeze import freeze
-
-    cfg = tiny_ave_config()
     tcfg = TrainConfig(accum_steps=1, lr=1e-5, lr_mlp=1e-5, decay=0.5, decay_epoch=1)
-    cpu = AVEModel(cfg, device="cpu", seed=0)
-    _nonzero_gates_(cpu, 1)
-    gpu = AVEModel(cfg, device="cuda", seed=None)
-    gpu.load_state_dict(cpu.state_dict())
-    counters = _train_counters()
-
-    # the backward itself: one deterministic step's trainable gradients, card
-    # (K1b, K2b) against CPU (plain versions), per leaf. The 4-step curve below
-    # holds the forward, its running stats and the optimizer's bookkeeping;
-    # at its lr Adam moves a parameter by less than the states' atol, so it
-    # does not see the gradient's direction.
     grads, kept = {}, {k: v.clone() for k, v in cpu.state_dict().items()}
-    for label, model, dev in (("cpu", cpu, "cpu"), ("card", gpu, "cuda")):
+    for name, model, dev in (("cpu", cpu, "cpu"), ("card", gpu, "cuda")):
         freeze(model)
-        batch = _train_batches(cfg, 2, 1, 7, dev)[0]
-        grads[label] = _trainable_grads(model, make_ave_loss_fn(model), batch, 0)
+        grads[name] = _trainable_grads(model, make_loss_fn(model), batches(1, dev)[0], 0)
         model.load_state_dict(kept)             # the running stats as they were
     whole, low, leaf = _grad_cosines(grads["card"], grads["cpu"])
-    check(whole >= 0.9999 and low >= 0.9999, f"tiny train gradients card vs CPU: cosine "
+    check(whole >= 0.9999 and low >= 0.9999, f"{label} train gradients card vs CPU: cosine "
           f"{whole:.7f}, lowest leaf {low:.7f} ({leaf}); want >= 0.9999")
-    log(f"[train tiny] fp32 trainable gradients of one deterministic step, card (kernels) vs "
-        f"CPU (plain): cosine {whole:.7f}, lowest per-leaf cosine {low:.7f} ({leaf}) "
-        f"(>= 0.9999 both)")
+    counters = _train_counters()
     runs = {}
     with _deterministic():
-        for label, model, dev in (("cpu", cpu, "cpu"), ("card", gpu, "cuda")):
+        for name, model, dev in (("cpu", cpu, "cpu"), ("card", gpu, "cuda")):
             state = create_train_state(model, tcfg, steps_per_epoch=2)
-            step = make_train_step(make_ave_loss_fn(model))
+            step = make_train_step(make_loss_fn(model))
             gen = torch.Generator(device=dev).manual_seed(0)
             for c in counters.values():
                 c.launches = 0
             losses = []
-            for batch in _train_batches(cfg, 2, 4, 7, dev):
+            for batch in batches(steps, dev):
                 state, met = step(state, batch, gen)
                 losses.append(float(met["loss"]))
-            runs[label] = (losses, {k: v.detach().cpu() for k, v in model.state_dict().items()},
-                           {k: c.launches for k, c in counters.items()})
+            runs[name] = (losses, {k: v.detach().cpu() for k, v in model.state_dict().items()},
+                          {k: c.launches for k, c in counters.items()})
     (l_cpu, s_cpu, _), (l_gpu, s_gpu, n_gpu) = runs["cpu"], runs["card"]
-    check(all(v > 0 for v in n_gpu.values()), f"tiny train: kernel launches on the card {n_gpu}")
+    check(all(v > 0 for v in n_gpu.values()), f"{label} train: launches on the card {n_gpu}")
     check(np.allclose(l_gpu, l_cpu, rtol=1e-3, atol=0.0),
-          f"tiny train losses: card {l_gpu} vs CPU {l_cpu}")
+          f"{label} train losses: card {l_gpu} vs CPU {l_cpu}")
     worst = 0.0
     for k in s_cpu:
         a, b = s_gpu[k].float(), s_cpu[k].float()
         worst = max(worst, (a - b).abs().max().item())
-        check(torch.allclose(a, b, rtol=1e-3, atol=1e-4), f"tiny train {k}: card vs CPU max "
+        check(torch.allclose(a, b, rtol=1e-3, atol=1e-4), f"{label} train {k}: card vs CPU max "
               f"|d| {(a - b).abs().max().item():.3e}")
-    log(f"[train tiny] fp32 deterministic, 4 steps at lr 1e-5, card (kernels) vs CPU (plain): "
-        f"losses {[round(v, 6) for v in l_gpu]} vs {[round(v, 6) for v in l_cpu]}; parameters "
-        f"and running stats max |d| {worst:.3e} (rtol 1e-3, atol 1e-4); launches on the card "
-        f"{n_gpu}")
+    log(f"[{label}] fp32 trainable gradients of one deterministic step, card (kernels) vs CPU "
+        f"(plain): cosine {whole:.7f}, lowest per-leaf cosine {low:.7f} ({leaf}) (>= 0.9999 "
+        f"both); {steps} deterministic steps at lr 1e-5: losses {[round(v, 6) for v in l_gpu]} "
+        f"vs {[round(v, 6) for v in l_cpu]}; parameters and running stats max |d| {worst:.3e} "
+        f"(rtol 1e-3, atol 1e-4); launches on the card {n_gpu}")
+
+
+def phase_train_tiny():
+    from avmoe_tpu_torch.config import tiny_ave_config
+    from avmoe_tpu_torch.models.ave import AVEModel, make_ave_loss_fn
+
+    cfg = tiny_ave_config()
+    cpu = AVEModel(cfg, device="cpu", seed=0)
+    _nonzero_gates_(cpu, 1)
+    gpu = AVEModel(cfg, device="cuda", seed=None)
+    gpu.load_state_dict(cpu.state_dict())
+    _tiny_train_vs_cpu("train tiny", cpu, gpu, make_ave_loss_fn,
+                       lambda n, dev: _train_batches(cfg, 2, n, 7, dev), steps=4)
 
 
 def _plain_cores():
@@ -1137,6 +1190,61 @@ def phase_train_grads(model, loss_fn, batch):
         ">= 0.99 at the seeded init")
 
 
+def _checked_steps(label: str, model, state, step, batch, gen, want, stat_keys):
+    """Three train steps of `step` on `batch`: each step's launches as `want`
+    plans them and a finite loss; after them every frozen parameter
+    bit-identical, every trainable one moved, and the running stats whose
+    names hold each of `stat_keys` moved. Returns (launches of the last
+    step, losses, frozen tensors, moved tensors)."""
+    frozen = {n: p.detach().clone() for n, p in model.named_parameters() if not p.requires_grad}
+    start = {n: p.detach().clone() for n, p in state.trainable.items()}
+    stats = {n: b.clone() for n, b in state.batch_stats.items()}
+    counters = _train_counters()
+    losses = []
+    for i in range(3):
+        for c in counters.values():
+            c.launches = 0
+        state, met = step(state, batch, gen)
+        torch.cuda.synchronize()
+        got = {k: c.launches for k, c in counters.items()}
+        check(got == want, f"{label} step {i}: launches {got}, want {want}")
+        losses.append(float(met["loss"]))
+        check(math.isfinite(losses[-1]), f"{label} step {i}: loss {losses[-1]}")
+    check(all(torch.equal(p, frozen[n]) for n, p in model.named_parameters() if n in frozen),
+          f"{label}: a frozen parameter changed")
+    moved = [n for n, p in state.trainable.items() if not torch.equal(p, start[n])]
+    check(len(moved) == len(start), f"{label}: trainable parameters unchanged: "
+          f"{sorted(set(start) - set(moved))[:5]}")
+    for key in stat_keys:
+        names = [n for n in stats if key in n]
+        check(names and all(not torch.equal(state.batch_stats[n], stats[n]) for n in names),
+              f"{label}: {key} running stats did not move")
+    return got, losses, len(frozen), len(moved)
+
+
+def _step_times(label: str, step, state, batch, gen):
+    """A train step's wall time (median of 5 synced steps after 2 warm-ups),
+    its peak memory and a profile: (step ms, peak GiB, profile)."""
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(2):
+        step(state, batch, gen)
+    times = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(state, batch, gen)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    step_ms = float(np.median(times)) * 1e3
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"[time] {label} bf16 batch {BATCH} (default path): median {step_ms:.2f} ms over 5 "
+        f"steps ({', '.join(f'{t * 1e3:.2f}' for t in times)} ms), {BATCH / step_ms * 1e3:.3f} "
+        f"clips/s; peak memory {peak:.2f} GiB")
+    prof = phase_profile(label, lambda: step(state, batch, gen), step_ms, iters=1,
+                         what="train step")
+    return step_ms, peak, prof
+
+
 def phase_train(model):
     """The full AVEConfig() train step in bf16 on the default path."""
     from avmoe_tpu_torch.config import AVEConfig, TrainConfig
@@ -1151,57 +1259,19 @@ def phase_train(model):
     step = make_train_step(loss_fn)
     batch = _train_batches(cfg, BATCH, 1, 11, "cuda")[0]
     batch.pop("mixup_lambda")                   # λ drawn per frame from Beta(0.5, 0.5)
-    frozen = {n: p.detach().clone() for n, p in model.named_parameters() if not p.requires_grad}
-    start = {n: p.detach().clone() for n, p in state.trainable.items()}
-    stats = {n: b.clone() for n, b in state.batch_stats.items()}
     fwd = kernel_launches(cfg.swin, cfg.htsat, cfg.injection, block_chains=False)
     want = {"K1": fwd["K1"], "K2": fwd["K2"], **backward_launches(cfg.swin, cfg.htsat,
                                                                    cfg.injection)}
-    counters = _train_counters()
     gen = torch.Generator(device="cuda").manual_seed(12)
-    losses = []
-    for i in range(3):
-        for c in counters.values():
-            c.launches = 0
-        state, met = step(state, batch, gen)
-        torch.cuda.synchronize()
-        got = {k: c.launches for k, c in counters.items()}
-        check(got == want, f"train step {i}: launches {got}, want {want}")
-        losses.append(float(met["loss"]))
-        check(math.isfinite(losses[-1]), f"train step {i}: loss {losses[-1]}")
-    check(all(torch.equal(p, frozen[n]) for n, p in model.named_parameters() if n in frozen),
-          "a frozen parameter changed")
-    moved = [n for n, p in state.trainable.items() if not torch.equal(p, start[n])]
-    check(len(moved) == len(start), f"trainable parameters unchanged: "
-          f"{sorted(set(start) - set(moved))[:5]}")
-    for what, key in (("bn0", "bn0"), ("adapter", "moe")):
-        names = [n for n in stats if key in n]
-        check(names and all(not torch.equal(state.batch_stats[n], stats[n]) for n in names),
-              f"{what} running stats did not move")
+    got, losses, n_frozen, n_moved = _checked_steps("train", model, state, step, batch, gen,
+                                                    want, ("bn0", "moe"))
     log(f"[train] AVEConfig() bf16 batch {BATCH}, default path, DropPath + SpecAugment + dropout "
-        f"+ mixup: losses {[round(v, 5) for v in losses]}; {len(frozen)} frozen tensors "
-        f"bit-identical, {len(moved)} trainable tensors moved, bn0 and adapter running stats "
+        f"+ mixup: losses {[round(v, 5) for v in losses]}; {n_frozen} frozen tensors "
+        f"bit-identical, {n_moved} trainable tensors moved, bn0 and adapter running stats "
         f"moved; launches per step {got} (plan {want})")
 
     phase_train_grads(model, loss_fn, batch)
-
-    # times (reported, not claimed)
-    torch.cuda.reset_peak_memory_stats()
-    for _ in range(2):
-        step(state, batch, gen)
-    times = []
-    for _ in range(5):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        step(state, batch, gen)
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
-    step_ms = float(np.median(times)) * 1e3
-    log(f"[time] train step bf16 batch {BATCH} (default path): median {step_ms:.2f} ms over 5 "
-        f"steps ({', '.join(f'{t * 1e3:.2f}' for t in times)} ms), {BATCH / step_ms * 1e3:.3f} "
-        f"clips/s; peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    phase_profile("train step", lambda: step(state, batch, gen), step_ms, iters=1,
-                  what="train step")
+    step_ms, _, _ = _step_times("train step", step, state, batch, gen)
     return got, step_ms
 
 
@@ -1256,11 +1326,11 @@ def _heads_without_draws(models, noise: torch.Tensor):
             m.drop_path = rate
 
 
-def _avvp_close(out, ref, label: str) -> float:
-    """Every output, gating probs and lb_loss of a card forward against a CPU
-    one, rtol 1e-3, atol 1e-4; the largest |d| of the outputs."""
+def _close_to_cpu(out, ref, keys, label: str) -> float:
+    """The outputs `keys`, the gating probs and lb_loss of a card forward
+    against a CPU one, rtol 1e-3, atol 1e-4; the largest |d| of the outputs."""
     worst = 0.0
-    for key in AVVP_OUT:
+    for key in keys:
         a, b = out[key].cpu(), ref[key]
         worst = max(worst, (a - b).abs().max().item())
         check(torch.allclose(a, b, rtol=1e-3, atol=1e-4), f"{label} {key}: card vs CPU max "
@@ -1275,12 +1345,9 @@ def phase_avvp_tiny() -> int:
     """Tiny MGNModel in float32: the eval forward on both paths and a 2-step
     train curve on the default path, card (kernels) vs CPU (plain
     versions). Returns the K3 launches of the tiny chain-path forward."""
-    from avmoe_tpu_torch.config import TrainConfig, tiny_avvp_config
+    from avmoe_tpu_torch.config import tiny_avvp_config
     from avmoe_tpu_torch.kernels.block_chain import block_chain
     from avmoe_tpu_torch.models.avvp import MGNModel, make_avvp_loss_fn
-    from avmoe_tpu_torch.train.freeze import freeze
-    from avmoe_tpu_torch.train.state import create_train_state
-    from avmoe_tpu_torch.train.steps import make_train_step
 
     cfg = tiny_avvp_config()
     cpu = MGNModel(cfg, device="cpu", seed=0)
@@ -1300,7 +1367,7 @@ def phase_avvp_tiny() -> int:
               f"{block_chain.launches}")
         if chains:
             chain_launches = block_chain.launches
-        worst = _avvp_close(out, ref, f"tiny AVVP {label}")
+        worst = _close_to_cpu(out, ref, AVVP_OUT, f"tiny AVVP {label}")
         log(f"[avvp tiny] fp32 {label}, card (kernels) vs CPU (plain): every output, gating "
             f"probs and lb_loss within rtol 1e-3, atol 1e-4; outputs max |d| {worst:.3e}")
     cpu.encoder.block_chains = False
@@ -1309,47 +1376,9 @@ def phase_avvp_tiny() -> int:
     gpu.load_state_dict(cpu.state_dict())
     T = cfg.num_segments
     noise = torch.from_numpy(np.random.RandomState(3).gumbel(size=(2, T, T)).astype(np.float32))
-    tcfg = TrainConfig(accum_steps=1, lr=1e-5, lr_mlp=1e-5, decay=0.5, decay_epoch=1)
-    counters = _train_counters()
     with _heads_without_draws((cpu, gpu), noise):
-        grads, kept = {}, {k: v.clone() for k, v in cpu.state_dict().items()}
-        for label, model, dev in (("cpu", cpu, "cpu"), ("card", gpu, "cuda")):
-            freeze(model)
-            batch = _avvp_batches(cfg, 2, 1, 7, dev)[0]
-            grads[label] = _trainable_grads(model, make_avvp_loss_fn(model), batch, 0)
-            model.load_state_dict(kept)
-        whole, low, leaf = _grad_cosines(grads["card"], grads["cpu"])
-        check(whole >= 0.9999 and low >= 0.9999, f"tiny AVVP train gradients card vs CPU: "
-              f"cosine {whole:.7f}, lowest leaf {low:.7f} ({leaf}); want >= 0.9999")
-        runs = {}
-        with _deterministic():
-            for label, model, dev in (("cpu", cpu, "cpu"), ("card", gpu, "cuda")):
-                state = create_train_state(model, tcfg, steps_per_epoch=2)
-                step = make_train_step(make_avvp_loss_fn(model))
-                gen = torch.Generator(device=dev).manual_seed(0)
-                for c in counters.values():
-                    c.launches = 0
-                losses = []
-                for batch in _avvp_batches(cfg, 2, 2, 7, dev):
-                    state, met = step(state, batch, gen)
-                    losses.append(float(met["loss"]))
-                runs[label] = (losses, {k: v.detach().cpu() for k, v in model.state_dict().items()},
-                               {k: c.launches for k, c in counters.items()})
-    (l_cpu, s_cpu, _), (l_gpu, s_gpu, n_gpu) = runs["cpu"], runs["card"]
-    check(all(v > 0 for v in n_gpu.values()), f"tiny AVVP train: launches on the card {n_gpu}")
-    check(np.allclose(l_gpu, l_cpu, rtol=1e-3, atol=0.0),
-          f"tiny AVVP train losses: card {l_gpu} vs CPU {l_cpu}")
-    worst = 0.0
-    for k in s_cpu:
-        a, b = s_gpu[k].float(), s_cpu[k].float()
-        worst = max(worst, (a - b).abs().max().item())
-        check(torch.allclose(a, b, rtol=1e-3, atol=1e-4), f"tiny AVVP train {k}: card vs CPU "
-              f"max |d| {(a - b).abs().max().item():.3e}")
-    log(f"[avvp tiny] fp32 trainable gradients of one deterministic step, card vs CPU: cosine "
-        f"{whole:.7f}, lowest per-leaf cosine {low:.7f} ({leaf}) (>= 0.9999 both); 2 steps at "
-        f"lr 1e-5: losses {[round(v, 6) for v in l_gpu]} vs {[round(v, 6) for v in l_cpu]}; "
-        f"parameters and running stats max |d| {worst:.3e} (rtol 1e-3, atol 1e-4); launches on "
-        f"the card {n_gpu}")
+        _tiny_train_vs_cpu("avvp tiny", cpu, gpu, make_avvp_loss_fn,
+                           lambda n, dev: _avvp_batches(cfg, 2, n, 7, dev), steps=2)
     return chain_launches
 
 
@@ -1489,6 +1518,41 @@ def phase_avvp_full():
     return launches, fwd_ms, prof, model
 
 
+def _full_grad_gate(tag: str, make_model, model, loss_fn, batch) -> None:
+    """The gradient gate of a full-width train step: one deterministic
+    step's trainable gradients in float32 through the kernels against float32
+    through their plain versions, the same generator seed for both, at the
+    seeded init (gates zero; checked: cosine >= 0.9999 overall and on every
+    leaf) and with the trained `model`'s noised gates (reported); bf16
+    against float32 at the seeded init (reported). `make_model(dtype, seed)`
+    builds the model on the card."""
+    from avmoe_tpu_torch.train.freeze import freeze
+
+    plain = _plain_cores()
+    read = {}
+    for label in ("seeded init", "after the steps, gates noised"):
+        src = make_model(torch.bfloat16, 0) if label == "seeded init" else model
+        f32 = make_model(torch.float32, None)
+        f32.load_state_dict(src.state_dict())
+        freeze(f32)
+        ref = _trainable_grads(f32, loss_fn, batch, 13)
+        read[label] = {"f32 plain / f32": _grad_cosines(
+            _trainable_grads(f32, loss_fn, batch, 13, cores=plain), ref)}
+        if src is not model:
+            freeze(src)
+            read[label]["bf16 / f32"] = _grad_cosines(_trainable_grads(src, loss_fn, batch, 13),
+                                                      ref)
+        del src, f32, ref
+        torch.cuda.empty_cache()
+        log(f"[{tag}] trainable gradients of one deterministic step, {label}: " + "; ".join(
+            f"{k} cosine {w:.7f}, lowest leaf {lo:.7f} ({leaf})"
+            for k, (w, lo, leaf) in read[label].items()))
+    whole, low, leaf = read["seeded init"]["f32 plain / f32"]
+    check(whole >= 0.9999 and low >= 0.9999, f"{tag}: fp32 gradients through the kernels vs "
+          f"their plain versions at the seeded init: cosine {whole:.7f}, leaf {leaf} {low:.7f}; "
+          f"want >= 0.9999")
+
+
 def phase_avvp_train(model):
     """The full AVVPConfig() train step in bf16 on the default path at batch
     BATCH, DropPath, SpecAugment, dropout, HAN's Gumbel noise and mixup on;
@@ -1496,7 +1560,6 @@ def phase_avvp_train(model):
     from avmoe_tpu_torch.config import AVVPConfig, TrainConfig
     from avmoe_tpu_torch.models.avvp import MGNModel, make_avvp_loss_fn
     from avmoe_tpu_torch.moe.injection import backward_launches, kernel_launches
-    from avmoe_tpu_torch.train.freeze import freeze
     from avmoe_tpu_torch.train.state import create_train_state
     from avmoe_tpu_torch.train.steps import make_train_step
 
@@ -1508,86 +1571,270 @@ def phase_avvp_train(model):
     step = make_train_step(loss_fn)
     batch = _avvp_batches(cfg, BATCH, 1, 11, "cuda")[0]
     lam = batch.pop("mixup_lambda")             # λ drawn per frame from Beta(0.5, 0.5)
-    frozen = {n: p.detach().clone() for n, p in model.named_parameters() if not p.requires_grad}
-    start = {n: p.detach().clone() for n, p in state.trainable.items()}
-    stats = {n: b.clone() for n, b in state.batch_stats.items()}
     fwd = kernel_launches(cfg.swin, cfg.htsat, cfg.injection, block_chains=False)
     want = {"K1": fwd["K1"], "K2": fwd["K2"], **backward_launches(cfg.swin, cfg.htsat,
                                                                    cfg.injection)}
-    counters = _train_counters()
     gen = torch.Generator(device="cuda").manual_seed(12)
     torch.cuda.reset_peak_memory_stats()
-    losses = []
-    for i in range(3):
-        for c in counters.values():
-            c.launches = 0
-        state, met = step(state, batch, gen)
-        torch.cuda.synchronize()
-        got = {k: c.launches for k, c in counters.items()}
-        check(got == want, f"AVVP train step {i}: launches {got}, want {want}")
-        losses.append(float(met["loss"]))
-        check(math.isfinite(losses[-1]), f"AVVP train step {i}: loss {losses[-1]}")
-    check(all(torch.equal(p, frozen[n]) for n, p in model.named_parameters() if n in frozen),
-          "AVVP: a frozen parameter changed")
-    moved = [n for n, p in state.trainable.items() if not torch.equal(p, start[n])]
-    check(len(moved) == len(start), f"AVVP trainable parameters unchanged: "
-          f"{sorted(set(start) - set(moved))[:5]}")
-    check(stats and all(not torch.equal(state.batch_stats[n], stats[n]) for n in stats),
-          "AVVP running stats (bn0's; the adapters have no BatchNorm) did not move")
+    # the adapters have no BatchNorm: bn0's are the running stats
+    got, losses, n_frozen, n_moved = _checked_steps("AVVP train", model, state, step, batch,
+                                                    gen, want, ("bn0",))
     log(f"[avvp train] AVVPConfig() bf16 batch {BATCH}, default path, DropPath + SpecAugment + "
-        f"dropout + Gumbel + mixup: losses {[round(v, 5) for v in losses]}; {len(frozen)} frozen "
-        f"tensors bit-identical, {len(moved)} trainable tensors moved, bn0 running stats moved; "
+        f"dropout + Gumbel + mixup: losses {[round(v, 5) for v in losses]}; {n_frozen} frozen "
+        f"tensors bit-identical, {n_moved} trainable tensors moved, bn0 running stats moved; "
         f"launches per step {got} (plan {want}); peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-
-    # the gradient gate: fp32 through the kernels vs fp32 through their plain
-    # versions, at the seeded init (gates zero), the same generator seed for
-    # both; reported beside it: bf16 vs fp32 there, and fp32 kernels vs plain
-    # with the trained model's noised gates
-    gbatch = dict(batch, mixup_lambda=torch.full_like(lam, 0.6))
-    plain = _plain_cores()
-    read = {}
-    for label in ("seeded init", "after the steps, gates noised"):
-        src = MGNModel(cfg, dtype=torch.bfloat16, device="cuda", seed=0) if label == "seeded init" \
-            else model
-        f32 = MGNModel(cfg, dtype=torch.float32, device="cuda", seed=None)
-        f32.load_state_dict(src.state_dict())
-        freeze(f32)
-        ref = _trainable_grads(f32, loss_fn, gbatch, 13)
-        read[label] = {"f32 plain / f32": _grad_cosines(
-            _trainable_grads(f32, loss_fn, gbatch, 13, cores=plain), ref)}
-        if src is not model:
-            freeze(src)
-            read[label]["bf16 / f32"] = _grad_cosines(_trainable_grads(src, loss_fn, gbatch, 13),
-                                                      ref)
-        del src, f32, ref
-        torch.cuda.empty_cache()
-        log(f"[avvp train] trainable gradients of one deterministic step, {label}: " + "; ".join(
-            f"{k} cosine {w:.7f}, lowest leaf {lo:.7f} ({leaf})"
-            for k, (w, lo, leaf) in read[label].items()))
-    whole, low, leaf = read["seeded init"]["f32 plain / f32"]
-    check(whole >= 0.9999 and low >= 0.9999, f"AVVP fp32 gradients through the kernels vs their "
-          f"plain versions at the seeded init: cosine {whole:.7f}, leaf {leaf} {low:.7f}; want "
-          f">= 0.9999")
-
-    torch.cuda.reset_peak_memory_stats()
-    for _ in range(2):
-        step(state, batch, gen)
-    times = []
-    for _ in range(5):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        step(state, batch, gen)
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
-    step_ms = float(np.median(times)) * 1e3
-    peak = torch.cuda.max_memory_allocated() / 2**30
-    log(f"[time] AVVP train step bf16 batch {BATCH} (default path): median {step_ms:.2f} ms over "
-        f"5 steps ({', '.join(f'{t * 1e3:.2f}' for t in times)} ms), "
-        f"{BATCH / step_ms * 1e3:.3f} clips/s; peak memory {peak:.2f} GiB")
-    prof = phase_profile("AVVP train step", lambda: step(state, batch, gen), step_ms, iters=1,
-                         what="train step")
+    _full_grad_gate("avvp train", lambda dtype, seed: MGNModel(cfg, dtype=dtype, device="cuda",
+                                                               seed=seed),
+                    model, loss_fn, dict(batch, mixup_lambda=torch.full_like(lam, 0.6)))
+    step_ms, _, prof = _step_times("AVVP train step", step, state, batch, gen)
     return got, step_ms, prof
+
+
+# ---------------------------------------------------------------------------
+# AVQA: the question-answering fusion model (the frozen negative-frame Swin
+# pass, an LSTM question encoder, grounding and question-as-query heads)
+# ---------------------------------------------------------------------------
+
+AVQA_OUT = ("qa_logits", "match_posi", "match_nega")
+
+
+def _avqa_inputs(cfg, clips: int, seed: int, device):
+    """Seeded waves, positive and negative frames, and question token ids."""
+    wave, posi = _inputs(cfg, clips, seed, device)
+    rng = np.random.RandomState(seed + 1)
+    S = cfg.swin.img_size
+    nega = rng.rand(clips, cfg.num_segments, S, S, 3).astype(np.float32)
+    q = rng.randint(0, cfg.qst_vocab, (clips, cfg.max_qst_len))
+    return wave, posi, torch.from_numpy(nega).to(device), torch.from_numpy(q).to(device)
+
+
+def _avqa_batches(cfg, clips: int, steps: int, seed: int, device):
+    """Seeded AVQA batches: inputs, answers, a per-frame mixup λ."""
+    rng = np.random.RandomState(seed)
+    out = []
+    for _ in range(steps):
+        wave, posi, nega, q = _avqa_inputs(cfg, clips, int(rng.randint(1 << 30)), device)
+        answer = rng.randint(0, cfg.answer_vocab, clips)
+        lam = rng.uniform(0.3, 0.7, clips * cfg.num_segments).astype(np.float32)
+        out.append(dict(wave=wave, visual_posi=posi, visual_nega=nega, question=q,
+                        answer=torch.from_numpy(answer).to(device),
+                        mixup_lambda=torch.from_numpy(lam).to(device)))
+    return out
+
+
+def avqa_k3_shapes():
+    """(geom, calls per forward) of the AVQA chain path's K3 geometries that
+    the AVE chain path does not run: the positive pass's (adapters in every
+    stage) and the frozen negative pass's (each stage's blocks)."""
+    from avmoe_tpu_torch.config import AVQAConfig
+    from avmoe_tpu_torch.moe.injection import chain_calls, swin_chain_calls
+
+    cfg = AVQAConfig()
+    ave = {g for g, _ in k3_shapes()}
+    rows = {}
+    for c in chain_calls(cfg.swin, cfg.htsat, cfg.injection) + swin_chain_calls(cfg.swin):
+        if c.geom not in ave:
+            rows[c.geom] = rows.get(c.geom, 0) + 1
+    return list(rows.items())
+
+
+def phase_avqa_tiny():
+    """Tiny AVQAFusionModel in float32: the eval forward on both paths (the
+    negative pass through K1 + K2, or K3 chains) and a 2-step train curve on
+    the default path, card (kernels) vs CPU (plain versions); one step's
+    trainable gradients per leaf."""
+    from avmoe_tpu_torch.config import tiny_avqa_config
+    from avmoe_tpu_torch.models.avqa import (
+        AVQAFusionModel, avqa_kernel_launches, make_avqa_loss_fn)
+
+    cfg = tiny_avqa_config()
+    cpu = AVQAFusionModel(cfg, device="cpu", seed=0)
+    _nonzero_gates_(cpu, 1)
+    ins = _avqa_inputs(cfg, 2, 2, "cpu")
+    counters = _counters()
+    for chains in (False, True):
+        label = "chain path" if chains else "default path"
+        cpu.encoder.block_chains = chains
+        ref = cpu(*ins)
+        gpu = AVQAFusionModel(cfg, device="cuda", seed=None, block_chains=chains)
+        gpu.load_state_dict(cpu.state_dict())
+        for c in counters.values():
+            c.launches = 0
+        out = gpu(*(t.cuda() for t in ins))
+        torch.cuda.synchronize()
+        got = {k: c.launches for k, c in counters.items()}
+        want = avqa_kernel_launches(cfg, chains)
+        check(got == want, f"tiny AVQA {label}: launches {got}, want {want}")
+        worst = _close_to_cpu(out, ref, AVQA_OUT, f"tiny AVQA {label}")
+        log(f"[avqa tiny] fp32 {label}, card (kernels) vs CPU (plain): every output, gating "
+            f"probs and lb_loss within rtol 1e-3, atol 1e-4; outputs max |d| {worst:.3e}; "
+            f"launches {got}")
+    cpu.encoder.block_chains = False
+
+    gpu = AVQAFusionModel(cfg, device="cuda", seed=None)
+    gpu.load_state_dict(cpu.state_dict())
+    _tiny_train_vs_cpu("avqa tiny", cpu, gpu, make_avqa_loss_fn,
+                       lambda n, dev: _avqa_batches(cfg, 2, n, 7, dev), steps=2)
+
+
+def _avqa_pooled(model, ins):
+    """The positive pass's pooled features (f_v, f_a) of the encoder."""
+    wave, posi = ins[0], ins[1]
+    B, T = wave.shape[0], wave.shape[1]
+    with torch.no_grad():
+        f_v, f_a, _ = model.encoder(wave.reshape(B * T, -1),
+                                    posi.reshape((B * T,) + tuple(posi.shape[2:])))
+    return f_v.float(), f_a.float()
+
+
+def phase_avqa_full():
+    """AVQAConfig() in bfloat16 at batch 4 and 1 clips on both paths:
+    launches, shapes, finiteness, gating sums; bf16 vs fp32 cosine of
+    qa_logits and of the pooled encoder features, chain vs default, the
+    match logits' differences (reported); accuracy through make_avqa_eval_fn;
+    times, the negative pass alone, and a profile."""
+    from avmoe_tpu_torch.config import AVQAConfig
+    from avmoe_tpu_torch.metrics.avqa import AVQAAccuracy
+    from avmoe_tpu_torch.models.avqa import (
+        AVQAFusionModel, avqa_kernel_launches, make_avqa_eval_fn)
+
+    cfg = AVQAConfig()
+    T = cfg.num_segments
+    t0 = time.perf_counter()
+    model = AVQAFusionModel(cfg, dtype=torch.bfloat16, device="cuda", seed=0)
+    _nonzero_gates_(model, 1)
+    chain = AVQAFusionModel(cfg, dtype=torch.bfloat16, device="cuda", seed=None,
+                            block_chains=True)
+    chain.load_state_dict(model.state_dict())
+    torch.cuda.synchronize()
+    sites = len(model.encoder.sites)
+    log(f"[avqa] AVQAConfig() bf16 built in {time.perf_counter() - t0:.1f} s (both paths), "
+        f"{sum(p.numel() for p in model.parameters())} parameters, {sites} adapter sites, "
+        f"{cfg.moe.num_experts} experts")
+    ins = _avqa_inputs(cfg, BATCH, 3, "cuda")
+    counters = _counters()
+    paths = {"default path": model, "chain path": chain}
+    outs, launches = {}, {}
+    for label, m in paths.items():
+        want = avqa_kernel_launches(cfg, m.encoder.block_chains)
+        for clips in (BATCH, 1):
+            for c in counters.values():
+                c.launches = 0
+            out = m(*(t[:clips] for t in ins))
+            torch.cuda.synchronize()
+            got = {k: c.launches for k, c in counters.items()}
+            check(got == want, f"AVQA {label} batch {clips}: launches {got}, want {want}")
+            shapes = {"qa_logits": (clips, cfg.fc_class), "match_posi": (clips * T, 2),
+                      "match_nega": (clips * T, 2)}
+            for key, shape in shapes.items():
+                check(tuple(out[key].shape) == shape, f"AVQA {key} shape {tuple(out[key].shape)}")
+                check(bool(torch.isfinite(out[key]).all()), f"AVQA {label} {key} not finite")
+            for key in GATING:
+                p = out["telemetry"][key]
+                check(tuple(p.shape) == (sites, clips * T, cfg.moe.num_experts),
+                      f"AVQA {key} shape {tuple(p.shape)}")
+                check(bool(((p.sum(-1) - 1.0).abs() <= 1e-3).all()), f"AVQA {key} sums")
+            if clips == BATCH:
+                outs[label], launches[label] = out, got
+            log(f"[avqa] {label} batch {clips}: shapes ok, finite, gating sums ok, launches "
+                + " ".join(f"{k} {v}" for k, v in got.items()))
+
+    f32 = AVQAFusionModel(cfg, dtype=torch.float32, device="cuda", seed=None)
+    f32.load_state_dict(model.state_dict())
+    nega = ins[2].reshape((BATCH * T,) + tuple(ins[2].shape[2:]))
+    cos = {}
+    for label, m in paths.items():
+        f32.encoder.block_chains = m.encoder.block_chains
+        ref = f32(*ins)
+        fv16, fa16 = _avqa_pooled(m, ins)
+        fv32, fa32 = _avqa_pooled(f32, ins)
+        fn16 = m.negative_features(nega).float().mean(dim=1)
+        fn32 = f32.negative_features(nega).mean(dim=1)
+        cos[label] = {name: F.cosine_similarity(a.flatten(), b.flatten(), dim=0).item()
+                      for name, a, b in (("qa_logits", outs[label]["qa_logits"].float(),
+                                          ref["qa_logits"]), ("f_v", fv16, fv32),
+                                         ("f_a", fa16, fa32), ("f_v_nega", fn16, fn32))}
+        match_d = {k: (outs[label][k].float() - ref[k]).abs().max().item()
+                   for k in ("match_posi", "match_nega")}
+        check(all(c >= 0.99 for c in cos[label].values()),
+              f"AVQA {label}: bf16 vs fp32 cosines {cos[label]} (want >= 0.99)")
+        log(f"[avqa] {label}: bf16 vs fp32 cosine " + ", ".join(
+            f"{k} {v:.6f}" for k, v in cos[label].items()) + " (>= 0.99); reported, not gated: "
+            "match logits' max |d| " + ", ".join(f"{k} {v:.3e}" for k, v in match_d.items()))
+        del ref, fv16, fa16, fv32, fa32, fn16, fn32
+    del f32
+    torch.cuda.empty_cache()
+    c = F.cosine_similarity(outs["chain path"]["qa_logits"].float().flatten(),
+                            outs["default path"]["qa_logits"].float().flatten(), dim=0).item()
+    check(c >= 0.99, f"AVQA bf16 chain vs default qa_logits cosine {c:.5f} < 0.99")
+    log(f"[avqa] bf16 chain path vs default path qa_logits cosine {c:.6f} (>= 0.99)")
+
+    acc = AVQAAccuracy()
+    answer = torch.from_numpy(np.random.RandomState(5).randint(0, cfg.answer_vocab, BATCH))
+    make_avqa_eval_fn(model)(dict(wave=ins[0], visual_posi=ins[1], visual_nega=ins[2],
+                                  question=ins[3], answer=answer,
+                                  qtype_str=["Audio_Counting", "Visual_Location",
+                                             "Audio-Visual_Existential", ""][:BATCH]), acc)
+    summary = acc.summary()
+    check(all(math.isfinite(v) and 0 <= v <= 100 for v in summary.values()),
+          f"AVQA accuracy {summary}")
+    log(f"[avqa] accuracy of the batch-{BATCH} eval against seeded answers: {summary}")
+
+    neg_ms = {}
+    for label, m in paths.items():
+        neg_ms[label] = time_ms(lambda m=m: m.negative_features(nega), iters=10, warmup=2)
+    log(f"[time] AVQA negative pass alone (frozen Swin-V2-L over {BATCH * T} frames, bf16, CUDA "
+        f"events): default path {neg_ms['default path']:.3f} ms, chain path "
+        f"{neg_ms['chain path']:.3f} ms")
+    fwd_ms, prof = {}, {}
+    for label, m in paths.items():
+        fwd_ms[label] = _times(m, f"AVQA {label}", *ins)
+        prof[label] = phase_profile(f"AVQA {label}", lambda m=m: m(*ins), fwd_ms[label])
+    neg_prof = phase_profile("AVQA negative pass (default path)",
+                             lambda: model.negative_features(nega), neg_ms["default path"])
+    del chain
+    torch.cuda.empty_cache()
+    return launches, fwd_ms, prof, neg_ms, neg_prof, cos, model
+
+
+def phase_avqa_train(model):
+    """The full AVQAConfig() train step in bf16 on the default path at batch
+    BATCH, DropPath, SpecAugment, dropout and mixup on; the fp32 gradient
+    gate; times, peak memory and a profile."""
+    from avmoe_tpu_torch.config import AVQAConfig, TrainConfig
+    from avmoe_tpu_torch.models.avqa import (
+        AVQAFusionModel, avqa_kernel_launches, make_avqa_loss_fn)
+    from avmoe_tpu_torch.moe.injection import backward_launches
+    from avmoe_tpu_torch.train.state import create_train_state
+    from avmoe_tpu_torch.train.steps import make_train_step
+
+    cfg = AVQAConfig()
+    lr = TrainConfig().lr
+    state = create_train_state(model, TrainConfig(accum_steps=1, lr=lr, lr_mlp=lr),
+                               steps_per_epoch=100)
+    loss_fn = make_avqa_loss_fn(model)
+    step = make_train_step(loss_fn)
+    batch = _avqa_batches(cfg, BATCH, 1, 11, "cuda")[0]
+    lam = batch.pop("mixup_lambda")             # λ drawn per frame from Beta(0.5, 0.5)
+    # the negative pass runs K1 and K2 in the forward and no backward kernel
+    fwd = avqa_kernel_launches(cfg, block_chains=False)
+    want = {"K1": fwd["K1"], "K2": fwd["K2"], **backward_launches(cfg.swin, cfg.htsat,
+                                                                   cfg.injection)}
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    torch.cuda.reset_peak_memory_stats()
+    got, losses, n_frozen, n_moved = _checked_steps("AVQA train", model, state, step, batch,
+                                                    gen, want, ("bn0",))
+    log(f"[avqa train] AVQAConfig() bf16 batch {BATCH}, default path, DropPath + SpecAugment + "
+        f"dropout + mixup: losses {[round(v, 5) for v in losses]}; {n_frozen} frozen tensors "
+        f"bit-identical, {n_moved} trainable tensors moved, bn0 running stats moved; launches "
+        f"per step {got} (plan {want}); peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    _full_grad_gate("avqa train", lambda dtype, seed: AVQAFusionModel(
+        cfg, dtype=dtype, device="cuda", seed=seed), model, loss_fn,
+        dict(batch, mixup_lambda=torch.full_like(lam, 0.6)))
+    step_ms, peak, prof = _step_times("AVQA train step", step, state, batch, gen)
+    return got, step_ms, peak, prof
 
 
 def _kernel_entry(name: str, source: str, replaces: str, launches: int, err: float, tot,
@@ -1632,6 +1879,15 @@ def main():
     done("AVVP eval")
     avvp_train, avvp_step_ms, avvp_step_prof = phase_avvp_train(avvp_model)
     done("AVVP train")
+    del avvp_model
+    torch.cuda.empty_cache()
+    phase_k3(gen, avqa_k3_shapes(), "avqa K3")
+    phase_avqa_tiny()
+    avqa, avqa_fwd_ms, avqa_prof, avqa_neg_ms, avqa_neg_prof, avqa_cos, avqa_model = \
+        phase_avqa_full()
+    done("AVQA eval")
+    avqa_train, avqa_step_ms, avqa_peak, avqa_step_prof = phase_avqa_train(avqa_model)
+    done("AVQA train")
     default, chain = launches["default path"], launches["chain path"]
     log(f"[time] per batch-{BATCH} forward: K1 {k1_tot['ms']:.3f} ms over {default['K1']} calls "
         f"(bound {k1_tot['bound_ms']:.3f}), K2 {k2_tot['ms']:.3f} ms over {default['K2']} calls "
@@ -1650,31 +1906,53 @@ def main():
         "train_idle_share_profiled": avvp_step_prof[2],
         "launches_per_forward": avvp,
         "launches_per_step": avvp_train}}))
+    dp, cp = avqa_prof["default path"], avqa_prof["chain path"]
+    log(json.dumps({"avqa": {
+        "clips": BATCH, "eval_ms": avqa_fwd_ms["default path"],
+        "eval_clips_per_s": BATCH / avqa_fwd_ms["default path"] * 1e3,
+        "eval_device_busy_ms": dp[0], "eval_idle_share": dp[1], "eval_idle_share_profiled": dp[2],
+        "chain_eval_ms": avqa_fwd_ms["chain path"], "chain_eval_device_busy_ms": cp[0],
+        "chain_eval_idle_share": cp[1],
+        "negative_pass_ms": avqa_neg_ms["default path"],
+        "chain_negative_pass_ms": avqa_neg_ms["chain path"],
+        "negative_pass_device_busy_ms": avqa_neg_prof[0],
+        "train_step_ms": avqa_step_ms, "train_clips_per_s": BATCH / avqa_step_ms * 1e3,
+        "train_peak_gib": avqa_peak, "train_device_busy_ms": avqa_step_prof[0],
+        "train_idle_share": avqa_step_prof[1], "train_idle_share_profiled": avqa_step_prof[2],
+        "bf16_vs_f32_cosines": avqa_cos,
+        "launches_per_forward": avqa["default path"],
+        "chain_launches_per_forward": avqa["chain path"],
+        "launches_per_step": avqa_train}}))
     kernels = [
         _kernel_entry("window_attention", "avmoe_tpu_torch/csrc/window_attention.cu",
                       "experiments/pallas/window_attn.py:55", default["K1"], k1_err, k1_tot,
-                      k1_tot["library_ms"], avvp_launches=avvp["K1"]),
+                      k1_tot["library_ms"], avvp_launches=avvp["K1"],
+                      avqa_launches=avqa["default path"]["K1"]),
         # the TPU kernel has no backward (JAX differentiates its XLA
         # attention): K1b is the backward of K1's contract; library: the
         # backward of scaled_dot_product_attention; times per train step
         _kernel_entry("window_attention_bwd", "avmoe_tpu_torch/csrc/window_attention_bwd.cu",
                       "experiments/pallas/window_attn.py:55", train["K1b"], k1b_err, k1b_tot,
                       k1b_tot["library_ms"], backward_of="window_attention",
-                      max_rel_err=k1b_tot["max_rel_err"], avvp_launches=avvp_train["K1b"]),
+                      max_rel_err=k1b_tot["max_rel_err"], avvp_launches=avvp_train["K1b"],
+                      avqa_launches=avqa_train["K1b"]),
         # no PyTorch call computes the block; its two cuBLAS products alone
         # (no GELU, LN or residual) are a yardstick under a key of their own
         _kernel_entry("mlp_block", "avmoe_tpu_torch/csrc/mlp_block.cu",
                       "experiments/pallas/fused_block.py:315", default["K2"], k2_err, k2_tot,
                       None, products_ms=k2_tot["products_ms"],
-                      cublas_products_only_ms=k2_tot["cublas_ms"], avvp_launches=avvp["K2"]),
+                      cublas_products_only_ms=k2_tot["cublas_ms"], avvp_launches=avvp["K2"],
+                      avqa_launches=avqa["default path"]["K2"],
+                      avqa_chain_launches=avqa["chain path"]["K2"]),
         _kernel_entry("mlp_block_bwd", "avmoe_tpu_torch/csrc/mlp_block.cu",
                       "experiments/pallas/fused_block.py:315", train["K2b"], k2b_err, k2b_tot,
                       None, backward_of="mlp_block", products_ms=k2b_tot["products_ms"],
                       cublas_products_only_ms=k2b_tot["cublas_ms"],
-                      avvp_launches=avvp_train["K2b"]),
+                      avvp_launches=avvp_train["K2b"], avqa_launches=avqa_train["K2b"]),
         _kernel_entry("block_chain", "avmoe_tpu_torch/csrc/block_chain.cu",
                       "experiments/pallas/fused_block.py:237", chain["K3"], k3_err, k3_tot,
-                      None, avvp_launches=avvp["K3"], avvp_tiny_chain_launches=avvp_tiny_k3),
+                      None, avvp_launches=avvp["K3"], avvp_tiny_chain_launches=avvp_tiny_k3,
+                      avqa_chain_launches=avqa["chain path"]["K3"]),
     ]
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

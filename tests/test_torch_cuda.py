@@ -572,3 +572,51 @@ def test_cuda_bmm_expert_logits_of_bf16_match_the_upcast_product(cuda_device, N,
     (dx,), (dref,) = torch.autograd.grad(out, [xa], dz), torch.autograd.grad(ref, [xb], dz)
     assert dx.dtype == torch.bfloat16
     assert (dx.float() - dref.float()).abs().max() <= 2e-2 * (1 + dref.float().abs()).max()
+
+
+# AVQA's frozen negative pass runs each Swin-V2-L stage as K3 chains
+# (`moe/injection.py` swin_chain_calls): the geometries the AVE chain path
+# does not run are stage 0's whole blocks (48 x 48, C=192) and stage 2's 18
+# blocks as one chain (12 x 12, C=768)
+def _negative_pass_geoms():
+    import chip_smoke
+    from avmoe_tpu_torch.config import AVQAConfig
+    from avmoe_tpu_torch.moe.injection import swin_chain_calls
+
+    ave = {g for g, _ in chip_smoke.k3_shapes()}
+    return [c.geom for c in swin_chain_calls(AVQAConfig().swin) if c.geom not in ave]
+
+
+def test_negative_pass_cases_are_the_new_chain_geometries():
+    geoms = _negative_pass_geoms()
+    assert [(g.H, g.C, g.K, g.shifts[0]) for g in geoms] == [
+        (48, 192, 1, 0), (48, 192, 1, 6), (12, 768, 18, 0)]
+    assert all(g.part == "full" for g in geoms)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("index", range(3))
+def test_cuda_block_chain_negative_pass_geometries(cuda_device, dtype, index):
+    """K3 at full width over two frames, seeded as chip_smoke.py seeds its
+    chains: float32 rtol 1e-4, atol 1e-4; bf16 within
+    chip_smoke.k3_bf16_budget (K3_BF16_TOL, and for the 18-block chain no
+    farther from float32 than the plain version's bf16 rounding)."""
+    import chip_smoke
+
+    geom = _negative_pass_geoms()[index]
+    gen = torch.Generator(device="cuda").manual_seed(8 + index)
+    blocks = chip_smoke._chain_blocks(geom, gen)
+    ops, _ = stack_chain(blocks, geom.part, dtype)
+    xw = torch.randn(2 * geom.nW, geom.N, geom.C, device="cuda", generator=gen).to(dtype)
+    ref = block_chain_plain(xw.float(), {k: v.float() for k, v in ops.items()}, geom)
+    before = block_chain.launches
+    out = block_chain.windows(xw, ops, geom)
+    torch.cuda.synchronize()
+    assert block_chain.launches == before + 1
+    if dtype == torch.float32:
+        torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-4)
+    else:
+        rel_plain = ((block_chain_plain(xw, ops, geom).float() - ref).abs()
+                     / (1.0 + ref.abs())).max().item()
+        _check(out, ref, dtype, bf16_tol=chip_smoke.k3_bf16_budget(geom, rel_plain))
