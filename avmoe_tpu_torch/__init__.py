@@ -1,11 +1,13 @@
 """avmoe_tpu_torch: the PyTorch/CUDA port of AVMoE, for an NVIDIA H100.
 
 The package mirrors the layout of the JAX package `avmoe_tpu` module by
-module. It covers three of the four tasks' models, each with its eval
-forward and train step: AVE (`models/ave.py`, temporal attention and the
-CMBS head), AVVP (`models/avvp.py`, the MGN grouping heads) and AVQA
-(`models/avqa.py`, the LSTM question encoder, audio-guided grounding,
-question-as-query attention and the frozen Swin pass over negative frames).
+module. It covers the four tasks' models, each with its eval forward and
+train step: AVE (`models/ave.py`, temporal attention and the CMBS head),
+AVVP (`models/avvp.py`, the MGN grouping heads), AVQA (`models/avqa.py`,
+the LSTM question encoder, audio-guided grounding, question-as-query
+attention and the frozen Swin pass over negative frames) and AVS
+(`models/avs.py`, S4 and MS3 segmentation: the stage tokens through TPAVI
+and an FPN decoder; S4's step, which trains HTS-AT, runs on the CPU only).
 Under them: the log-mel front end, the HTS-AT and Swin-V2 backbones in
 lock-step with MoE adapters, the losses, metrics, freezing, the optimizer
 and the train step. Window attention, the Swin MLP sub-block (forward and

@@ -1,5 +1,5 @@
-"""Configuration of the AVE, AVVP and AVQA models and their training, as
-plain frozen dataclasses.
+"""Configuration of the AVE, AVVP, AVQA and AVS models and their training,
+as plain frozen dataclasses.
 
 Field names and defaults mirror the JAX package's `avmoe_tpu/config.py` so a
 configuration reads the same in both packages. Fields that only select a
@@ -107,8 +107,8 @@ class AdapterConfig:
     vis_use_gate: bool = True
     before_layernorm: bool = True
     post_layernorm: bool = True
-    # the unimodal expert's self-attention: 'none' (AVE, AVQA) and 'bmm'
-    # (AVVP) are ported; 'mha' (AVS) and 'token' (AVS MS3) are not
+    # the unimodal expert's self-attention: 'none' (AVE, AVQA), 'bmm'
+    # (AVVP), 'mha' (AVS S4) or 'token' (AVS MS3)
     self_attention: str = "none"
 
 
@@ -207,6 +207,45 @@ class AVQAConfig:
 
 
 @dataclass(frozen=True)
+class AVSConfig:
+    """AVS sound-source segmentation, S4 and MS3: 5 frames a clip at 224 px
+    (resized to Swin's 192), adapters in every stage, 'mha' unimodal
+    experts, a noisy router with the load-balance loss, TPAVI on all four
+    pyramid stages and an FPN decoder to 224-px masks. MS3 is this config
+    with the 'token' expert, gamma 0.1 and the masked audio-visual loss."""
+
+    setting: str = "s4"             # 's4' | 'ms3'
+    num_segments: int = 5
+    audio_len: int = 32_000
+    img_size: int = 224             # the frames' size; the model resizes to Swin's
+    channel: int = 256              # decoder width
+    mask_size: int = 224
+    tpavi_stages: Tuple[int, ...] = (0, 1, 2, 3)
+    tpavi_vv_flag: bool = False
+    tpavi_va_flag: bool = True
+    pyramid_sizes: Tuple[int, ...] = (56, 28, 14, 7)
+    sa_loss_flag: bool = False
+    lambda_1: float = 0.0
+    sa_loss_stages: Tuple[int, ...] = ()
+    sa_loss_kind: str = "cosine"    # 'cosine' | 'euclidean' | 'kl'
+    closer_loss: bool = False
+    sa_norm_fea: bool = True
+    sa_threshold: bool = True
+    lb_loss_weight: float = 0.0
+    temporal_gamma: float = 0.05
+    swin: SwinV2Config = field(default_factory=SwinV2Config)
+    htsat: HTSATConfig = field(default_factory=HTSATConfig)
+    # 87 latent tokens on every expert, no BN, no gate on the audio adapters
+    # (the visual ones keep theirs)
+    moe: MoEConfig = field(default_factory=lambda: MoEConfig(
+        load_balance_loss=True, lb_loss_compat=True, router_noise_std=0.01,
+        adapter=AdapterConfig(self_attention="mha", use_bn=False,
+                              use_gate=False, num_tokens=87),
+    ))
+    injection: InjectionConfig = field(default_factory=lambda: InjectionConfig(num_skip=1))
+
+
+@dataclass(frozen=True)
 class TrainConfig:
     """The optimizer's settings of the JAX package's TrainConfig."""
 
@@ -286,6 +325,25 @@ def tiny_avqa_config() -> AVQAConfig:
     )
 
 
+def tiny_avs_config() -> AVSConfig:
+    return AVSConfig(
+        num_segments=2,
+        audio_len=4000,
+        img_size=64,
+        channel=32,
+        mask_size=64,
+        pyramid_sizes=(16, 8, 4, 2),
+        swin=tiny_swin(),
+        htsat=tiny_htsat(),
+        moe=MoEConfig(
+            load_balance_loss=True, lb_loss_compat=True, router_noise_std=0.01,
+            adapter=AdapterConfig(downsample=4, num_conv_group=2, num_tokens=87,
+                                  self_attention="mha", use_bn=False, use_gate=False),
+        ),
+        injection=InjectionConfig(num_skip=1),
+    )
+
+
 # "mini" configs: the tiny widths at the datasets' real clip geometry (10
 # one-second segments at 32 kHz)
 
@@ -316,3 +374,20 @@ def mini_avqa_config() -> AVQAConfig:
     return dataclasses.replace(tiny_avqa_config(), num_segments=10, audio_len=32000,
                                max_qst_len=14, qst_vocab=64, answer_vocab=6,
                                htsat=_mini_htsat())
+
+
+def mini_avs_config() -> AVSConfig:
+    return dataclasses.replace(tiny_avs_config(), num_segments=5, audio_len=32000,
+                               htsat=_mini_htsat())
+
+
+def ms3_config(cfg: AVSConfig) -> AVSConfig:
+    """The MS3 recipe over an AVS config: the 'token' expert, gamma 0.1, the
+    load-balance loss at 0.01 and the KL masked audio-visual loss at lambda
+    0.5 over all four stages, soft masks, unnormed features."""
+    return dataclasses.replace(
+        cfg, setting="ms3", temporal_gamma=0.1, lb_loss_weight=0.01, sa_loss_flag=True,
+        lambda_1=0.5, sa_loss_kind="kl", sa_norm_fea=False, sa_threshold=False,
+        sa_loss_stages=(0, 1, 2, 3),
+        moe=dataclasses.replace(cfg.moe, adapter=dataclasses.replace(
+            cfg.moe.adapter, self_attention="token")))

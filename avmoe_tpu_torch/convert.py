@@ -37,6 +37,7 @@ from torch import nn
 
 from avmoe_tpu_torch.heads.common import LSTMCell
 from avmoe_tpu_torch.ops.norm import BatchNorm, LayerNorm
+from avmoe_tpu_torch.train.freeze import FROZEN_SCOPES, is_trainable_path
 
 Path = Tuple[str, ...]
 
@@ -154,11 +155,12 @@ def _leaves(mod: nn.Module, name: str, value: np.ndarray) -> Iterable[Tuple[str,
 
 
 @torch.no_grad()
-def export_jax_variables(model: nn.Module, trainable_only: bool = False) -> Dict[str, Dict]:
+def export_jax_variables(model: nn.Module, trainable_only: bool = False,
+                         frozen_scopes: Tuple[str, ...] = FROZEN_SCOPES) -> Dict[str, Dict]:
     """{"params": ..., "batch_stats": ...} of the port as nested dicts of
     float32 numpy arrays in the flax layout; with trainable_only, the params
-    are those `train/freeze.py` trains (the batch stats are all kept)."""
-    from avmoe_tpu_torch.train.freeze import is_trainable_path
+    are those `train/freeze.py` trains with `frozen_scopes` (the batch stats
+    are all kept)."""
 
     out: Dict[str, Dict] = {"params": {}, "batch_stats": {}}
     for mod_name, mod in model.named_modules():
@@ -167,7 +169,8 @@ def export_jax_variables(model: nn.Module, trainable_only: bool = False) -> Dict
             value = tensor.detach().float().cpu().numpy()
             for col, leaf, arr in _leaves(mod, name, value):
                 path = prefix + leaf
-                if col == "params" and trainable_only and not is_trainable_path(path):
+                if (col == "params" and trainable_only
+                        and not is_trainable_path(path, frozen_scopes)):
                     continue
                 node = out[col]
                 for part in path[:-1]:

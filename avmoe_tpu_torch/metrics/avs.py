@@ -1,0 +1,46 @@
+"""AVS segmentation metrics: mask IoU and the 255-threshold F-measure.
+
+Counterpart of `avmoe_tpu/metrics/avs.py` (`save_mask`, which writes image
+files, belongs with the command-line tools and is not here).
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def mask_iou(pred_logits: torch.Tensor, target: torch.Tensor, eps: float = 1e-7
+             ) -> torch.Tensor:
+    """Mean IoU of the thresholded masks over N (H, W) images; an image whose
+    ground truth is empty scores the background IoU over all its pixels."""
+    pred = (torch.sigmoid(pred_logits) > 0.5).to(torch.int32)
+    target = target.to(torch.int32)
+    num_pixels = pred.shape[-1] * pred.shape[-2]
+    no_obj = target.sum(dim=(1, 2)) == 0
+    inter = (pred * target).sum(dim=(1, 2))
+    union = torch.maximum(pred, target).sum(dim=(1, 2))
+    inter = torch.where(no_obj, ((1 - target) * (1 - pred)).sum(dim=(1, 2)), inter)
+    union = torch.where(no_obj, torch.full_like(union, num_pixels), union)
+    return (inter / (union + eps)).mean()
+
+
+def eval_fmeasure(pred_logits: torch.Tensor, gt: torch.Tensor, pr_num: int = 255,
+                  beta2: float = 0.3) -> torch.Tensor:
+    """The largest F-measure over `pr_num` thresholds of the mean
+    precision / recall curve, averaged over the images with a non-empty
+    ground truth (N, H, W); one image at a time, so the (pr_num, H, W)
+    masks exist for one image only."""
+    probs = torch.sigmoid(pred_logits.float())
+    gt = gt.float()
+    ths = torch.linspace(0.0, 1.0 - 1e-10, pr_num, device=probs.device)
+    curve = torch.zeros(pr_num, device=probs.device)
+    valid = gt.mean(dim=(1, 2)) > 0.0
+    for p, y, ok in zip(probs, gt, valid.tolist()):
+        if not ok:
+            continue
+        yp = (p[None] >= ths[:, None, None]).float()
+        tp = (yp * y[None]).sum(dim=(1, 2))
+        prec = tp / (yp.sum(dim=(1, 2)) + 1e-20)
+        rec = tp / (y.sum() + 1e-20)
+        curve += torch.nan_to_num((1 + beta2) * prec * rec / (beta2 * prec + rec))
+    return (curve / max(int(valid.sum()), 1)).max()

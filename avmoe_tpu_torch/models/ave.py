@@ -157,9 +157,10 @@ def init_parameters(model: nn.Module, gen: torch.Generator) -> None:
                 _lecun_(p, p.shape[-2], gen)
             elif isinstance(mod, DenseGeneral):
                 if name == "kernel":
-                    # query/key/value (C, H, D) have an (H, D) bias; out (H, D, C) a (C,) one
-                    in_q = mod.bias.dim() == 2
-                    _lecun_(p, p.shape[0] if in_q else p.shape[0] * p.shape[1], gen)
+                    # query/key/value (C, H, D) have an (H, D) bias; out (H, D, C) a
+                    # (C,) one; the adapters' stacked MHA has a leading expert axis
+                    in_q = mod.bias.dim() == p.dim() - 1
+                    _lecun_(p, p.shape[-3] if in_q else p.shape[-3] * p.shape[-2], gen)
                 else:
                     p.zero_()
             elif isinstance(mod, WindowAttentionV1) and name == "relative_position_bias_table":

@@ -20,6 +20,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from avmoe_tpu_torch.config import AdapterConfig, MoEConfig
+from avmoe_tpu_torch.heads.common import DenseGeneral
+from avmoe_tpu_torch.ops.dropout import dropout
 from avmoe_tpu_torch.ops.norm import BatchNorm, LayerNorm
 
 
@@ -152,34 +154,121 @@ def _gram_f32(x: torch.Tensor) -> torch.Tensor:
     return torch.matmul(x.float(), x.float().transpose(1, 2))
 
 
+class StackedMultiHeadAttention(nn.Module):
+    """flax MultiHeadDotProductAttention (self-attention, 4 heads), one per
+    expert, over (L, S, C) inputs: attention over the S axis at each L index.
+    Its DenseGeneral kernels carry the expert axis first: (E, C, H, D) and
+    (E, H, D) biases in, (E, H, D, C) and (E, C) out.
+
+    As flax computes it at `dtype`: q scaled by D**-0.5 before the product,
+    the logits and the softmax in the compute dtype (flax promotes q and k
+    to it and leaves force_fp32_for_softmax off), the weights cast to it.
+    Train dropout (rate 0.2) multiplies the weights by one (queries, keys)
+    mask per expert, shared by every L row and head (flax's
+    broadcast_dropout, one rng per expert under nn.vmap)."""
+
+    RATE = 0.2
+
+    def __init__(self, dim: int, num: int, num_heads: int = 4):
+        super().__init__()
+        H, D = num_heads, dim // num_heads
+        self.query = DenseGeneral((num, dim, H, D), (num, H, D))
+        self.key = DenseGeneral((num, dim, H, D), (num, H, D))
+        self.value = DenseGeneral((num, dim, H, D), (num, H, D))
+        self.out = DenseGeneral((num, H, D, dim), (num, dim))
+
+    def forward(self, x: torch.Tensor, train: bool = False,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """x (L, S, C) -> (E, L, S, C)."""
+        dt = x.dtype
+
+        def proj(m):
+            return (torch.einsum("lsc,echd->elshd", x, m.kernel.to(dt))
+                    + m.bias.to(dt)[:, None, None])
+
+        q, k, v = proj(self.query), proj(self.key), proj(self.value)
+        q = q / torch.tensor(math.sqrt(q.shape[-1])).to(dt)   # sqrt(D) rounded to dt
+        w = torch.softmax(torch.einsum("elqhd,elkhd->elhqk", q, k), dim=-1).to(dt)
+        if train:
+            E, S = w.shape[0], w.shape[-1]
+            w = w * dropout(w.new_ones(E, 1, 1, S, S), self.RATE, train=train,
+                            generator=generator)
+        o = torch.einsum("elhqk,elkhd->elqhd", w, v)
+        return (torch.einsum("elqhd,ehdc->elqc", o, self.out.kernel.to(dt))
+                + self.out.bias.to(dt)[:, None, None])
+
+
+def _latent_self_attention(x: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """The 'token' expert's two hops for x (B, N, C) and per-expert latent
+    tokens (E, T, C): the tokens attend to x, then x attends to the updated
+    tokens; float32 logits, weights cast to x's dtype. Returns the delta
+    A @ rep (E, B, N, C) that gate_self scales."""
+    dt = x.dtype
+    B = x.shape[0]
+    E, T, C = tokens.shape
+    rep = tokens.to(dt)[:, None].expand(E, B, T, C)
+    att_x2t = torch.softmax(torch.einsum("ebtc,bnc->ebtn", rep.float(), x.float()),
+                            dim=-1).to(dt)
+    rep = rep + torch.einsum("ebtn,bnc->ebtc", att_x2t, x)
+    att_t2x = torch.softmax(torch.einsum("bnc,ebtc->ebnt", x.float(), rep.float()),
+                            dim=-1).to(dt)
+    return torch.einsum("ebnt,ebtc->ebnc", att_t2x, rep)
+
+
 class UnimodalExpert(_Expert):
     """Bottleneck (no activation) on x alone, after an optional self-attention:
-    'none' (AVE) or 'bmm' (AVVP), a gated dot-product self-attention with a
-    per-expert gate_av."""
+    'none' (AVE, AVQA); 'bmm' (AVVP), a gated dot-product self-attention with
+    a per-expert gate_av; 'mha' (AVS S4), a 4-head MHA per expert that
+    replaces x; 'token' (AVS MS3), the latent-token two-hop attention of the
+    cross-modal expert over x itself, gated by gate_self."""
+
+    KINDS = ("none", "bmm", "mha", "token")
 
     def __init__(self, dim: int, cfg: AdapterConfig, num: int):
-        if cfg.self_attention not in ("none", "bmm"):
-            raise NotImplementedError(
-                f"self_attention={cfg.self_attention!r}: only 'none' (AVE) and 'bmm' (AVVP) "
-                "are ported")
+        if cfg.self_attention not in self.KINDS:
+            raise ValueError(f"self_attention={cfg.self_attention!r}, want one of {self.KINDS}")
         super().__init__(dim, cfg, num, use_activation=False)
         if cfg.self_attention == "bmm":
             self.gate_av = nn.Parameter(torch.zeros(num, 1))
+        elif cfg.self_attention == "mha":
+            self.self_attention = StackedMultiHeadAttention(dim, num)
+        elif cfg.self_attention == "token":
+            self.latent_tokens = nn.Parameter(torch.zeros(num, cfg.num_tokens, dim))
+            self.gate_self = nn.Parameter(torch.zeros(num, 1))
 
-    def forward(self, x: torch.Tensor, other: torch.Tensor, train: bool = False) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, other: torch.Tensor, train: bool = False,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """x (B, N, C) -> (E, B, N, C)."""
         del other
         E = self.bottleneck.down.kernel.shape[0]
-        if self.cfg.self_attention == "none":
+        dt = x.dtype
+        kind = self.cfg.self_attention
+        if kind == "none":
             return self._tail(x[None].expand(E, *x.shape), train)
+        if kind == "mha":
+            # attention ACROSS the frame axis B' at each token index, as the
+            # reference's sequence-first torch MHA reads (B', N, C): it mixes
+            # the samples of a batch
+            xe = self.self_attention(x.transpose(0, 1), train, generator)
+            xe = xe.transpose(1, 2).contiguous()
+            return self._tail(xe, train)
+        if kind == "token":
+            delta = _latent_self_attention(x, self.latent_tokens)
+            return self._tail(x[None] + _per_expert(self.gate_self, 4).to(dt) * delta, train)
         # att[i, j] = softmax_j(x_i . x_j), float32 logits, cast to x's dtype;
         # res_j = sum_i att[i, j] x_i: the transposed product att^T x. Both
         # are the same for every expert: only gate_av differs.
-        dt = x.dtype
         att = torch.softmax(_gram_f32(x), dim=-1).to(dt)
         res = torch.matmul(att.transpose(1, 2), x)
         xe = x[None] + _per_expert(self.gate_av, 4).to(dt) * res[None]
         return self._tail(xe, train)
+
+
+def router_noise(shape, generator: Optional[torch.Generator], device) -> torch.Tensor:
+    """Standard normal router-logit noise of `shape`, drawn from `generator`."""
+    if generator is None:
+        raise ValueError("router noise in train mode needs a torch.Generator")
+    return torch.randn(shape, generator=generator, device=device)
 
 
 class MoEAdapter(nn.Module):
@@ -245,17 +334,15 @@ class MoEAdapter(nn.Module):
             h = F.relu(getattr(self, f"router_fc{i}")(h))
         logits = self.router_out(h)
         if train and self.cfg.router_noise_std > 0:
-            if generator is None:
-                raise ValueError("router noise in train mode needs a torch.Generator")
-            logits = logits + self.cfg.router_noise_std * torch.randn(
-                logits.shape, generator=generator, device=logits.device)
+            logits = logits + self.cfg.router_noise_std * router_noise(
+                logits.shape, generator, logits.device)
         probs = torch.softmax(logits, dim=-1)                        # (B, E)
 
         outs = []
         if self.cfg.num_multimodal_experts > 0:
             outs.append(self.multimodal_experts(x, other_proj, train))
         if self.cfg.num_singlemodal_experts > 0:
-            outs.append(self.singlemodal_experts(x, other_proj, train))
+            outs.append(self.singlemodal_experts(x, other_proj, train, generator))
         expert_out = torch.cat(outs, dim=0)                          # (E, B, N, C)
         out = torch.einsum("ebnc,be->bnc", expert_out, probs.to(expert_out.dtype))
 

@@ -297,10 +297,13 @@ class LockstepEncoder(nn.Module):
 
     def forward_tokens(self, wave: torch.Tensor, images: torch.Tensor, *, train: bool = False,
                        mixup_lambda: Optional[torch.Tensor] = None,
-                       generator: Optional[torch.Generator] = None):
+                       generator: Optional[torch.Generator] = None,
+                       collect_stages: bool = False):
         """f_v (B', N_last, C_v) after the final visual norm, f_a (B', M_last,
         C_a) un-normed, and telemetry: per-kind (sites, B', E) gating probs
-        and the summed lb_loss."""
+        and the summed lb_loss. With collect_stages, telemetry['stage_tokens']
+        holds each stage's visual tokens before its downsample, the last
+        stage's normed (AVS's multi-scale capture)."""
         if train and self.block_chains:
             raise NotImplementedError(
                 "the chain path (block_chains=True) is eval only, as the JAX package's fused "
@@ -312,6 +315,7 @@ class LockstepEncoder(nn.Module):
         tele: Dict[str, List[torch.Tensor]] = {
             "audio_p1": [], "audio_p2": [], "video_p1": [], "video_p2": []}
         lb_losses: List[torch.Tensor] = []
+        stage_tokens: List[torch.Tensor] = []
 
         def run(prefix: str, site: int, x, other):
             out, aux = self.adapters[prefix][site](x, other, train, generator)
@@ -356,6 +360,9 @@ class LockstepEncoder(nn.Module):
                 if inj.audio_adapter_p2:
                     f_v = f_v + f_v_res2
                     f_a = f_a + f_a_res2
+            if collect_stages:
+                last = stage == len(self.plan) - 1
+                stage_tokens.append(swin.norm(f_v) if last else f_v)
             if stage < len(swin.downsamples):
                 f_v = swin.downsamples[stage](f_v)
             if stage < len(htsat.downsamples):
@@ -366,4 +373,6 @@ class LockstepEncoder(nn.Module):
                      for k, v in tele.items()}
         telemetry["lb_loss"] = (torch.stack(lb_losses).sum() if lb_losses
                                 else torch.zeros((), device=f_v.device))
+        if collect_stages:
+            telemetry["stage_tokens"] = stage_tokens
         return f_v, f_a, telemetry

@@ -17,7 +17,7 @@ import torch
 from torch import nn
 
 from avmoe_tpu_torch.config import TrainConfig
-from avmoe_tpu_torch.train.freeze import freeze
+from avmoe_tpu_torch.train.freeze import FROZEN_SCOPES, freeze
 
 
 def step_decay_schedule(base_lr: float, gamma: float, step_size_epochs: int,
@@ -105,10 +105,11 @@ def make_optimizer(groups: List[Tuple[List[nn.Parameter], Callable]]) -> torch.o
                             betas=(0.9, 0.999), eps=1e-8, weight_decay=0.0)
 
 
-def create_train_state(model: nn.Module, cfg: TrainConfig,
-                       steps_per_epoch: int = 1) -> TrainState:
-    """Freeze the backbones (requires_grad), and build Adam over the rest."""
-    trainable = freeze(model)
+def create_train_state(model: nn.Module, cfg: TrainConfig, steps_per_epoch: int = 1,
+                       frozen_scopes: Tuple[str, ...] = FROZEN_SCOPES) -> TrainState:
+    """Freeze the backbones in `frozen_scopes` (requires_grad), and build
+    Adam over the rest."""
+    trainable = freeze(model, frozen_scopes)
     groups = param_groups(trainable, cfg, steps_per_epoch)
     ordered = {id(p): n for n, p in trainable.items()}
     # the state's parameter order is the optimizer's: group by group

@@ -49,6 +49,9 @@ jnp = jax.numpy
 
 from torch_port_harness import jax_variables, to_jax
 
+from torch_train_harness import (LIVE, adam_moment, cos, flat, live, load_jax_state, outside,
+                                 port_mu)
+
 from avmoe_tpu_torch.convert import export_jax_variables, load_jax_variables
 
 torch.set_num_threads(2)
@@ -56,76 +59,6 @@ torch.set_num_threads(2)
 STEPS = 4
 LR = 2e-4
 DEPTHS = (2, 2, 2, 2)
-LIVE = 1e-6
-
-
-def _flat(tree, prefix=()):
-    out = {}
-    for k, v in tree.items():
-        if isinstance(v, dict) or hasattr(v, "items"):
-            out.update(_flat(v, prefix + (k,)))
-        else:
-            out[prefix + (k,)] = np.array(v, np.float64)
-    return out
-
-
-def _adam(opt_state, moment: str):
-    """JAX's Adam moment ('mu' or 'nu') as {flax path: array}."""
-    out = {}
-    for path, v in jax.tree_util.tree_flatten_with_path(opt_state)[0]:
-        names = [getattr(p, "name", None) for p in path]
-        if moment in names:
-            rest = path[names.index(moment) + 1:]
-            out[tuple(p.key for p in rest)] = np.asarray(v, np.float64)
-    return out
-
-
-def _tree(flat):
-    tree = {}
-    for path, v in flat.items():
-        node = tree
-        for part in path[:-1]:
-            node = node.setdefault(part, {})
-        node[path[-1]] = np.asarray(v, np.float32)
-    return tree
-
-
-def _port_mu(model, state):
-    with torch.no_grad():
-        saved = {n: p.detach().clone() for n, p in state.trainable.items()}
-        for p in state.trainable.values():
-            p.copy_(state.optimizer.state[p]["exp_avg"])
-        out = _flat(export_jax_variables(model, trainable_only=True)["params"])
-        for n, p in state.trainable.items():
-            p.copy_(saved[n])
-    return out
-
-
-def _load_jax_state(model, state, jstate, updates: int):
-    """The port's model and train state set to a JAX train state: all the
-    parameters and batch stats, and, after `updates` > 0 steps, Adam's
-    moments and step count (each moment read through the converter, as a
-    parameter tree, so that it takes the port's layout)."""
-    from avmoe_tpu.train.freeze import merge_params
-
-    frozen = jax.tree_util.tree_map(np.asarray, jstate.frozen)
-    stats = jax.tree_util.tree_map(np.asarray, jstate.batch_stats)
-    trainable = jax.tree_util.tree_map(np.asarray, jstate.trainable)
-    load_jax_variables(model, {"params": merge_params(trainable, frozen), "batch_stats": stats})
-    state.optimizer.state.clear()
-    if updates:
-        moments = {}
-        for moment in ("mu", "nu"):
-            load_jax_variables(model, {"params": merge_params(
-                _tree(_adam(jstate.opt_state, moment)), frozen), "batch_stats": stats})
-            moments[moment] = {n: p.detach().clone() for n, p in state.trainable.items()}
-        load_jax_variables(model, {"params": merge_params(trainable, frozen),
-                                   "batch_stats": stats})
-        for n, p in state.trainable.items():
-            state.optimizer.state[p] = {"step": torch.tensor(float(updates)),
-                                        "exp_avg": moments["mu"][n],
-                                        "exp_avg_sq": moments["nu"][n]}
-    state.updates = state.step = updates
 
 
 def _cut(cfg):
@@ -196,15 +129,15 @@ def curves():
         updates = state.updates
         steps = []                               # each step from JAX's state before it
         for i, b in enumerate(tbatches):
-            _load_jax_state(pm, state, jstates[i], i)
+            load_jax_state(pm, state, jstates[i], i)
             state, met = step(state, b, gen)
             before, after = jstates[i], jstates[i + 1]
             steps.append(dict(
                 loss=float(met["loss"]), j_loss=j_losses[i],
-                start=_flat(jax.tree_util.tree_map(np.asarray, before.trainable)),
-                params=_flat(export_jax_variables(pm, trainable_only=True)["params"]),
-                j_params=_flat(jax.tree_util.tree_map(np.asarray, after.trainable)),
-                mu=_port_mu(pm, state), j_mu=_adam(after.opt_state, "mu")))
+                start=flat(jax.tree_util.tree_map(np.asarray, before.trainable)),
+                params=flat(export_jax_variables(pm, trainable_only=True)["params"]),
+                j_params=flat(jax.tree_util.tree_map(np.asarray, after.trainable)),
+                mu=port_mu(pm, state), j_mu=adam_moment(after.opt_state, "mu")))
     return dict(losses=np.array(losses), j_losses=np.array(j_losses), aux=aux, j_aux=j_aux,
                 steps=steps, report=report, updates=updates, model=pm)
 
@@ -223,30 +156,16 @@ def test_avqa_loss_curve_matches_jax(curves):
                                rtol=5e-3)
 
 
-def _live(j_mu):
-    rms = {k: np.sqrt(np.mean(v ** 2)) for k, v in j_mu.items()}
-    top = max(rms.values())
-    return {k for k, r in rms.items() if r > LIVE * top}, top
-
-
-def _cos(a, b):
-    return a.ravel() @ b.ravel() / np.linalg.norm(a) / np.linalg.norm(b)
-
-
-def _outside(ours, ref):
-    return np.abs(ours - ref) > 1e-6 + 2e-3 * np.abs(ref)
-
-
 @pytest.mark.parametrize("i", range(1, STEPS))
 def test_avqa_trainable_params_after_the_steps_match_jax(curves, i):
     s = curves["steps"][i]
     ours, ref, start = s["params"], s["j_params"], s["start"]
     assert set(ours) == set(ref) and len(ref) > 100
-    out = np.concatenate([_outside(ours[k], ref[k]).ravel() for k in ref])
+    out = np.concatenate([outside(ours[k], ref[k]).ravel() for k in ref])
     assert np.mean(out) <= 1e-3
     upd = np.concatenate([(ours[k] - start[k]).ravel() for k in ref])
     upd_ref = np.concatenate([(ref[k] - start[k]).ravel() for k in ref])
-    assert _cos(upd, upd_ref) >= 0.999
+    assert cos(upd, upd_ref) >= 0.999
     for k in ref:
         assert np.abs(ref[k] - start[k]).max() > 0, k
         assert np.abs(ours[k] - start[k]).max() > 0, k
@@ -256,12 +175,12 @@ def test_avqa_trainable_params_after_the_steps_match_jax(curves, i):
 def test_avqa_each_live_leaf_update_matches_jax(curves, i):
     s = curves["steps"][i]
     ours, ref, start = s["params"], s["j_params"], s["start"]
-    live, _ = _live(s["j_mu"])
-    assert len(live) > 0.9 * len(ref)
-    share = {k: np.mean(_outside(ours[k], ref[k])) for k in live}
+    alive, _ = live(s["j_mu"])
+    assert len(alive) > 0.9 * len(ref)
+    share = {k: np.mean(outside(ours[k], ref[k])) for k in alive}
     assert all(v <= 1e-3 for v in share.values()), max(share.items(), key=lambda kv: kv[1])
-    cos = {k: _cos(ours[k] - start[k], ref[k] - start[k]) for k in live}
-    assert all(c >= 0.98 for c in cos.values()), min(cos.items(), key=lambda kv: kv[1])
+    c = {k: cos(ours[k] - start[k], ref[k] - start[k]) for k in alive}
+    assert all(v >= 0.98 for v in c.values()), min(c.items(), key=lambda kv: kv[1])
 
 
 @pytest.mark.parametrize("i", range(STEPS))
@@ -269,10 +188,10 @@ def test_avqa_each_trainable_leaf_gradient_matches_jax(curves, i):
     s = curves["steps"][i]
     ours, ref = s["mu"], s["j_mu"]
     assert set(ours) == set(ref) == set(s["j_params"])
-    live, top = _live(ref)
-    cos = {k: _cos(ours[k], ref[k]) for k in live}
-    assert all(c >= 0.995 for c in cos.values()), min(cos.items(), key=lambda kv: kv[1])
-    for k in set(ref) - live:
+    alive, top = live(ref)
+    c = {k: cos(ours[k], ref[k]) for k in alive}
+    assert all(v >= 0.995 for v in c.values()), min(c.items(), key=lambda kv: kv[1])
+    for k in set(ref) - alive:
         assert np.sqrt(np.mean(ours[k] ** 2)) <= LIVE * top, k
 
 

@@ -39,6 +39,8 @@ jnp = jax.numpy
 
 from torch_port_harness import jax_variables, to_jax
 
+from torch_train_harness import LIVE, adam_moment, cos, flat, live, outside, port_mu
+
 from avmoe_tpu_torch.convert import export_jax_variables, load_jax_variables
 
 torch.set_num_threads(2)
@@ -46,38 +48,6 @@ torch.set_num_threads(2)
 STEPS = 3
 LR = 2e-4
 DEPTHS = (2, 2, 2, 2)
-LIVE = 1e-6
-
-
-def _flat(tree, prefix=()):
-    out = {}
-    for k, v in tree.items():
-        if isinstance(v, dict) or hasattr(v, "items"):
-            out.update(_flat(v, prefix + (k,)))
-        else:
-            out[prefix + (k,)] = np.array(v, np.float64)
-    return out
-
-
-def _adam_mu(opt_state):
-    out = {}
-    for path, v in jax.tree_util.tree_flatten_with_path(opt_state)[0]:
-        names = [getattr(p, "name", None) for p in path]
-        if "mu" in names:
-            rest = path[names.index("mu") + 1:]
-            out[tuple(p.key for p in rest)] = np.asarray(v, np.float64)
-    return out
-
-
-def _port_mu(model, state):
-    with torch.no_grad():
-        saved = {n: p.detach().clone() for n, p in state.trainable.items()}
-        for p in state.trainable.values():
-            p.copy_(state.optimizer.state[p]["exp_avg"])
-        out = _flat(export_jax_variables(model, trainable_only=True)["params"])
-        for n, p in state.trainable.items():
-            p.copy_(saved[n])
-    return out
 
 
 def _cut(cfg):
@@ -157,7 +127,7 @@ def curves():
     return dict(losses=np.array(losses), j_losses=np.array(j_losses), aux=aux, j_aux=j_aux,
                 state=export_jax_variables(pm, trainable_only=True),
                 j_trainable=jax.tree_util.tree_map(np.asarray, jstate.trainable),
-                j_mu=_adam_mu(jstate.opt_state), mu=_port_mu(pm, state),
+                j_mu=adam_moment(jstate.opt_state, "mu"), mu=port_mu(pm, state),
                 start=variables, report=report, updates=state.updates, model=pm)
 
 
@@ -173,53 +143,39 @@ def test_avvp_loss_curve_matches_jax(curves):
         assert ref["loss_lb"] > 32 * 2 * np.log(2) - 1e-3
 
 
-def _live(j_mu):
-    rms = {k: np.sqrt(np.mean(v ** 2)) for k, v in j_mu.items()}
-    top = max(rms.values())
-    return {k for k, r in rms.items() if r > LIVE * top}, top
-
-
-def _cos(a, b):
-    return a.ravel() @ b.ravel() / np.linalg.norm(a) / np.linalg.norm(b)
-
-
-def _outside(ours, ref):
-    return np.abs(ours - ref) > 1e-6 + 2e-3 * np.abs(ref)
-
-
 def test_avvp_trainable_params_after_the_steps_match_jax(curves):
-    ours, ref = _flat(curves["state"]["params"]), _flat(curves["j_trainable"])
-    start = _flat(curves["start"]["params"])
+    ours, ref = flat(curves["state"]["params"]), flat(curves["j_trainable"])
+    start = flat(curves["start"]["params"])
     assert set(ours) == set(ref) and len(ref) > 100
-    out = np.concatenate([_outside(ours[k], ref[k]).ravel() for k in ref])
+    out = np.concatenate([outside(ours[k], ref[k]).ravel() for k in ref])
     assert np.mean(out) <= 1e-3
     upd = np.concatenate([(ours[k] - start[k]).ravel() for k in ref])
     upd_ref = np.concatenate([(ref[k] - start[k]).ravel() for k in ref])
-    assert _cos(upd, upd_ref) >= 0.999
+    assert cos(upd, upd_ref) >= 0.999
     for k in ref:
         assert np.abs(ref[k] - start[k]).max() > 0, k
         assert np.abs(ours[k] - start[k]).max() > 0, k
 
 
 def test_avvp_each_live_leaf_update_matches_jax(curves):
-    ours, ref = _flat(curves["state"]["params"]), _flat(curves["j_trainable"])
-    start = _flat(curves["start"]["params"])
-    live, _ = _live(curves["j_mu"])
-    assert len(live) > 0.9 * len(ref)
-    share = {k: np.mean(_outside(ours[k], ref[k])) for k in live}
+    ours, ref = flat(curves["state"]["params"]), flat(curves["j_trainable"])
+    start = flat(curves["start"]["params"])
+    alive, _ = live(curves["j_mu"])
+    assert len(alive) > 0.9 * len(ref)
+    share = {k: np.mean(outside(ours[k], ref[k])) for k in alive}
     assert all(v <= 1e-3 for v in share.values()), max(share.items(), key=lambda kv: kv[1])
-    cos = {k: _cos(ours[k] - start[k], ref[k] - start[k]) for k in live}
-    assert all(c >= 0.98 for c in cos.values()), min(cos.items(), key=lambda kv: kv[1])
+    c = {k: cos(ours[k] - start[k], ref[k] - start[k]) for k in alive}
+    assert all(v >= 0.98 for v in c.values()), min(c.items(), key=lambda kv: kv[1])
 
 
 def test_avvp_each_trainable_leaf_gradient_matches_jax(curves):
     ours, ref = curves["mu"], curves["j_mu"]
-    assert set(ours) == set(ref) == set(_flat(curves["j_trainable"]))
-    live, top = _live(ref)
-    cos = {k: _cos(ours[k], ref[k]) for k in live}
-    assert all(c >= 0.995 for c in cos.values()), min(cos.items(), key=lambda kv: kv[1])
+    assert set(ours) == set(ref) == set(flat(curves["j_trainable"]))
+    alive, top = live(ref)
+    c = {k: cos(ours[k], ref[k]) for k in alive}
+    assert all(v >= 0.995 for v in c.values()), min(c.items(), key=lambda kv: kv[1])
     # the leaves JAX's gradient leaves at rounding level: the port's is too
-    for k in set(ref) - live:
+    for k in set(ref) - alive:
         assert np.sqrt(np.mean(ours[k] ** 2)) <= LIVE * top, k
 
 

@@ -148,12 +148,19 @@ def test_bmm_expert_contracts_the_transposed_attention():
 
 
 def test_mha_and_token_experts_are_not_ported():
+    """Since the AVS slice both are ported (held against JAX in
+    tests/test_torch_avs_units.py): they build with their own parameters,
+    and a kind the JAX package does not have raises."""
     from avmoe_tpu_torch.moe.adapter import UnimodalExpert
 
-    for kind in ("mha", "token"):
+    params = {"mha": {"self_attention.query.kernel", "self_attention.out.bias"},
+              "token": {"latent_tokens", "gate_self"}}
+    for kind, names in params.items():
         cfg = dataclasses.replace(_adapter_cfg(False), self_attention=kind)
-        with pytest.raises(NotImplementedError, match=kind):
-            UnimodalExpert(8, cfg, 1)
+        assert names <= {n for n, _ in UnimodalExpert(8, cfg, 1).named_parameters()}
+    cfg = dataclasses.replace(_adapter_cfg(False), self_attention="lstm")
+    with pytest.raises(ValueError, match="lstm"):
+        UnimodalExpert(8, cfg, 1)
 
 
 # (B, N, C, M, C_other, scale): stage 0's audio adapter and a small one

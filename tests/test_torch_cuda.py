@@ -600,8 +600,9 @@ def test_negative_pass_cases_are_the_new_chain_geometries():
 def test_cuda_block_chain_negative_pass_geometries(cuda_device, dtype, index):
     """K3 at full width over two frames, seeded as chip_smoke.py seeds its
     chains: float32 rtol 1e-4, atol 1e-4; bf16 within
-    chip_smoke.k3_bf16_budget (K3_BF16_TOL, and for the 18-block chain no
-    farther from float32 than the plain version's bf16 rounding)."""
+    chip_smoke.k3_bf16_budget (K3_BF16_TOL, and for the 18-block chain
+    K3_BF16_TOL sqrt(K / 2) or the plain version's bf16 rounding, whichever
+    is tighter)."""
     import chip_smoke
 
     geom = _negative_pass_geoms()[index]

@@ -41,6 +41,8 @@ jnp = jax.numpy
 
 from torch_port_harness import jax_variables, to_jax
 
+from torch_train_harness import adam_moment, flat, port_mu
+
 from avmoe_tpu_torch.convert import export_jax_variables, load_jax_variables
 
 torch.set_num_threads(2)
@@ -48,41 +50,6 @@ torch.set_num_threads(2)
 STEPS = 4
 LR, LR_MLP = 2e-4, 1e-4
 DEPTHS = (2, 2, 2, 2)
-
-
-def _flat(tree, prefix=()):
-    out = {}
-    for k, v in tree.items():
-        if isinstance(v, dict) or hasattr(v, "items"):
-            out.update(_flat(v, prefix + (k,)))
-        else:
-            out[prefix + (k,)] = np.asarray(v, np.float64)
-    return out
-
-
-def _adam_mu(opt_state):
-    """JAX Adam's first moments (an average of the steps' gradients), keyed
-    as `_flat` keys the trainable tree; the optimizer groups merged."""
-    out = {}
-    for path, v in jax.tree_util.tree_flatten_with_path(opt_state)[0]:
-        names = [getattr(p, "name", None) for p in path]
-        if "mu" in names:
-            rest = path[names.index("mu") + 1:]
-            out[tuple(p.key for p in rest)] = np.asarray(v, np.float64)
-    return out
-
-
-def _port_mu(model, state):
-    """The port's Adam first moments, in the flax layout `export_jax_variables`
-    gives the parameters (each moved into its parameter for the export)."""
-    with torch.no_grad():
-        saved = {n: p.detach().clone() for n, p in state.trainable.items()}
-        for p in state.trainable.values():
-            p.copy_(state.optimizer.state[p]["exp_avg"])
-        out = _flat(export_jax_variables(model, trainable_only=True)["params"])
-        for n, p in state.trainable.items():
-            p.copy_(saved[n])
-    return out
 
 
 def _cut(cfg):
@@ -155,8 +122,8 @@ def curves():
                 state=export_jax_variables(pm, trainable_only=True),
                 j_trainable=jax.tree_util.tree_map(np.asarray, jstate.trainable),
                 j_batch_stats=jax.tree_util.tree_map(np.asarray, jstate.batch_stats),
-                j_mu=_adam_mu(jstate.opt_state),
-                mu=_port_mu(pm, state), start=variables, report=report,
+                j_mu=adam_moment(jstate.opt_state, "mu"),
+                mu=port_mu(pm, state), start=variables, report=report,
                 updates=state.updates)
 
 
@@ -168,8 +135,8 @@ def test_loss_curve_matches_jax(curves):
 
 
 def test_trainable_params_after_the_steps_match_jax(curves):
-    ours, ref = _flat(curves["state"]["params"]), _flat(curves["j_trainable"])
-    start = _flat(curves["start"]["params"])
+    ours, ref = flat(curves["state"]["params"]), flat(curves["j_trainable"])
+    start = flat(curves["start"]["params"])
     assert set(ours) == set(ref) and len(ref) > 100
     d = np.concatenate([np.abs(ours[k] - ref[k]).ravel() for k in ref])
     r = np.concatenate([np.abs(ref[k]).ravel() for k in ref])
@@ -195,7 +162,7 @@ def test_each_trainable_leaf_gradient_matches_jax(curves):
     element by about lr whatever its gradient, so one element of a 16-wide
     leaf whose gradient is near zero turns the update's cosine to 0.875."""
     ours, ref = curves["mu"], curves["j_mu"]
-    assert set(ours) == set(ref) == set(_flat(curves["j_trainable"]))
+    assert set(ours) == set(ref) == set(flat(curves["j_trainable"]))
     rms = {k: np.sqrt(np.mean(ref[k] ** 2)) for k in ref}
     live = [k for k in ref if rms[k] > 1e-5 * max(rms.values())]
     assert len(live) > 0.9 * len(ref)
@@ -205,8 +172,8 @@ def test_each_trainable_leaf_gradient_matches_jax(curves):
 
 
 def test_batch_stats_after_the_steps_match_jax(curves):
-    ours, ref = _flat(curves["state"]["batch_stats"]), _flat(curves["j_batch_stats"])
-    start = _flat(curves["start"]["batch_stats"])
+    ours, ref = flat(curves["state"]["batch_stats"]), flat(curves["j_batch_stats"])
+    start = flat(curves["start"]["batch_stats"])
     assert set(ours) == set(ref) and len(ref) > 10
     for k in ref:
         np.testing.assert_allclose(ours[k], ref[k], rtol=1e-3, atol=1e-3, err_msg=str(k))

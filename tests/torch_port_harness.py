@@ -20,7 +20,7 @@ def _leaf_noise(path, shape, rng: np.random.RandomState) -> np.ndarray:
         if "bn0" in path:  # per-mel-bin stats of log-mel dB values
             return -30.0 + 5.0 * n() if name == "mean" else 200.0 + 50.0 * np.abs(n())
         return 0.1 * n() if name == "mean" else 0.5 + 0.2 * np.abs(n())
-    if name in ("gate", "gate_av"):
+    if name in ("gate", "gate_av", "gate_self"):
         return 0.5 + 0.2 * n()
     if name == "scale":
         return 1.0 + 0.1 * n()
@@ -33,10 +33,11 @@ def _leaf_noise(path, shape, rng: np.random.RandomState) -> np.ndarray:
     if name == "token_proj_kernel":
         return n() / np.sqrt(shape[-1])
     if name in ("kernel", "qkv_kernel", "fc_kernel"):
-        if len(shape) == 3 and path[-2] == "out":        # MHA out (H, D, C)
-            fan_in = shape[0] * shape[1]
-        elif len(shape) == 3 and path[-2] in ("query", "key", "value"):
-            fan_in = shape[0]                           # MHA (C, H, D)
+        mha = "self_attention" in path                  # the AVS expert's, (E, ...) stacked
+        if (len(shape) == 3 or mha) and path[-2] == "out":   # MHA out (H, D, C)
+            fan_in = shape[-3] * shape[-2]
+        elif (len(shape) == 3 or mha) and path[-2] in ("query", "key", "value"):
+            fan_in = shape[-3]                          # MHA (C, H, D)
         else:
             fan_in = shape[-2]                          # Dense / grouped / conv
             if len(shape) == 4 and "bottleneck" not in path:
@@ -63,6 +64,17 @@ def jax_variables(module, *args, seed: int = 0, **kwargs):
 
     shapes = jax.eval_shape(lambda: module.init(jax.random.PRNGKey(0), *args, **kwargs))
     return randomize({k: dict(v) for k, v in shapes.items()}, seed)
+
+
+def port_variables(model, seed: int = 0):
+    """The same seeded noise as `jax_variables`, shaped by the port model's
+    flax tree (`export_jax_variables`) instead of a JAX eval_shape trace:
+    for models whose tree the convert round-trip tests hold equal to the
+    JAX one."""
+    from avmoe_tpu_torch.convert import export_jax_variables
+
+    tree = export_jax_variables(model)
+    return randomize({k: v for k, v in tree.items() if v}, seed)
 
 
 def to_jax(tree):
