@@ -30,6 +30,14 @@
 //     once and writes the result back, and that thread stores the tile by
 //     TMA (which clips the ragged edges) while the consumers go on to the
 //     next tile.
+//   - column sums (Epi::kColSums, K2b's d_h1 product when the MLP's weights
+//     train: db1 = sum over rows of d_h1): each consumer thread adds its two
+//     rows of every column pair in float32, before the rounding to bf16;
+//     the 8 rows groups of a warp meet by shuffles, the 8 warps in a
+//     double-buffered shared 8 x BN array, summed in warp order, and the
+//     tile's sums go to its row of an (M-tiles, N) partial buffer, which a
+//     second pass sums in tile order (column_sums.cuh): a fixed order, no
+//     atomics;
 // Not yet: TMA multicast across a cluster, fusing the two products on chip.
 // Two consumer warpgroups in ping-pong (each on its own 128 x 128 tiles,
 // taking turns at the tensor cores, one's epilogue under the other's
@@ -253,12 +261,19 @@ __device__ __forceinline__ unsigned pack2(float lo, float hi) {
   return *reinterpret_cast<const unsigned*>(&h);
 }
 
-// Epi: a functor with `static constexpr bool kReadsAux`, `__device__ float
-// pre(float aux) const`, `float row_factor(int row) const` (read once a row) and
-// `float operator()(float acc, float pre, float row_factor) const`: C =
-// epi(acc, pre(aux), row_factor(row)), aux 0 when kReadsAux is false; rows
-// past M are computed and not stored. Persistent: CTA c takes the tiles c,
-// c + gridDim.x, ..., tile t at N-tile t % ntn and M-tile t / ntn.
+// Epi: a functor with `static constexpr bool kReadsAux` and `kColSums`,
+// `__device__ float pre(float aux) const`, `float row_factor(int row) const`
+// (read once a row), `float operator()(float acc, float pre, float
+// row_factor) const` and `float* col_part`: C = epi(acc, pre(aux),
+// row_factor(row)), aux 0 when kReadsAux is false; rows past M are computed
+// and not stored. With kColSums, col_part[t / ntn][n] is the sum of tile t's
+// outputs in column n (float32, rows past M left out). Persistent: CTA c
+// takes the tiles c, c + gridDim.x, ..., tile t at N-tile t % ntn and M-tile
+// t / ntn.
+template <class Epi, int BN> constexpr size_t colsum_bytes() {
+  return Epi::kColSums ? 2 * 8 * BN * sizeof(float) : 0;
+}
+
 template <int BN, class Epi>
 __global__ void __launch_bounds__(kThreads, 1)
 mlp_gemm_wgmma(const __grid_constant__ CUtensorMap map_a, const __grid_constant__ CUtensorMap map_b,
@@ -274,6 +289,8 @@ mlp_gemm_wgmma(const __grid_constant__ CUtensorMap map_a, const __grid_constant_
   uint64_t* empty = full + STAGES;
   uint64_t* aux_full = empty + STAGES;   // io holds the tile's aux
   uint64_t* out_ready = aux_full + 1;    // io holds the tile's output
+  // kColSums: two 8 x BN arrays of the warps' column sums, a tile's in one
+  float* red = reinterpret_cast<float*>(out_ready + 1);
   const int ntn = (N + BN - 1) / BN;
   const int tiles = ntn * ((M + kBM - 1) / kBM);
   const int nk = (K + kBK - 1) / kBK;
@@ -339,6 +356,7 @@ mlp_gemm_wgmma(const __grid_constant__ CUtensorMap map_a, const __grid_constant_
     int it = 0, li = 0;
     for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x, ++li) {
       const int m0 = (tile / ntn) * kBM;
+      const int n0c = (tile % ntn) * BN;
       float d[BN / 2];
 #pragma unroll
       for (int i = 0; i < BN / 2; ++i) d[i] = 0.f;
@@ -380,14 +398,43 @@ mlp_gemm_wgmma(const __grid_constant__ CUtensorMap map_a, const __grid_constant_
 #pragma unroll
         for (int j = 0; j < BN / 8; ++j) {
           const float2 x = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&ax[j]));
-          ax[j] = pack2(epi(d[4 * j + 2 * h], epi.pre(x.x), rf),
-                        epi(d[4 * j + 2 * h + 1], epi.pre(x.y), rf));
+          const float v0 = epi(d[4 * j + 2 * h], epi.pre(x.x), rf);
+          const float v1 = epi(d[4 * j + 2 * h + 1], epi.pre(x.y), rf);
+          if constexpr (Epi::kColSums) {   // the float32 outputs, kept for the sums
+            d[4 * j + 2 * h] = row < M ? v0 : 0.f;
+            d[4 * j + 2 * h + 1] = row < M ? v1 : 0.f;
+          }
+          ax[j] = pack2(v0, v1);
         }
 #pragma unroll
         for (int j = 0; j < BN / 8; ++j) at(j, h) = ax[j];
       }
       fence_async_smem();
       mbar_arrive(out_ready);
+      if constexpr (Epi::kColSums) {
+        // this thread's two rows, then the warp's 8 row groups (lanes of one
+        // q), into the warp's row of red; then each column over the 8 warps
+        float* rb = red + (li & 1) * 8 * BN;
+#pragma unroll
+        for (int j = 0; j < BN / 8; ++j) {
+          float s0 = d[4 * j] + d[4 * j + 2], s1 = d[4 * j + 1] + d[4 * j + 3];
+#pragma unroll
+          for (int off = 4; off < 32; off <<= 1) {
+            s0 += __shfl_xor_sync(0xffffffffu, s0, off);
+            s1 += __shfl_xor_sync(0xffffffffu, s1, off);
+          }
+          if (g == 0)
+            *reinterpret_cast<float2*>(rb + (wr * 4 + w) * BN + 8 * j + 2 * q) =
+                make_float2(s0, s1);
+        }
+        asm volatile("bar.sync 1, %0;\n" ::"n"(kConsumerThreads) : "memory");
+        for (int c = threadIdx.x; c < BN; c += kConsumerThreads) {
+          float sum = 0.f;
+#pragma unroll
+          for (int k = 0; k < 8; ++k) sum += rb[k * BN + c];
+          if (n0c + c < N) epi.col_part[(size_t)(tile / ntn) * N + n0c + c] = sum;
+        }
+      }
     }
   }
 }
@@ -436,6 +483,7 @@ bool make_map(CUtensorMap* map, const void* base, int rows, int cols, int box_ro
 template <int BN, class Epi>
 int launch(const bf16* A, const bf16* B, const bf16* aux, bf16* C, int M, int N, int K,
            const Epi& epi, cudaStream_t stream) {
+  static_assert(Shape<BN>::SMEM + colsum_bytes<Epi, BN>() <= 227 * 1024, "shared memory");
   static int sms = 0;   // set once, with the shared-memory limit
   if (sms == 0) {
     int dev = 0;
@@ -445,7 +493,7 @@ int launch(const bf16* A, const bf16* B, const bf16* aux, bf16* C, int M, int N,
     if (err == cudaSuccess)
       err = cudaFuncSetAttribute(mlp_gemm_wgmma<BN, Epi>,
                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 (int)Shape<BN>::SMEM);
+                                 (int)(Shape<BN>::SMEM + colsum_bytes<Epi, BN>()));
     if (err != cudaSuccess) {
       sms = 0;
       return (int)err;
@@ -459,8 +507,8 @@ int launch(const bf16* A, const bf16* B, const bf16* aux, bf16* C, int M, int N,
   const long long tiles = (long long)((N + BN - 1) / BN) * ((M + kBM - 1) / kBM);
   if (tiles > (1ll << 30)) return (int)cudaErrorInvalidValue;
   const int grid = (int)(tiles < sms ? tiles : sms);
-  mlp_gemm_wgmma<BN, Epi><<<grid, kThreads, Shape<BN>::SMEM, stream>>>(ma, mb, mx, mc, M, N, K,
-                                                                       epi);
+  mlp_gemm_wgmma<BN, Epi><<<grid, kThreads, Shape<BN>::SMEM + colsum_bytes<Epi, BN>(), stream>>>(
+      ma, mb, mx, mc, M, N, K, epi);
   return (int)cudaGetLastError();
 }
 

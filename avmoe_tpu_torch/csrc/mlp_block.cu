@@ -47,10 +47,10 @@
 // fc2's epilogue, V2 in the LN row pass. Without one, the kernels and
 // numbers above are unchanged (the scaled ones are other instantiations).
 //
-// K2b, the backward (mlp_block_bwd): dx only, the weights frozen, from what
-// the forward kept in training: fc1's pre-activation h1 (fc1's kEpiGeluSave
-// epilogue writes it beside gelu(h1); eval forwards keep kEpiGelu) and, on
-// V2, fc2's output f. With g = s (.) dy:
+// K2b, the backward (mlp_block_bwd): dx, from what the forward kept in
+// training: fc1's pre-activation h1 (fc1's kEpiGeluSave epilogue writes it
+// beside gelu(h1); eval forwards keep kEpiGelu) and, on V2, fc2's output f.
+// With g = s (.) dy:
 //   V2: d_h2 = LN-backward(g; f) (row pass); d_h1 = (d_h2 w2) (.) gelu'(h1);
 //       dx = dy + d_h1 w1
 //   V1: d_h1 = (g w2) (.) gelu'(h1); dx = dy + LN-backward(d_h1 w1; x) (row
@@ -65,6 +65,21 @@
 // the wrapper keeps once per model and dtype, so both operands are K-major.
 // Their epilogues: x gelu'(h1) (and x s on V1); + dy without a bias; none.
 // float32 takes the CUDA-core product (exact, for the gradient checks).
+//
+// Where the weights train (a trainable backbone), K2b also gives the column
+// sums of the parameter gradients, float32, in the passes it runs anyway:
+//   db1 = sum_r d_h1                      the d_h1 product's epilogue
+//   V1: d ln_w = sum_r (d_h1 w1) o xh, d ln_b = sum_r d_h1 w1, db2 = sum_r g
+//   V2: d ln_w = sum_r g o fh, d ln_b = sum_r g, db2 = sum_r d_h2
+//                                         the LayerNorm-backward row pass
+// (xh, fh: the normalized x or f). Each tile of the product and each CTA of
+// the row pass writes its float32 partial sums to a row of a buffer, which
+// column_sums.cuh sums in row order: no atomics, the same bits every run.
+// On V1 with a DropPath scale the row pass also writes g for dW2. The two
+// weight products, dW2 = g^T gelu(h1) (V2: d_h2^T gelu(h1)) and dW1 = d_h1^T
+// LN(x) (V2: d_h1^T x), reduce over the rows; the wrapper runs them as
+// float32-output products on the buffers above. With frozen weights none of
+// this runs (null pointers; the summing kernels are other instantiations).
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -72,6 +87,7 @@
 #include <stdint.h>
 
 #include "attention_mma.cuh"
+#include "column_sums.cuh"
 #include "common.cuh"
 #include "cp_async.cuh"
 #include "gemm_wgmma.cuh"
@@ -95,11 +111,13 @@ constexpr int kEpiBias = 0, kEpiGelu = 1, kEpiResid = 2, kEpiResidScale = 3, kEp
 template <int EPI> __host__ __device__ constexpr bool has_bias() { return EPI <= kEpiGeluSave; }
 
 // what the epilogues beyond bias and resid read: the per-frame scale (null:
-// none), rows per frame, and kEpiGeluSave's second output
+// none), rows per frame, kEpiGeluSave's second output, and the float32
+// product's column partial sums of kEpiGeluGrad (null: none; K2b's db1)
 template <typename T> struct EpiExtra {
   const float* scale;
   int rpf;
   T* out2;
+  float* colsum = nullptr;
 };
 
 __device__ __forceinline__ float gelu_erf_grad(float x) {
@@ -409,6 +427,7 @@ mlp_gemm_f32(const float* __restrict__ A, const float* __restrict__ B,
       for (int j = 0; j < 4; ++j) acc[i][j] += part[i][j];
     __syncthreads();
   }
+  float cs[4] = {0.f, 0.f, 0.f, 0.f};  // this thread's columns over its rows
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int gm = m0 + ty * 4 + i;
@@ -428,6 +447,20 @@ mlp_gemm_f32(const float* __restrict__ A, const float* __restrict__ B,
         v = gelu_erf(v);
       }
       C[idx] = v;
+      cs[j] += v;
+    }
+  }
+  if (EPI == kEpiGeluGrad && ex.colsum) {
+    // the tile's column sums: the 16 row groups through As (free since the
+    // last k-step's barrier), summed in order; row blockIdx.x of the partials
+    float* red = &As[0][0];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) red[ty * (kSBM + 4) + tx * 4 + j] = cs[j];
+    __syncthreads();
+    if (tid < kSBN && n0 + tid < N) {
+      float sum = 0.f;
+      for (int y = 0; y < 16; ++y) sum += red[y * (kSBM + 4) + tid];
+      ex.colsum[(size_t)blockIdx.x * N + n0 + tid] = sum;
     }
   }
 }
@@ -435,9 +468,9 @@ mlp_gemm_f32(const float* __restrict__ A, const float* __restrict__ B,
 template <int EPI>
 int gemm_f32(const void* A, const void* B, const float* bias, const void* resid, void* C,
              int M, int N, int K, cudaStream_t stream, const float* scale = nullptr,
-             int rpf = 1, void* out2 = nullptr) {
+             int rpf = 1, void* out2 = nullptr, float* colsum = nullptr) {
   dim3 grid((M + kSBM - 1) / kSBM, (N + kSBN - 1) / kSBN);
-  const EpiExtra<float> ex{scale, rpf, static_cast<float*>(out2)};
+  const EpiExtra<float> ex{scale, rpf, static_cast<float*>(out2), colsum};
   mlp_gemm_f32<EPI><<<grid, 256, 0, stream>>>(
       static_cast<const float*>(A), static_cast<const float*>(B), bias,
       static_cast<const float*>(resid), static_cast<float*>(C), M, N, K, ex);
@@ -620,6 +653,138 @@ int launch_ln_bwd(const void* src, const void* g, const float* w, const void* re
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// K2b's row pass where the weights train: the LayerNorm backward of
+// ln_bwd_rows and, beside it, the CTA's float32 partial sums over its rows,
+// part[blockIdx.x] = [d ln_w (C), d ln_b (C), db2 (C)]:
+//   V1 (resid = dy, g = d_h1 w1, no scale inside the norm):
+//       out = dy + LN-backward(g; src),  sums g xh, g, s dy; gs = s dy
+//   V2 (g = dy, the scale s inside the norm):
+//       out = LN-backward(s dy; src),    sums s dy xh, s dy, out
+// A warp walks rpw rows (the CTA's rows w, w + 8, ...), adding into its own
+// [3][C] slice of shared memory (a lane owns its columns, so each column is
+// summed in row order); the CTA then sums its 8 slices in warp order. rpw
+// depends on R alone (sum_rows_per_warp): as few rows a warp as keep about
+// two waves of CTAs on the card, at most 16.
+// ---------------------------------------------------------------------------
+
+constexpr int kSumWarps = kRowThreads / 32;
+
+int sum_rows_per_warp(int R) {
+  const int per = (R + kSumWarps * 264 - 1) / (kSumWarps * 264);
+  return per < 1 ? 1 : (per > 16 ? 16 : per);
+}
+int sum_ctas(int R) {
+  const int rows = kSumWarps * sum_rows_per_warp(R);
+  return (R + rows - 1) / rows;
+}
+
+template <typename T, bool V1, bool SCALE, int V>
+__global__ void __launch_bounds__(kRowThreads)
+ln_bwd_rows_sums(const T* __restrict__ src, const T* __restrict__ g, const float* __restrict__ w,
+                 const T* __restrict__ resid, T* __restrict__ out, T* __restrict__ gs,
+                 float* __restrict__ part, int R, int C, int rpw, float eps,
+                 const float* __restrict__ scale, int rpf) {
+  extern __shared__ float acc[];   // [8 warps][3][C]
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  float* mine = acc + (size_t)warp * 3 * C;
+  for (int c = lane; c < 3 * C; c += 32) mine[c] = 0.f;
+  __syncwarp();
+  for (int i = 0; i < rpw; ++i) {
+    const int row = (blockIdx.x * rpw + i) * kSumWarps + warp;
+    if (row >= R) break;
+    const size_t base = (size_t)row * C;
+    float mean, inv;
+    row_stats<V>(src + base, C, lane, eps, mean, inv);
+    const float s = SCALE ? scale[row / rpf] : 1.f;
+    const float s_ln = V1 ? 1.f : s;   // the scale inside the norm's gradient (V2)
+    float sd = 0.f, sdx = 0.f;
+    for (int c = lane * V; c < C; c += 32 * V) {
+      float v[V], d[V];
+      load_vec<V>(v, src + base + c);
+      load_vec<V>(d, g + base + c);
+#pragma unroll
+      for (int k = 0; k < V; ++k) {
+        const float dxh = s_ln * d[k] * w[c + k];
+        sd += dxh;
+        sdx += dxh * (v[k] - mean) * inv;
+      }
+    }
+    sd = warp_sum(sd) / C;
+    sdx = warp_sum(sdx) / C;
+    for (int c = lane * V; c < C; c += 32 * V) {
+      float v[V], d[V], o[V];
+      load_vec<V>(v, src + base + c);
+      load_vec<V>(d, g + base + c);
+#pragma unroll
+      for (int k = 0; k < V; ++k) {
+        const float xh = (v[k] - mean) * inv, gk = s_ln * d[k];
+        o[k] = inv * (gk * w[c + k] - sd - xh * sdx);
+        mine[c + k] += gk * xh;
+        mine[C + c + k] += gk;
+      }
+      if (V1) {
+        float r[V];
+        load_vec<V>(r, resid + base + c);
+#pragma unroll
+        for (int k = 0; k < V; ++k) {
+          o[k] += r[k];
+          r[k] *= s;
+          mine[2 * C + c + k] += r[k];
+        }
+        if (SCALE) store_vec<V>(gs + base + c, r);
+      } else {
+#pragma unroll
+        for (int k = 0; k < V; ++k) mine[2 * C + c + k] += o[k];
+      }
+      store_vec<V>(out + base + c, o);
+    }
+  }
+  __syncthreads();
+  for (int c = threadIdx.x; c < 3 * C; c += kRowThreads) {
+    float sum = 0.f;
+#pragma unroll
+    for (int k = 0; k < kRowThreads / 32; ++k) sum += acc[(size_t)k * 3 * C + c];
+    part[(size_t)blockIdx.x * 3 * C + c] = sum;
+  }
+}
+
+size_t sums_shared_bytes(int C) { return (size_t)(kRowThreads / 32) * 3 * C * sizeof(float); }
+
+template <typename T, bool V1, bool SCALE, int V>
+int launch_ln_sums_v(const void* src, const void* g, const float* w, const void* resid,
+                     void* out, void* gs, float* part, int R, int C, float eps,
+                     const float* scale, int rpf, cudaStream_t stream) {
+  auto kernel = ln_bwd_rows_sums<T, V1, SCALE, V>;
+  static size_t smem_set = 48 * 1024;   // what needs no attribute
+  const size_t smem = sums_shared_bytes(C);
+  if (smem > smem_set) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    smem_set = smem;
+  }
+  kernel<<<sum_ctas(R), kRowThreads, smem, stream>>>(
+      static_cast<const T*>(src), static_cast<const T*>(g), w, static_cast<const T*>(resid),
+      static_cast<T*>(out), static_cast<T*>(gs), part, R, C, sum_rows_per_warp(R), eps, scale,
+      rpf);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, bool V1, bool SCALE>
+int launch_ln_sums(const void* src, const void* g, const float* w, const void* resid, void* out,
+                   void* gs, float* part, int R, int C, float eps, const float* scale, int rpf,
+                   cudaStream_t stream) {
+  constexpr int V = 16 / sizeof(T);
+  if (sums_shared_bytes(C) > 227 * 1024) return (int)cudaErrorInvalidValue;
+  if (C % V == 0 && aligned16(src) && aligned16(g) && aligned16(out) &&
+      (!V1 || aligned16(resid)) && (!gs || aligned16(gs)))
+    return launch_ln_sums_v<T, V1, SCALE, V>(src, g, w, resid, out, gs, part, R, C, eps, scale,
+                                             rpf, stream);
+  return launch_ln_sums_v<T, V1, SCALE, 1>(src, g, w, resid, out, gs, part, R, C, eps, scale,
+                                           rpf, stream);
+}
+
 template <int EPI>
 int gemm(int dtype, int tile_n, const void* A, const void* B, const float* bias,
          const void* resid, void* C, int M, int N, int K, cudaStream_t s,
@@ -649,10 +814,12 @@ __device__ __forceinline__ float gelu_grad_fast(float x) {
 }
 
 // K2b's products: bf16 on the wgmma kernel (gemm_wgmma.cuh), float32 on
-// the CUDA cores
-template <int EPI> struct ProductEpi {
+// the CUDA cores. SUMS: the column sums of the output into col_part (db1)
+template <int EPI, bool SUMS = false> struct ProductEpi {
   static constexpr bool kReadsAux = EPI != kEpiPlain;
+  static constexpr bool kColSums = SUMS;
   EpiExtra<bf16> ex;
+  float* col_part;
   __device__ __forceinline__ float pre(float aux) const {
     return EPI == kEpiGeluGrad ? gelu_grad_fast(aux) : aux;
   }
@@ -667,13 +834,25 @@ template <int EPI> struct ProductEpi {
   }
 };
 
+// col_part: null, or the (M-tiles, N) column partial sums of the output
+// (kEpiGeluGrad only; M-tiles of 128 rows in bf16, kSBM in float32)
 template <int EPI>
 int gemm_bwd(int dtype, int tile_n, const void* A, const void* B, const void* aux, void* C,
-             int M, int N, int K, cudaStream_t s, const float* scale = nullptr, int rpf = 1) {
-  if (dtype == 1)
-    return wg::gemm(tile_n, A, B, aux, C, M, N, K, ProductEpi<EPI>{{scale, rpf, nullptr}}, s);
-  return gemm_f32<EPI>(A, B, nullptr, aux, C, M, N, K, s, scale, rpf);
+             int M, int N, int K, cudaStream_t s, const float* scale = nullptr, int rpf = 1,
+             float* col_part = nullptr) {
+  if (dtype == 1) {
+    if (col_part)
+      return wg::gemm(tile_n, A, B, aux, C, M, N, K,
+                      ProductEpi<EPI, true>{{scale, rpf, nullptr}, col_part}, s);
+    return wg::gemm(tile_n, A, B, aux, C, M, N, K,
+                    ProductEpi<EPI>{{scale, rpf, nullptr}, nullptr}, s);
+  }
+  return gemm_f32<EPI>(A, B, nullptr, aux, C, M, N, K, s, scale, rpf, nullptr, col_part);
 }
+
+// rows of a product's column-partial tile (bf16: the wgmma tile; float32: the
+// CUDA-core tile)
+int partial_tile_rows(int dtype) { return dtype == 1 ? wg::kBM : kSBM; }
 
 template <typename T>
 int mlp_block(const void* x, const float* ln_w, const float* ln_b, const void* w1,
@@ -703,15 +882,68 @@ int mlp_block(const void* x, const float* ln_w, const float* ln_b, const void* w
   return launch_rows<T, true>(x, f, ln_w, ln_b, out, R, C, eps, s);
 }
 
+// the floats of K2b's workspace where the weights train: the d_h1
+// product's (M-tiles, Hd) column partials, the row pass's (CTAs, 3 C), and
+// the column sums' scratch for the larger of the two
+struct SumsLayout {
+  int tiles, ctas;
+  size_t part_h, part_r, scratch;
+  SumsLayout(int R, int C, int Hd, int dtype) {
+    const int tr = partial_tile_rows(dtype);
+    tiles = (R + tr - 1) / tr;
+    ctas = sum_ctas(R);
+    part_h = (size_t)tiles * Hd;
+    part_r = (size_t)ctas * 3 * C;
+    const size_t a = colsum::scratch_floats(tiles, Hd), b = colsum::scratch_floats(ctas, 3 * C);
+    scratch = a > b ? a : b;
+  }
+  size_t floats() const { return part_h + part_r + scratch; }
+};
+
 // K2b: dx of the block (see the header) from the forward's h1 and src (x on
 // V1, f on V2). hA (R, Hd) and cA (R, C) are scratch; tiles: the output tile
-// widths of the (R, Hd, C) product (d_h1) and the (R, C, Hd) one.
+// widths of the (R, Hd, C) product (d_h1) and the (R, C, Hd) one. sums:
+// null (frozen weights), or [d ln_w, d ln_b, db2] (3, C) float32, with db1
+// (Hd) float32, gs (R, C) for s dy on V1 with a scale, and ws the workspace.
 template <typename T>
 int mlp_block_bwd(const void* dy, const void* h1, const void* src, const float* ln_w,
                   const void* w1t, const void* w2t, const float* scale, int rpf, void* hA,
                   void* cA, void* dx, int R, int C, int Hd, int pre_norm, int dtype, int tile1,
-                  int tile2, float eps, cudaStream_t s) {
+                  int tile2, float eps, float* sums, float* db1, void* gs, float* ws,
+                  cudaStream_t s) {
   int err;
+  if (sums) {
+    const SumsLayout L(R, C, Hd, dtype);
+    float* part_h = ws;
+    float* part_r = ws + L.part_h;
+    float* scratch = part_r + L.part_r;
+    if (pre_norm) {
+      // hA = d_h1 (its column sums: db1); cA = d_h1 w1; dx = dy + LN-backward(cA; x)
+      if ((err = gemm_bwd<kEpiGeluGrad>(dtype, tile1, dy, w2t, h1, hA, R, Hd, C, s, scale, rpf,
+                                        part_h)))
+        return err;
+      if ((err = gemm_bwd<kEpiPlain>(dtype, tile2, hA, w1t, nullptr, cA, R, C, Hd, s)))
+        return err;
+      err = scale ? launch_ln_sums<T, true, true>(src, cA, ln_w, dy, dx, gs, part_r, R, C, eps,
+                                                  scale, rpf, s)
+                  : launch_ln_sums<T, true, false>(src, cA, ln_w, dy, dx, nullptr, part_r, R, C,
+                                                   eps, nullptr, 1, s);
+      if (err) return err;
+    } else {
+      // cA = d_h2 = LN-backward(s dy; f); hA = d_h1 (db1); dx = dy + d_h1 w1
+      err = scale ? launch_ln_sums<T, false, true>(src, dy, ln_w, nullptr, cA, nullptr, part_r,
+                                                   R, C, eps, scale, rpf, s)
+                  : launch_ln_sums<T, false, false>(src, dy, ln_w, nullptr, cA, nullptr, part_r,
+                                                    R, C, eps, nullptr, 1, s);
+      if (err) return err;
+      if ((err = gemm_bwd<kEpiGeluGrad>(dtype, tile1, cA, w2t, h1, hA, R, Hd, C, s, nullptr, 1,
+                                        part_h)))
+        return err;
+      if ((err = gemm_bwd<kEpiAdd>(dtype, tile2, hA, w1t, dy, dx, R, C, Hd, s))) return err;
+    }
+    if ((err = colsum::column_sums(part_h, db1, scratch, L.tiles, Hd, s))) return err;
+    return colsum::column_sums(part_r, sums, scratch, L.ctas, 3LL * C, s);
+  }
   if (pre_norm) {
     // hA = d_h1 = (s dy w2) gelu'(h1); cA = d_h1 w1; dx = dy + LN-backward(cA; x)
     if ((err = gemm_bwd<kEpiGeluGrad>(dtype, tile1, dy, w2t, h1, hA, R, Hd, C, s, scale, rpf)))
@@ -776,20 +1008,27 @@ extern "C" int mlp_block_fwd(const void* x, const void* ln_w, const void* ln_b,
   return (int)cudaErrorInvalidValue;
 }
 
-// K2b: dx (R, C) of mlp_block_fwd's out for the gradient dy (R, C), the
-// weights frozen, from what the forward kept: h1 (R, Hd), fc1's
-// pre-activation, and src (R, C), x on V1 (pre_norm 1) or fc2's output f on
-// V2. w1t (C, Hd) and w2t (Hd, C) are the transposed weights; hA (R, Hd) and
-// cA (R, C) scratch; scale and rows_per_frame as in mlp_block_fwd; tile1 for
-// the (R, Hd, C) product, tile2 for the (R, C, Hd) one. Returns a cudaError_t
-// (0 on success).
+// K2b: dx (R, C) of mlp_block_fwd's out for the gradient dy (R, C), from
+// what the forward kept: h1 (R, Hd), fc1's pre-activation, and src (R, C), x
+// on V1 (pre_norm 1) or fc2's output f on V2. w1t (C, Hd) and w2t (Hd, C)
+// are the transposed weights; hA (R, Hd) and cA (R, C) scratch, and after
+// the call d_h1 and (V1) d_h1 w1 or (V2) d_h2; scale and rows_per_frame as in
+// mlp_block_fwd; tile1 for the (R, Hd, C) product, tile2 for the (R, C, Hd)
+// one. Trainable weights: sums (3, C) gets [d ln_w, d ln_b, db2] and db1
+// (Hd) db1, float32; gs (R, C) s dy (V1 with a scale, else null); ws holds
+// mlp_block_bwd_workspace(...) floats. Frozen: sums, db1, gs, ws null.
+// Returns a cudaError_t (0 on success).
 extern "C" int mlp_block_bwd(const void* dy, const void* h1, const void* src, const void* ln_w,
                              const void* w1t, const void* w2t, const void* scale,
                              int rows_per_frame, void* hA, void* cA, void* dx, int R, int C,
                              int Hd, int pre_norm, int dtype, int tile1, int tile2, float eps,
-                             void* stream) {
-  if (R < 1 || C < 1 || Hd < 1 || (scale && (rows_per_frame < 1 || R % rows_per_frame)))
+                             void* sums, void* db1, void* gs, void* ws, void* stream) {
+  if (R < 1 || C < 1 || Hd < 1 || (scale && (rows_per_frame < 1 || R % rows_per_frame)) ||
+      (sums && (db1 == nullptr || ws == nullptr ||
+                (pre_norm && scale) != (gs != nullptr))) ||
+      (!sums && (db1 || gs)))
     return (int)cudaErrorInvalidValue;
+  if (dtype == 1 && gs && !aligned16(gs)) return (int)cudaErrorInvalidValue;
   if (dtype == 1 && (C % 8 || Hd % 8 || !aligned16(dy) || !aligned16(h1) || !aligned16(src) ||
                      !aligned16(w1t) || !aligned16(w2t) || !aligned16(hA) || !aligned16(cA) ||
                      !aligned16(dx)))
@@ -797,13 +1036,23 @@ extern "C" int mlp_block_bwd(const void* dy, const void* h1, const void* src, co
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* lw = static_cast<const float*>(ln_w);
   const float* sc = static_cast<const float*>(scale);
+  float* sm = static_cast<float*>(sums);
+  float* b1 = static_cast<float*>(db1);
+  float* w = static_cast<float*>(ws);
   if (dtype == 0)
     return mlp_block_bwd<float>(dy, h1, src, lw, w1t, w2t, sc, rows_per_frame, hA, cA, dx, R,
-                                C, Hd, pre_norm, 0, tile1, tile2, eps, s);
+                                C, Hd, pre_norm, 0, tile1, tile2, eps, sm, b1, gs, w, s);
   if (dtype == 1)
     return mlp_block_bwd<bf16>(dy, h1, src, lw, w1t, w2t, sc, rows_per_frame, hA, cA, dx, R, C,
-                               Hd, pre_norm, 1, tile1, tile2, eps, s);
+                               Hd, pre_norm, 1, tile1, tile2, eps, sm, b1, gs, w, s);
   return (int)cudaErrorInvalidValue;
+}
+
+// The floats of mlp_block_bwd's workspace where the weights train, for R
+// rows of width C and hidden width Hd in dtype (0 float32, 1 bf16).
+extern "C" long long mlp_block_bwd_workspace(int R, int C, int Hd, int dtype) {
+  if (R < 1 || C < 1 || Hd < 1 || dtype < 0 || dtype > 1) return -1;
+  return (long long)SumsLayout(R, C, Hd, dtype).floats();
 }
 
 // One bf16 product of the forward alone, C = epi(A B^T + bias) with one of

@@ -1,11 +1,10 @@
-// Window-attention backward for Hopper (sm_90a): the input gradients dq, dk,
-// dv of out = softmax(q k^T + bias[bw % nW]) v, the bias frozen.
+// Window-attention backward for Hopper (sm_90a): the gradients dq, dk, dv
+// of out = softmax(q k^T + bias[bw % nW]) v and, where the bias trains, dbias.
 //
 // K1 (csrc/window_attention.cu) replaces the TPU kernel
 // `fused_window_attention` (experiments/pallas/window_attn.py:55), which has
 // no backward: the JAX package differentiates its XLA attention. This is the
-// backward of K1's contract, for the train step whose backbones are frozen
-// (the bias comes from a frozen table or CPB MLP, so no bias gradient):
+// backward of K1's contract:
 //
 //   P   = softmax(q k^T + bias)        recomputed in float32
 //   D_i = sum_d dO_id O_id             O: the forward's output
@@ -13,6 +12,18 @@
 //   dP  = dO v^T
 //   dS  = P o (dP - D)
 //   dq  = dS k,  dk = dS^T q
+//   dbias[w, h] = sum_b dS[b nW + w, h]   (a trainable backbone: its table
+//                                          or CPB MLP makes the bias)
+//
+// The bias gradient. dS exists only here, so where the bias trains each
+// CTA also writes its (window, head)'s float32 dS, the value before K1b
+// rounds it to bf16 as a product operand, into an N x N slab of a
+// (BW, H, N, N) partial buffer; a second pass (column_sums.cuh) sums the
+// frames' slabs of each window in frame order. No atomics: the sum repeats
+// bit for bit, and an unshifted block (nW = 1: every window of every frame
+// into one slab) would serialize on them. With a frozen bias the CTAs write
+// nothing and no second pass runs (a null pointer; the bf16 kernel is
+// another instantiation, so the frozen one is unchanged).
 //
 // q arrives already scaled (V1) or row-normalised times the logit scale
 // (V2); that scaling stays in PyTorch autograd outside the kernel.
@@ -68,6 +79,7 @@
 #include <algorithm>
 
 #include "attention_mma.cuh"
+#include "column_sums.cuh"
 #include "common.cuh"
 #include "cp_async.cuh"
 
@@ -95,7 +107,8 @@ window_attention_bwd_kernel(const float* __restrict__ q, const float* __restrict
                             const float* __restrict__ v, const float* __restrict__ bias,
                             const float* __restrict__ out, const float* __restrict__ dout,
                             float* __restrict__ dq, float* __restrict__ dk,
-                            float* __restrict__ dv, int H, int N, int D, int nW) {
+                            float* __restrict__ dv, float* __restrict__ ds_part, int H, int N,
+                            int D, int nW) {
   extern __shared__ float smem[];
   const int ldk = D + 1;
   float* Ks = smem;                     // [N][D + 1]
@@ -194,6 +207,7 @@ window_attention_bwd_kernel(const float* __restrict__ q, const float* __restrict
       if (j < N) {
         float* p = Ps + (size_t)i * N + j;
         *p = *p * (dp[t] - Di);
+        if (ds_part) ds_part[(size_t)bh * N * N + (size_t)i * N + j] = *p;
       }
     }
     __syncwarp();
@@ -217,8 +231,8 @@ window_attention_bwd_kernel(const float* __restrict__ q, const float* __restrict
 
 template <int KPL>
 int launch_f32(const void* q, const void* k, const void* v, const float* bias, const void* out,
-               const void* dout, void* dq, void* dk, void* dv, int BW, int H, int N, int D,
-               int nW, cudaStream_t stream) {
+               const void* dout, void* dq, void* dk, void* dv, float* ds, int BW, int H, int N,
+               int D, int nW, cudaStream_t stream) {
   auto kernel = window_attention_bwd_kernel<KPL>;
   // the most the shapes of this instantiation take, set once
   static bool smem_set = false;
@@ -232,17 +246,18 @@ int launch_f32(const void* q, const void* k, const void* v, const float* bias, c
   kernel<<<BW * H, kThreads, shared_bytes(N, D), stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
       bias, static_cast<const float*>(out), static_cast<const float*>(dout),
-      static_cast<float*>(dq), static_cast<float*>(dk), static_cast<float*>(dv), H, N, D, nW);
+      static_cast<float*>(dq), static_cast<float*>(dk), static_cast<float*>(dv), ds, H, N, D,
+      nW);
   return (int)cudaGetLastError();
 }
 
 int launch_f32_by_n(const void* q, const void* k, const void* v, const float* bias,
-                    const void* out, const void* dout, void* dq, void* dk, void* dv, int BW,
-                    int H, int N, int D, int nW, cudaStream_t s) {
-  if (N <= 32) return launch_f32<1>(q, k, v, bias, out, dout, dq, dk, dv, BW, H, N, D, nW, s);
-  if (N <= 64) return launch_f32<2>(q, k, v, bias, out, dout, dq, dk, dv, BW, H, N, D, nW, s);
-  if (N <= 96) return launch_f32<3>(q, k, v, bias, out, dout, dq, dk, dv, BW, H, N, D, nW, s);
-  return launch_f32<5>(q, k, v, bias, out, dout, dq, dk, dv, BW, H, N, D, nW, s);
+                    const void* out, const void* dout, void* dq, void* dk, void* dv, float* ds,
+                    int BW, int H, int N, int D, int nW, cudaStream_t s) {
+  if (N <= 32) return launch_f32<1>(q, k, v, bias, out, dout, dq, dk, dv, ds, BW, H, N, D, nW, s);
+  if (N <= 64) return launch_f32<2>(q, k, v, bias, out, dout, dq, dk, dv, ds, BW, H, N, D, nW, s);
+  if (N <= 96) return launch_f32<3>(q, k, v, bias, out, dout, dq, dk, dv, ds, BW, H, N, D, nW, s);
+  return launch_f32<5>(q, k, v, bias, out, dout, dq, dk, dv, ds, BW, H, N, D, nW, s);
 }
 
 // ---------------------------------------------------------------------------
@@ -321,13 +336,35 @@ __device__ __forceinline__ void store_rows(bf16* __restrict__ dst, const float (
   }
 }
 
-template <int KT16, int KD>
+// rows r and r + 8 of dS in float32, keys m and m + 1 (the accumulator
+// layout), into a (window, head)'s N x N slab of the bias gradient's partials
+__device__ __forceinline__ void store_ds(float* __restrict__ slab, int N, int r, int m, float a,
+                                         float b, float c, float d) {
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int row = r + 8 * half;
+    if (row >= N || m >= N) continue;
+    float* p = slab + (size_t)row * N + m;
+    const float x = half ? c : a, y = half ? d : b;
+    if ((N & 1) == 0) {
+      // N even: m < N means m + 1 < N, and the pair is 8-byte aligned
+      *reinterpret_cast<float2*>(p) = make_float2(x, y);
+    } else {
+      p[0] = x;
+      if (m + 1 < N) p[1] = y;
+    }
+  }
+}
+
+// DB: the bias trains, dS goes to ds_part too
+template <int KT16, int KD, bool DB>
 __global__ void __launch_bounds__(32 * KT16, min_blocks<KT16, KD>())
 window_attention_bwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                                 const bf16* __restrict__ v, const float* __restrict__ bias,
                                 const bf16* __restrict__ out, const bf16* __restrict__ dout,
                                 bf16* __restrict__ dq, bf16* __restrict__ dk,
-                                bf16* __restrict__ dv, int H, int N, int D, int nW, bool vec) {
+                                bf16* __restrict__ dv, float* __restrict__ ds_part, int H, int N,
+                                int D, int nW, bool vec) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   constexpr int ld = 16 * KD + 8;
   const int nkt16 = (N + 15) >> 4, rows = 16 * nkt16, ldp = rows + 8;
@@ -447,8 +484,13 @@ window_attention_bwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restri
         const int w = 4 * (2 * jc + hh);  // the n8 tile's word offset
         const float2 pa = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p0 + w));
         const float2 pb = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p1 + w));
-        a[2 * hh] = mma::pack_bf16(pa.x * (dp[hh][0] - D0), pa.y * (dp[hh][1] - D0));
-        a[2 * hh + 1] = mma::pack_bf16(pb.x * (dp[hh][2] - D1), pb.y * (dp[hh][3] - D1));
+        const float s0 = pa.x * (dp[hh][0] - D0), s1 = pa.y * (dp[hh][1] - D0);
+        const float s2 = pb.x * (dp[hh][2] - D1), s3 = pb.y * (dp[hh][3] - D1);
+        if (DB)
+          store_ds(ds_part + (size_t)bh * N * N, N, r0 + g, 16 * jc + 8 * hh + 2 * t, s0, s1, s2,
+                   s3);
+        a[2 * hh] = mma::pack_bf16(s0, s1);
+        a[2 * hh + 1] = mma::pack_bf16(s2, s3);
         p0[w] = a[2 * hh];
         p1[w] = a[2 * hh + 1];
       }
@@ -473,11 +515,11 @@ window_attention_bwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restri
   }
 }
 
-template <int KT16, int KD>
+template <int KT16, int KD, bool DB>
 int launch_mma(const void* q, const void* k, const void* v, const float* bias, const void* out,
-               const void* dout, void* dq, void* dk, void* dv, int BW, int H, int N, int D,
-               int nW, cudaStream_t stream) {
-  auto kernel = window_attention_bwd_mma_kernel<KT16, KD>;
+               const void* dout, void* dq, void* dk, void* dv, float* ds, int BW, int H, int N,
+               int D, int nW, cudaStream_t stream) {
+  auto kernel = window_attention_bwd_mma_kernel<KT16, KD, DB>;
   static bool smem_set = false;  // the most this instantiation takes, set once
   if (!smem_set) {
     const cudaError_t err = cudaFuncSetAttribute(
@@ -493,34 +535,62 @@ int launch_mma(const void* q, const void* k, const void* v, const float* bias, c
   kernel<<<BW * H, 32 * nkt16, mma_shared_bytes(nkt16, KD), stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v), bias,
       static_cast<const bf16*>(out), static_cast<const bf16*>(dout), static_cast<bf16*>(dq),
-      static_cast<bf16*>(dk), static_cast<bf16*>(dv), H, N, D, nW, vec);
+      static_cast<bf16*>(dk), static_cast<bf16*>(dv), ds, H, N, D, nW, vec);
   return (int)cudaGetLastError();
 }
 
+template <bool DB>
 int launch_bf16(const void* q, const void* k, const void* v, const float* bias, const void* out,
-                const void* dout, void* dq, void* dk, void* dv, int BW, int H, int N, int D,
-                int nW, cudaStream_t s) {
+                const void* dout, void* dq, void* dk, void* dv, float* ds, int BW, int H, int N,
+                int D, int nW, cudaStream_t s) {
   if (D <= 32) {
-    if (N <= 64) return launch_mma<4, 2>(q, k, v, bias, out, dout, dq, dk, dv, BW, H, N, D, nW, s);
-    return launch_mma<9, 2>(q, k, v, bias, out, dout, dq, dk, dv, BW, H, N, D, nW, s);
+    if (N <= 64)
+      return launch_mma<4, 2, DB>(q, k, v, bias, out, dout, dq, dk, dv, ds, BW, H, N, D, nW, s);
+    return launch_mma<9, 2, DB>(q, k, v, bias, out, dout, dq, dk, dv, ds, BW, H, N, D, nW, s);
   }
-  if (N <= 64) return launch_mma<4, 4>(q, k, v, bias, out, dout, dq, dk, dv, BW, H, N, D, nW, s);
-  return launch_mma<9, 4>(q, k, v, bias, out, dout, dq, dk, dv, BW, H, N, D, nW, s);
+  if (N <= 64)
+    return launch_mma<4, 4, DB>(q, k, v, bias, out, dout, dq, dk, dv, ds, BW, H, N, D, nW, s);
+  return launch_mma<9, 4, DB>(q, k, v, bias, out, dout, dq, dk, dv, ds, BW, H, N, D, nW, s);
+}
+
+// floats of the workspace window_attention_bwd needs for a bias gradient:
+// the (BW, H, N, N) partials and the column sums' scratch
+size_t workspace_floats(int BW, int H, int N, int nW) {
+  const long long slab = (long long)nW * H * N * N;
+  return (size_t)BW * H * N * N + colsum::scratch_floats(BW / nW, slab);
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v, out, dout, dq, dk, dv all of
-// it; bias float32). Returns a cudaError_t (0 on success).
+// it; bias float32). dbias: null (a frozen bias), or the float32 (nW, H, N,
+// N) bias gradient, with ws holding window_attention_bwd_workspace(...)
+// floats. Returns a cudaError_t (0 on success).
 extern "C" int window_attention_bwd(const void* q, const void* k, const void* v,
                                     const void* bias, const void* out, const void* dout,
-                                    void* dq, void* dk, void* dv, int BW, int H, int N, int D,
-                                    int nW, int dtype, void* stream) {
-  if (N < 1 || N > kMaxN || D < 1 || D > kMaxD || nW < 1 || BW % nW != 0)
+                                    void* dq, void* dk, void* dv, void* dbias, void* ws, int BW,
+                                    int H, int N, int D, int nW, int dtype, void* stream) {
+  if (N < 1 || N > kMaxN || D < 1 || D > kMaxD || nW < 1 || BW % nW != 0 ||
+      (dbias && ws == nullptr))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* b = static_cast<const float*>(bias);
-  if (dtype == 0) return launch_f32_by_n(q, k, v, b, out, dout, dq, dk, dv, BW, H, N, D, nW, s);
-  if (dtype == 1) return launch_bf16(q, k, v, b, out, dout, dq, dk, dv, BW, H, N, D, nW, s);
-  return (int)cudaErrorInvalidValue;
+  float* part = dbias ? static_cast<float*>(ws) : nullptr;
+  int err;
+  if (dtype == 0)
+    err = launch_f32_by_n(q, k, v, b, out, dout, dq, dk, dv, part, BW, H, N, D, nW, s);
+  else if (dtype == 1)
+    err = part ? launch_bf16<true>(q, k, v, b, out, dout, dq, dk, dv, part, BW, H, N, D, nW, s)
+               : launch_bf16<false>(q, k, v, b, out, dout, dq, dk, dv, part, BW, H, N, D, nW, s);
+  else
+    return (int)cudaErrorInvalidValue;
+  if (err || !part) return err;
+  // the frames' slabs of each (window, head), summed in frame order
+  return colsum::column_sums(part, static_cast<float*>(dbias), part + (size_t)BW * H * N * N,
+                             BW / nW, (long long)nW * H * N * N, s);
+}
+
+extern "C" long long window_attention_bwd_workspace(int BW, int H, int N, int nW) {
+  if (N < 1 || nW < 1 || BW % nW != 0) return -1;
+  return (long long)workspace_floats(BW, H, N, nW);
 }

@@ -9,6 +9,8 @@ Contract, per token row of x (..., C):
   pre_norm=True  (V1):  x + fc2(gelu(fc1(LN(x))))
   pre_norm=False (V2):  x + LN(fc2(gelu(fc1(x))))
   x, w1 (Hd, C), w2 (C, Hd)   one dtype, float32 or bfloat16, contiguous
+                              (w1, w2 may also be float32 master weights of
+                              a bf16 x, cast to x's dtype at the call)
   b1 (Hd,), b2 (C,), ln_w, ln_b (C,)   float32
 GELU is the exact erf form. LayerNorm statistics are float32.
 On the card, bfloat16 also needs C % 8 == 0 and x, w1, w2 on 16-byte
@@ -18,19 +20,28 @@ is `pick_tile`'s, from the card's SM count.
 DropPath (train): an optional float32 per-frame `scale` s, one value per
 entry of x's leading axis, gives out = x + s ⊙ branch.
 
-Training. Where x needs a gradient, the call goes through an autograd
-Function. Its forward keeps fc1's pre-activation h1 (fc1's epilogue writes
-it beside gelu(h1)) and, on V2, fc2's output f; its backward is K2b
-(`mlp_block_bwd` in the same CUDA source; plain version
-`mlp_block_backward_plain`): dx only, from those and the output's gradient,
-with no product of the forward run again. K2b runs two products and one
-LayerNorm-backward row pass; in bf16 its products run on the wgmma kernel
-(`csrc/gemm_wgmma.cuh`, TMA-fed and persistent, output tiles 128 x
-`pick_wgmma_tile`'s width), since they, not the bytes, bound K2b at most
-shapes. The weights are frozen: on the card a weight that needs a gradient
-raises; on the CPU that case takes plain autograd. The backward products
-take the transposed weights w1t = w1ᵀ (C, Hd) and w2t = w2ᵀ (Hd, C), which
-the caller keeps (SwinBlock does, once per dtype).
+Training. Where x or a weight needs a gradient, the call goes through an
+autograd Function. Its forward keeps fc1's pre-activation h1 (fc1's
+epilogue writes it beside gelu(h1)) and, on V2, fc2's output f; its
+backward is K2b (`mlp_block_bwd` in the same CUDA source; plain version
+`mlp_block_backward_plain`, which the Function runs on the CPU): dx from
+those and the output's gradient, with no product of the forward run again.
+K2b runs two products and one LayerNorm-backward row pass; in bf16 its
+products run on the wgmma kernel (`csrc/gemm_wgmma.cuh`, TMA-fed and
+persistent, output tiles 128 x `pick_wgmma_tile`'s width), since they, not
+the bytes, bound K2b at most shapes. The backward products take the
+transposed weights w1t = w1ᵀ (C, Hd) and w2t = w2ᵀ (Hd, C), which the
+caller keeps for frozen weights (SwinBlock does, once per dtype).
+
+Trainable weights (a trainable backbone). The forward also keeps fc1's
+input a1 (LN(x) on V1, x on V2) and gelu(h1), which it computes anyway, and
+K2b gives the six parameter gradients in float32: db1, db2, d ln_w and
+d ln_b as column sums inside its own passes (per-tile partials summed in a
+fixed order), dW1 = d_h1ᵀ a1 and dW2 = gᵀ gelu(h1) (V2: d_h2ᵀ gelu(h1)) as
+two float32-output products over the rows, g = s ⊙ dy. Float32 master
+weights go into the Function as they are: it casts them to x's dtype and
+returns their gradients as float32 sums (a bf16 weight would round the sum
+over the rows to bf16).
 """
 
 from __future__ import annotations
@@ -43,7 +54,7 @@ import torch
 import torch.nn.functional as F
 
 from avmoe_tpu_torch.kernels import _build
-from avmoe_tpu_torch.ops.norm import layer_norm, layer_norm_backward, upcast
+from avmoe_tpu_torch.ops.norm import layer_norm, layer_norm_backward, layer_norm_xhat, upcast
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -54,18 +65,21 @@ def _frame_scale(scale: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
 
 
 def mlp_block_forward_plain(x, ln_w, ln_b, w1, b1, w2, b2, *, pre_norm: bool,
-                           eps: float = 1e-5, scale=None):
+                           eps: float = 1e-5, scale=None, acts: bool = False):
     """Plain PyTorch version of the kernel's training forward (same
     contract), in x's dtype: (out, h1, f), with h1 (..., Hd) fc1's
-    pre-activation and f (..., C) fc2's output, bias added, which K2b reads."""
+    pre-activation and f (..., C) fc2's output, bias added, which K2b reads;
+    with `acts` also (a1, gelu(h1)), a1 fc1's input (LN(x) on V1, x on V2),
+    which the weight gradients read."""
     dt = x.dtype
-    h = layer_norm(x, ln_w, ln_b, eps) if pre_norm else x
-    h1 = torch.matmul(h, w1.t()) + b1.to(dt)
-    f = torch.matmul(F.gelu(h1, approximate="none"), w2.t()) + b2.to(dt)
+    a1 = layer_norm(x, ln_w, ln_b, eps) if pre_norm else x
+    h1 = torch.matmul(a1, w1.t()) + b1.to(dt)
+    hid = F.gelu(h1, approximate="none")
+    f = torch.matmul(hid, w2.t()) + b2.to(dt)
     h = f if pre_norm else layer_norm(f, ln_w, ln_b, eps)
     if scale is not None:
         h = h * _frame_scale(scale, x).to(dt)
-    return x + h, h1, f
+    return (x + h, h1, f, a1, hid) if acts else (x + h, h1, f)
 
 
 def mlp_block_plain(x, ln_w, ln_b, w1, b1, w2, b2, *, pre_norm: bool,
@@ -82,22 +96,36 @@ def gelu_grad(h: torch.Tensor) -> torch.Tensor:
 
 
 def mlp_block_backward_plain(dy, h1, src, ln_w, w1t, w2t, *, pre_norm: bool,
-                             eps: float = 1e-5, scale=None) -> torch.Tensor:
+                             eps: float = 1e-5, scale=None, a1=None, hid=None):
     """Plain PyTorch version of K2b, by the kernel's formulas in float32
     (float64 for float64 dy): dx of mlp_block for the output gradient dy,
-    weights frozen, from the forward's h1 and src (x on V1, f on V2), in dy's
-    dtype."""
+    from the forward's h1 and src (x on V1, f on V2), in dy's dtype. Given
+    the forward's a1 and gelu(h1) (`mlp_block_forward_plain(..., acts=True)`),
+    (dx, dW1, db1, dW2, db2, d ln_w, d ln_b), the parameter gradients in
+    float32: with g = s ⊙ dy, d_f the gradient at fc2's output (g on V1,
+    LN-backward(g; f) on V2) and d_n the one at the norm's output (d_h1 w1 on
+    V1, g on V2), dW2 = d_fᵀ gelu(h1), db2 = Σ d_f, dW1 = d_h1ᵀ a1,
+    db1 = Σ d_h1, d ln_w = Σ d_n ∘ n̂ (n̂ the normalized src), d ln_b = Σ d_n."""
     dyf = upcast(dy)
     f = lambda t: t.to(dyf.dtype)
     g = dyf if scale is None else dyf * f(_frame_scale(scale, dy))
     w1, w2, gelu_d = f(w1t).t(), f(w2t).t(), gelu_grad(f(h1))
     if pre_norm:
+        d_f = g
         d_h1 = torch.matmul(g, w2) * gelu_d
-        dx = dyf + layer_norm_backward(torch.matmul(d_h1, w1), src, ln_w, eps)
+        d_n = torch.matmul(d_h1, w1)
+        dx = dyf + layer_norm_backward(d_n, src, ln_w, eps)
     else:
-        d_h1 = torch.matmul(layer_norm_backward(g, src, ln_w, eps), w2) * gelu_d
+        d_n = g
+        d_f = layer_norm_backward(g, src, ln_w, eps)
+        d_h1 = torch.matmul(d_f, w2) * gelu_d
         dx = dyf + torch.matmul(d_h1, w1)
-    return dx.to(dy.dtype)
+    if a1 is None:
+        return dx.to(dy.dtype)
+    rows = lambda t: t.reshape(-1, t.shape[-1])
+    d_f, d_h1, d_n = rows(d_f), rows(d_h1), rows(d_n)
+    return (dx.to(dy.dtype), d_h1.t() @ rows(f(a1)), d_h1.sum(0), d_f.t() @ rows(f(hid)),
+            d_f.sum(0), (d_n * rows(layer_norm_xhat(src, eps))).sum(0), d_n.sum(0))
 
 
 def _check(x, ln_w, ln_b, w1, b1, w2, b2) -> None:
@@ -105,7 +133,9 @@ def _check(x, ln_w, ln_b, w1, b1, w2, b2) -> None:
         raise ValueError(f"unsupported dtype {x.dtype}; expected float32 or bfloat16")
     C = x.shape[-1]
     Hd = w1.shape[0]
-    want = {"w1": (w1, (Hd, C), x.dtype), "w2": (w2, (C, Hd), x.dtype),
+    # the weights in x's dtype, or as float32 masters
+    wdt = w1.dtype if w1.dtype == w2.dtype == torch.float32 else x.dtype
+    want = {"w1": (w1, (Hd, C), wdt), "w2": (w2, (C, Hd), wdt),
             "b1": (b1, (Hd,), torch.float32), "b2": (b2, (C,), torch.float32),
             "ln_w": (ln_w, (C,), torch.float32), "ln_b": (ln_b, (C,), torch.float32)}
     for name, (t, shape, dtype) in want.items():
@@ -207,8 +237,11 @@ def _library() -> ctypes.CDLL:
     fn.restype = ctypes.c_int
     fn = lib.mlp_block_bwd
     fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] + [ctypes.c_void_p] * 3
-                   + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p])
+                   + [ctypes.c_int] * 7 + [ctypes.c_float] + [ctypes.c_void_p] * 5)
     fn.restype = ctypes.c_int
+    fn = lib.mlp_block_bwd_workspace
+    fn.argtypes = [ctypes.c_int] * 4
+    fn.restype = ctypes.c_longlong
     fn = lib.mlp_block_gemm_bf16
     fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
@@ -300,15 +333,18 @@ def _scale_args(scale, x):
 
 
 class MlpBlockBackward:
-    """Callable wrapper of K2b: dx of the block for the gradient dy, weights
-    frozen, from the forward's h1 and src (x on V1, f on V2); `launches`
-    counts calls that launched it (two products and one row pass)."""
+    """Callable wrapper of K2b: dx of the block for the gradient dy, from the
+    forward's h1 and src (x on V1, f on V2); given the forward's a1 and hid =
+    gelu(h1) (trainable weights), (dx, dW1, db1, dW2, db2, d ln_w, d ln_b),
+    the six float32 (`mlp_block_backward_plain`'s contract). `launches`
+    counts calls that launched it (two products and one row pass, and with
+    the weight gradients their column sums and two products)."""
 
     def __init__(self):
         self.launches = 0
 
     def __call__(self, dy, h1, src, ln_w, w1t, w2t, *, pre_norm: bool, eps: float = 1e-5,
-                 scale=None) -> torch.Tensor:
+                 scale=None, a1=None, hid=None):
         if dy.dtype not in _DTYPE_CODE:
             raise ValueError(f"unsupported dtype {dy.dtype}; expected float32 or bfloat16")
         C, Hd = dy.shape[-1], w1t.shape[-1]
@@ -325,61 +361,107 @@ class MlpBlockBackward:
         if not dy.is_contiguous():
             raise ValueError("dy must be contiguous")
         _check_scale(scale, dy)
+        params = (a1 is not None) or (hid is not None)
+        if params:
+            for name, t, shape in (("a1", a1, tuple(dy.shape)), ("hid", hid, tuple(h1.shape))):
+                if (t is None or tuple(t.shape) != shape or t.dtype != dy.dtype
+                        or t.device != dy.device or not t.is_contiguous()):
+                    raise ValueError(f"{name} must be contiguous {dy.dtype} {shape} on "
+                                     f"{dy.device} beside the other one")
         if dy.device.type == "cpu":
             return mlp_block_backward_plain(dy, h1, src, ln_w, w1t, w2t, pre_norm=pre_norm,
-                                            eps=eps, scale=scale)
+                                            eps=eps, scale=scale, a1=a1, hid=hid)
         if dy.device.type != "cuda":
             raise ValueError(f"mlp_block_bwd: unsupported device {dy.device}")
         if dy.dtype == torch.bfloat16:
             _check_bf16_layout(C, dy=dy, h1=h1, src=src, w1t=w1t, w2t=w2t)
         R = dy.numel() // C
+        lib = _library()
         hA = torch.empty((R, Hd), dtype=dy.dtype, device=dy.device)
         cA = torch.empty((R, C), dtype=dy.dtype, device=dy.device)
         dx = torch.empty_like(dy)
+        sums = db1 = gs = ws = None
+        if params:
+            f32 = dict(dtype=torch.float32, device=dy.device)
+            sums, db1 = torch.empty((3, C), **f32), torch.empty((Hd,), **f32)
+            ws = torch.empty(lib.mlp_block_bwd_workspace(R, C, Hd, _DTYPE_CODE[dy.dtype]), **f32)
+            if pre_norm and scale is not None:
+                gs = torch.empty((R, C), dtype=dy.dtype, device=dy.device)
         sms = sm_count(_device_index(dy))
         sp, rpf = _scale_args(scale, dy)
-        err = _library().mlp_block_bwd(
+        ptr = lambda t: 0 if t is None else t.data_ptr()
+        err = lib.mlp_block_bwd(
             dy.data_ptr(), h1.data_ptr(), src.data_ptr(), ln_w.data_ptr(), w1t.data_ptr(),
             w2t.data_ptr(), sp, rpf, hA.data_ptr(), cA.data_ptr(), dx.data_ptr(), R, C, Hd,
             int(pre_norm), _DTYPE_CODE[dy.dtype], pick_wgmma_tile(R, Hd, C, sms, gelu=True),
-            pick_wgmma_tile(R, C, Hd, sms), eps, _stream(dy))
+            pick_wgmma_tile(R, C, Hd, sms), eps, ptr(sums), ptr(db1), ptr(gs), ptr(ws),
+            _stream(dy))
         if err != 0:
             raise RuntimeError(f"mlp_block_bwd kernel failed: CUDA error {err}")
         self.launches += 1
-        return dx
+        if not params:
+            return dx
+        # the two weight products over the R rows, float32 out: dW2 = d_fᵀ
+        # gelu(h1) with d_f = g (V1; dy without a scale) or d_h2 (V2, in cA),
+        # dW1 = d_h1ᵀ a1 (d_h1 in hA)
+        d_f = cA if not pre_norm else (dy.reshape(R, C) if gs is None else gs)
+        dw2 = _mm_f32(d_f.t(), hid.reshape(R, Hd))
+        dw1 = _mm_f32(hA.t(), a1.reshape(R, C))
+        return dx, dw1, db1, dw2, sums[2], sums[0], sums[1]
+
+
+def _mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a b with a float32 result: a bf16 product with float32 output, or a
+    float32 product."""
+    if a.dtype == torch.bfloat16:
+        return torch.mm(a, b, out_dtype=torch.float32)
+    return torch.mm(a, b)
 
 
 mlp_block_bwd = MlpBlockBackward()
 
 
 class _MlpBlockFn(torch.autograd.Function):
-    """K2 forward keeping h1 (and f on V2), K2b backward (dx only; the
-    weights are frozen)."""
+    """K2 forward keeping h1 (and f on V2), K2b backward (the plain versions
+    on the CPU). Where a parameter needs a gradient the forward also keeps
+    a1 and gelu(h1), and the backward gives all six parameter gradients;
+    w1 and w2 may be float32 masters of a bf16 x (cast here; their
+    gradients float32)."""
 
     @staticmethod
     def forward(ctx, x, ln_w, ln_b, w1, b1, w2, b2, scale, w1t, w2t, pre_norm, eps):
-        out, h1, f = mlp_block.forward_only(x, ln_w, ln_b, w1, b1, w2, b2, pre_norm=pre_norm,
-                                            eps=eps, scale=scale, keep=True)
-        ctx.save_for_backward(h1, x if pre_norm else f, ln_w, scale, w1t, w2t)
-        ctx.pre_norm, ctx.eps = pre_norm, eps
+        params = any(ctx.needs_input_grad[1:7])
+        W1, W2 = w1.to(x.dtype), w2.to(x.dtype)
+        if params or w1t is None:
+            w1t, w2t = W1.t().contiguous(), W2.t().contiguous()
+        res = mlp_block.forward_only(x, ln_w, ln_b, W1, b1, W2, b2, pre_norm=pre_norm, eps=eps,
+                                     scale=scale, keep=True, acts=params)
+        out, h1, f = res[:3]
+        ctx.save_for_backward(h1, x if pre_norm else f, ln_w, scale, w1t, w2t,
+                              *(res[3:] if params else ()))
+        ctx.pre_norm, ctx.eps, ctx.params = pre_norm, eps, params
         return out
 
     @staticmethod
     def backward(ctx, dy):
-        h1, src, ln_w, scale, w1t, w2t = ctx.saved_tensors
+        h1, src, ln_w, scale, w1t, w2t, *acts = ctx.saved_tensors
         dy = dy.contiguous()
         if dy.data_ptr() % 16:     # a view off the bf16 kernel's 16-byte boundary
             dy = dy.clone()
-        dx = mlp_block_bwd(dy, h1, src, ln_w, w1t, w2t, pre_norm=ctx.pre_norm, eps=ctx.eps,
-                           scale=scale)
-        return (dx,) + (None,) * 11
+        res = mlp_block_bwd(dy, h1, src, ln_w, w1t, w2t, pre_norm=ctx.pre_norm, eps=ctx.eps,
+                            scale=scale, **(dict(a1=acts[0], hid=acts[1]) if ctx.params else {}))
+        if not ctx.params:
+            return (res,) + (None,) * 11
+        dx, dw1, db1, dw2, db2, dln_w, dln_b = res
+        return dx, dln_w, dln_b, dw1, db1, dw2, db2, None, None, None, None, None
 
 
 class MlpBlock:
     """Callable wrapper of the kernels; `launches` counts calls that launched
     them (one call is one MLP sub-block: two products and one row pass).
-    Where x needs a gradient the call is differentiable through K2b; w1t and
-    w2t (the transposed weights) are then taken as given or made here."""
+    Where x or a parameter needs a gradient the call is differentiable
+    through K2b; w1t and w2t (the transposed frozen weights) are then taken
+    as given or made here."""
 
     def __init__(self):
         self.launches = 0
@@ -388,28 +470,23 @@ class MlpBlock:
                  eps: float = 1e-5, scale=None, w1t=None, w2t=None) -> torch.Tensor:
         _check(x, ln_w, ln_b, w1, b1, w2, b2)
         _check_scale(scale, x)
-        if not (torch.is_grad_enabled() and x.requires_grad):
-            return self.forward_only(x, ln_w, ln_b, w1, b1, w2, b2, pre_norm=pre_norm, eps=eps,
-                                     scale=scale)
-        if any(t.requires_grad for t in (ln_w, ln_b, w1, b1, w2, b2)):
-            if x.device.type == "cpu":
-                return mlp_block_plain(x, ln_w, ln_b, w1, b1, w2, b2, pre_norm=pre_norm,
-                                       eps=eps, scale=scale)
-            raise ValueError("mlp_block: the backward kernel gives dx only; the weights and "
-                             "norm must be frozen (requires_grad=False)")
-        w1t = w1.t().contiguous() if w1t is None else w1t
-        w2t = w2.t().contiguous() if w2t is None else w2t
+        if not (torch.is_grad_enabled()
+                and any(t.requires_grad for t in (x, ln_w, ln_b, w1, b1, w2, b2))):
+            return self.forward_only(x, ln_w, ln_b, w1.to(x.dtype), b1, w2.to(x.dtype), b2,
+                                     pre_norm=pre_norm, eps=eps, scale=scale)
         return _MlpBlockFn.apply(x, ln_w, ln_b, w1, b1, w2, b2, scale, w1t, w2t, pre_norm, eps)
 
     def forward_only(self, x, ln_w, ln_b, w1, b1, w2, b2, *, pre_norm: bool,
-                     eps: float = 1e-5, scale=None, keep: bool = False):
+                     eps: float = 1e-5, scale=None, keep: bool = False, acts: bool = False):
         """The kernels (plain version on the CPU), no autograd. With `keep`
         (training) it returns (out, h1, f): fc1's pre-activation h1 (..., Hd)
         and fc2's output f (..., C), which K2b reads (f is None on the card
-        for V1, whose fc2 adds the residual in its epilogue)."""
+        for V1, whose fc2 adds the residual in its epilogue); with `acts` too
+        (out, h1, f, a1, hid): fc1's input a1 (LN(x) on V1, x on V2) and
+        gelu(h1) (..., Hd), which the weight gradients read."""
         if x.device.type == "cpu":
             res = mlp_block_forward_plain(x, ln_w, ln_b, w1, b1, w2, b2, pre_norm=pre_norm,
-                                          eps=eps, scale=scale)
+                                          eps=eps, scale=scale, acts=keep and acts)
             return res if keep else res[0]
         if x.device.type != "cuda":
             raise ValueError(f"mlp_block: unsupported device {x.device}")
@@ -421,7 +498,7 @@ class MlpBlock:
         Hd = w1.shape[0]
         sms = sm_count(_device_index(x))
         h_ln = torch.empty_like(x) if pre_norm else None
-        hid = torch.empty((R, Hd), dtype=x.dtype, device=x.device)
+        hid = torch.empty((*x.shape[:-1], Hd), dtype=x.dtype, device=x.device)
         f = None if pre_norm else torch.empty_like(x)
         h1 = torch.empty((*x.shape[:-1], Hd), dtype=x.dtype, device=x.device) if keep else None
         out = torch.empty_like(x)
@@ -435,6 +512,8 @@ class MlpBlock:
         if err != 0:
             raise RuntimeError(f"mlp_block kernel failed: CUDA error {err}")
         self.launches += 1
+        if keep and acts:
+            return out, h1, f, x if h_ln is None else h_ln, hid
         return (out, h1, f) if keep else out
 
 

@@ -14,16 +14,18 @@ Contract (that of the TPU kernel):
            and rounds p to bf16 for p v, as the JAX package's XLA attention
            does)
 
-Training. Where q, k or v needs a gradient, the call goes through an
-autograd Function whose backward is K1b (`csrc/window_attention_bwd.cu`;
-plain version `window_attention_backward_plain`): dq, dk and dv from q, k,
-v, the bias, the output and its gradient, P recomputed in float32. In bf16
-K1b runs its five products on the tensor cores and rounds P and dS to bf16
-as product operands (sums in float32); in float32 it runs on the CUDA
-cores, exact within float32 rounding. The bias
-is frozen (a table or CPB MLP of the frozen backbone): on the card a bias
-that needs a gradient raises; on the CPU that case takes plain autograd.
-K1b takes N <= 144 and D <= 64 (every main-path and tiny shape).
+Training. Where q, k, v or the bias needs a gradient, the call goes
+through an autograd Function whose backward is K1b
+(`csrc/window_attention_bwd.cu`; plain version
+`window_attention_backward_plain`, which the Function runs on the CPU): dq,
+dk and dv from q, k, v, the bias, the output and its gradient, P
+recomputed in float32. In bf16 K1b runs its five products on the tensor
+cores and rounds P and dS to bf16 as product operands (sums in float32); in
+float32 it runs on the CUDA cores, exact within float32 rounding. Where the
+bias needs a gradient (a trainable backbone's table or CPB MLP makes it),
+K1b also gives dbias (nW, H, N, N) float32, dbias[w] = Σ_b dS[b·nW + w], from
+the float32 dS, summed in a fixed order (the same bits every run). K1b
+takes N <= 144 and D <= 64 (every main-path and tiny shape).
 """
 
 from __future__ import annotations
@@ -58,11 +60,12 @@ def window_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.matmul(_probs(q, k, bias), upcast(v)).to(q.dtype)
 
 
-def window_attention_backward_plain(q, k, v, bias, out, dout):
+def window_attention_backward_plain(q, k, v, bias, out, dout, *, bias_grad: bool = False):
     """Plain PyTorch version of K1b, by the kernel's formulas in float32:
     P = softmax(q kᵀ + bias), D = rowsum(dO ∘ O), dv = Pᵀ dO, dP = dO vᵀ,
     dS = P ∘ (dP − D), dq = dS k, dk = dSᵀ q; returned in q's dtype (float64
-    stays float64)."""
+    stays float64). With `bias_grad` also dbias (nW, H, N, N), dbias[w] =
+    Σ_b dS[b·nW + w], in float32 (float64 for float64 q)."""
     qf, kf, vf, dof = upcast(q), upcast(k), upcast(v), upcast(dout)
     p = _probs(q, k, bias)
     d = (dof * upcast(out)).sum(dim=-1, keepdim=True)
@@ -70,7 +73,11 @@ def window_attention_backward_plain(q, k, v, bias, out, dout):
     ds = p * (torch.matmul(dof, vf.transpose(-1, -2)) - d)
     dq = torch.matmul(ds, kf)
     dk = torch.matmul(ds.transpose(-1, -2), qf)
-    return dq.to(q.dtype), dk.to(q.dtype), dv.to(q.dtype)
+    grads = dq.to(q.dtype), dk.to(q.dtype), dv.to(q.dtype)
+    if not bias_grad:
+        return grads
+    nW = bias.shape[0]
+    return grads + (ds.reshape(-1, nW, *ds.shape[1:]).sum(dim=0),)
 
 
 def _check(q, k, v, bias) -> None:
@@ -109,8 +116,11 @@ def _library() -> ctypes.CDLL:
 def _bwd_library() -> ctypes.CDLL:
     lib = _build.load("window_attention_bwd")
     fn = lib.window_attention_bwd
-    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
+    fn = lib.window_attention_bwd_workspace
+    fn.argtypes = [ctypes.c_int] * 4
+    fn.restype = ctypes.c_longlong
     return lib
 
 
@@ -121,13 +131,14 @@ def check_backward_shape(N: int, D: int) -> None:
 
 
 class WindowAttentionBackward:
-    """Callable wrapper of K1b: (q, k, v, bias, out, dout) -> (dq, dk, dv);
-    `launches` counts kernel launches."""
+    """Callable wrapper of K1b: (q, k, v, bias, out, dout) -> (dq, dk, dv),
+    and with `bias_grad` (dq, dk, dv, dbias), dbias float32; `launches`
+    counts kernel launches."""
 
     def __init__(self):
         self.launches = 0
 
-    def __call__(self, q, k, v, bias, out, dout):
+    def __call__(self, q, k, v, bias, out, dout, *, bias_grad: bool = False):
         _check(q, k, v, bias)
         for name, t in (("out", out), ("dout", dout)):
             if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device:
@@ -136,29 +147,37 @@ class WindowAttentionBackward:
             if not t.is_contiguous():
                 raise ValueError(f"{name} must be contiguous")
         if q.device.type == "cpu":
-            return window_attention_backward_plain(q, k, v, bias, out, dout)
+            return window_attention_backward_plain(q, k, v, bias, out, dout, bias_grad=bias_grad)
         if q.device.type != "cuda":
             raise ValueError(f"window_attention_bwd: unsupported device {q.device}")
         BW, H, N, D = q.shape
+        nW = bias.shape[0]
         check_backward_shape(N, D)
         lib = _bwd_library()
         dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+        dbias = ws = None
+        if bias_grad:
+            dbias = torch.empty_like(bias)
+            ws = torch.empty(lib.window_attention_bwd_workspace(BW, H, N, nW),
+                             dtype=torch.float32, device=q.device)
+        ptr = lambda t: 0 if t is None else t.data_ptr()
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.window_attention_bwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(), out.data_ptr(),
-            dout.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            BW, H, N, D, bias.shape[0], _DTYPE_CODE[q.dtype], stream)
+            dout.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), ptr(dbias), ptr(ws),
+            BW, H, N, D, nW, _DTYPE_CODE[q.dtype], stream)
         if err != 0:
             raise RuntimeError(f"window_attention_bwd kernel failed: CUDA error {err}")
         self.launches += 1
-        return dq, dk, dv
+        return (dq, dk, dv) if dbias is None else (dq, dk, dv, dbias)
 
 
 window_attention_bwd = WindowAttentionBackward()
 
 
 class _WindowAttentionFn(torch.autograd.Function):
-    """K1 forward, K1b backward (input gradients only; the bias is frozen)."""
+    """K1 forward, K1b backward (the plain versions on the CPU); dbias where
+    the bias needs a gradient."""
 
     @staticmethod
     def forward(ctx, q, k, v, bias):
@@ -169,13 +188,15 @@ class _WindowAttentionFn(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dout):
         q, k, v, bias, out = ctx.saved_tensors
-        dq, dk, dv = window_attention_bwd(q, k, v, bias, out, dout.contiguous())
-        return dq, dk, dv, None
+        bias_grad = ctx.needs_input_grad[3]
+        grads = window_attention_bwd(q, k, v, bias, out, dout.contiguous(), bias_grad=bias_grad)
+        return grads if bias_grad else grads + (None,)
 
 
 class WindowAttention:
     """Callable wrapper of the kernel; `launches` counts kernel launches.
-    Where q, k or v needs a gradient the call is differentiable through K1b."""
+    Where q, k, v or the bias needs a gradient the call is differentiable
+    through K1b."""
 
     def __init__(self):
         self.launches = 0
@@ -184,13 +205,8 @@ class WindowAttention:
                  bias: torch.Tensor) -> torch.Tensor:
         _check(q, k, v, bias)
         if not (torch.is_grad_enabled()
-                and (q.requires_grad or k.requires_grad or v.requires_grad)):
+                and any(t.requires_grad for t in (q, k, v, bias))):
             return self.forward_only(q, k, v, bias)
-        if bias.requires_grad:
-            if q.device.type == "cpu":
-                return window_attention_plain(q, k, v, bias)
-            raise ValueError("window_attention: the backward kernel gives no bias gradient; "
-                             "the bias must be frozen (requires_grad=False)")
         if q.device.type == "cuda":
             check_backward_shape(q.shape[2], q.shape[3])
         return _WindowAttentionFn.apply(q, k, v, bias)

@@ -41,7 +41,7 @@ from avmoe_tpu_torch.heads.avs import (
 from avmoe_tpu_torch.losses.avs import iou_semantic_aware_loss
 from avmoe_tpu_torch.metrics.avs import eval_fmeasure, mask_iou
 from avmoe_tpu_torch.models.ave import init_parameters
-from avmoe_tpu_torch.moe.injection import LockstepEncoder, kernel_launches
+from avmoe_tpu_torch.moe.injection import LockstepEncoder, backward_launches, kernel_launches
 
 Gen = Optional[torch.Generator]
 
@@ -95,22 +95,7 @@ class AVSModel(nn.Module):
         if not train:
             with torch.no_grad():
                 return self._forward(images, wave, False, None, None)
-        self._check_trainable_backbones()
         return self._forward(images, wave, True, mixup_lambda, generator)
-
-    def _check_trainable_backbones(self) -> None:
-        """On the card the backbones' kernels give input gradients only."""
-        enc = self.encoder
-        needs = [name for name, p in list(enc.swin.named_parameters(prefix="swin"))
-                 + list(enc.htsat.named_parameters(prefix="htsat")) if p.requires_grad]
-        if needs and torch.is_grad_enabled() and next(self.parameters()).is_cuda:
-            raise NotImplementedError(
-                f"a train step with trainable backbone weights ({needs[0]} and "
-                f"{len(needs) - 1} more; AVS S4 trains HTS-AT) is not ported to the card: "
-                "the window-attention backward kernel (K1b) gives no gradient of the "
-                "relative-position bias table and the MLP-block backward kernel (K2b) none of "
-                "fc1 / fc2 / norm2 (dW1, db1, dW2, db2, the norm's scale and bias). Freeze "
-                "both backbones (MS3), or train on the CPU")
 
     def _forward(self, images, wave, train: bool, mixup_lambda, generator) -> Dict:
         c = self.cfg
@@ -166,6 +151,12 @@ def avs_frozen_scopes(cfg: AVSConfig):
     """The backbones a train step freezes: S4's recipe trains HTS-AT, MS3's
     freezes both."""
     return ("swin",) if cfg.setting == "s4" else ("swin", "htsat")
+
+
+def avs_backward_launches(cfg: AVSConfig) -> Dict[str, int]:
+    """Launches of K1b and K2b per train step of the setting's recipe (S4:
+    every HTS-AT sub-block, its weights training)."""
+    return backward_launches(cfg.swin, cfg.htsat, cfg.injection, avs_frozen_scopes(cfg))
 
 
 def make_avs_loss_fn(model: AVSModel):

@@ -196,15 +196,17 @@ def swin_pass_launches(swin_cfg: SwinV2Config, block_chains: bool) -> Dict[str, 
     return {"K1": blocks, "K2": blocks, "K3": 0}
 
 
-def backward_launches(swin_cfg: SwinV2Config, htsat_cfg: HTSATConfig,
-                      inj: InjectionConfig) -> Dict[str, int]:
+def backward_launches(swin_cfg: SwinV2Config, htsat_cfg: HTSATConfig, inj: InjectionConfig,
+                      frozen_scopes: Tuple[str, ...] = ("swin", "htsat")) -> Dict[str, int]:
     """Launches of K1b (window-attention backward) and K2b (MLP-block
-    backward) per train step on the default path. With frozen backbones a
-    sub-block launches its backward only where its input needs a gradient:
-    after the first adapter residual of its backbone has been added (an
-    adapter's output depends on trainable parameters), so the sub-blocks
-    that run before it launch none."""
-    grad = {"v": False, "a": False}
+    backward) per train step on the default path, with the backbones in
+    `frozen_scopes` ("swin", "htsat") frozen. A frozen backbone's sub-block
+    launches its backward only where its input needs a gradient: after the
+    first adapter residual of its backbone has been added (an adapter's
+    output depends on trainable parameters), so the sub-blocks that run
+    before it launch none. A trainable backbone's sub-blocks all launch it
+    (their weights need gradients), from the first block on."""
+    grad = {"v": "swin" not in frozen_scopes, "a": "htsat" not in frozen_scopes}
     k1b = k2b = 0
 
     def blocks(side: str, n: int, whole: bool = True) -> None:

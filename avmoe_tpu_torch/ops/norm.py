@@ -48,15 +48,22 @@ def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     return y * _expand(weight, x).to(dt) + _expand(bias, x).to(dt)
 
 
+def layer_norm_xhat(src: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """The normalized src, (src − mean) / sqrt(var + eps), in float32
+    (float64 for float64 src): what the norm's scale multiplies."""
+    src = upcast(src)
+    mean, var = _moments(src)
+    return (src - mean) * torch.rsqrt(var + eps)
+
+
 def layer_norm_backward(g: torch.Tensor, src: torch.Tensor, ln_w: torch.Tensor,
                         eps: float = 1e-5) -> torch.Tensor:
     """Gradient wrt src of layer_norm(src, ln_w, ·) for the output gradient
     g, in float32 (float64 for float64 src): inv (dxh − mean(dxh) −
     xh mean(dxh xh)), dxh = g ln_w."""
     src = upcast(src)
-    mean, var = _moments(src)
-    inv = torch.rsqrt(var + eps)
-    xh = (src - mean) * inv
+    inv = torch.rsqrt(_moments(src)[1] + eps)
+    xh = layer_norm_xhat(src, eps)
     dxh = g.to(src.dtype) * ln_w.to(src.dtype)
     return inv * (dxh - dxh.mean(dim=-1, keepdim=True)
                   - xh * (dxh * xh).mean(dim=-1, keepdim=True))

@@ -15,7 +15,10 @@ branch per frame (the MLP branch inside K2, as its per-frame scale), and the
 projection dropout runs at its configured rate. The two dropout sites inside
 the kernels (attention probabilities, MLP hidden and output) are not
 ported: a train forward with a non-zero rate there raises (their rates are
-0 in every ported config). Gradients reach the inputs through K1b and K2b.
+0 in every ported config). Gradients reach the inputs through K1b and K2b,
+and, where a backbone trains (AVS S4 trains HTS-AT), its weights too: K1b
+gives the attention bias's gradient, which autograd carries into the
+relative-position table or the CPB MLP, and K2b the MLP's and norm2's.
 """
 
 from __future__ import annotations
@@ -430,7 +433,10 @@ class SwinBlock(nn.Module):
                   self.norm2.weight, self.norm2.bias)
         grad = torch.is_grad_enabled()
         if grad and any(p.requires_grad for p in params):
-            w1, w2, w1t, w2t = m.fc1.weight.to(dt), m.fc2.weight.to(dt), None, None
+            # trainable: the float32 masters go in as they are; the kernel's
+            # autograd Function casts them, makes their transposes for K2b and
+            # returns their gradients as float32 sums
+            w1, w2, w1t, w2t = m.fc1.weight, m.fc2.weight, None, None
         else:
             w1, w2, w1t, w2t = self._mlp_weights(dt, transposed=grad and x.requires_grad)
         return mlp_block(

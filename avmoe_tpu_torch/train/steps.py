@@ -1,11 +1,13 @@
-"""Train and eval steps with frozen-backbone gradients.
+"""Train and eval steps.
 
 Counterpart of `avmoe_tpu/train/steps.py`. The loss is differentiated with
-respect to the trainable parameters only (`torch.autograd.grad`): the
-frozen backbones' activations still carry gradients back to the adapters,
-through K1b and K2b on the card, but no parameter gradient is made for
-them. The forward updates the BN running statistics in the model's buffers,
-which is where the next step and the eval step read them.
+respect to the trainable parameters only (`torch.autograd.grad`): a frozen
+backbone's activations still carry gradients back to the adapters, through
+K1b and K2b on the card, but no parameter gradient is made for it; a
+trainable backbone (AVS S4's HTS-AT) gets its weights' gradients from the
+same kernels (K1b's bias gradient, K2b's six parameter gradients). The
+forward updates the BN running statistics in the model's buffers, which is
+where the next step and the eval step read them.
 """
 
 from __future__ import annotations

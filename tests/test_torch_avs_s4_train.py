@@ -3,10 +3,10 @@ HTS-AT trainable.
 
 S4's reference recipe freezes only Swin (its freeze scan matches no HTS-AT
 name), so the step trains HTS-AT's weights beside the adapters and the
-decoder: frozen_scopes ("swin",). On the CPU the K1 and K2 wrappers take
-their plain versions, which autograd differentiates with respect to the
-backbone's weights too (on the card the kernels give input gradients only,
-and the model raises before any kernel runs).
+decoder: frozen_scopes ("swin",). On the CPU the K1 and K2 wrappers'
+autograd Functions run the plain backward versions of K1b and K2b, which
+give the backbone's weight gradients too (the bias's; the MLP's and
+norm2's), as the kernels do on the card.
 
 The tiny S4 config (the 'mha' expert, the first-frame IoU-BCE loss) with
 both backbones cut to depths 1-1-1-1, 80-px frames and the (24, 12, 6, 3)

@@ -15,6 +15,11 @@ whose chains round the inputs of four products per block, run attention on
 TF32 operands, and whose V2 post-norm rescales each sub-block's output to
 unit size. The backward kernels K1b and K2b are held the same way against
 the plain versions' autograd (float32 of the same bf16 inputs for bf16).
+Their parameter gradients (K1b's dbias, K2b's dW1, db1, dW2, db2, d ln_w,
+d ln_b), sums over many windows or rows, are held as chip_smoke.py holds
+them: float32 |d| <= 1e-5 sqrt(terms) + 1e-4 |ref| (terms: the frames a
+window's bias sums, or the rows), bf16 max |d| <= 2e-2 (1 + max |ref|), and
+bit-identical across two calls.
 """
 
 from __future__ import annotations
@@ -411,13 +416,84 @@ def test_cuda_mlp_block_without_scale_is_unchanged_by_a_unit_scale(cuda_device):
         assert torch.equal(plain, ones)
 
 
+def _check_param(a, b, dtype, terms):
+    """A parameter gradient summed over `terms` windows or rows, kernel (a)
+    against the float32 plain autograd (b)."""
+    assert a.shape == b.shape and a.dtype == torch.float32
+    d = (a - b).abs()
+    if dtype == torch.float32:
+        assert bool((d <= 1e-5 * terms ** 0.5 + 1e-4 * b.abs()).all()), d.max().item()
+    else:
+        assert d.max().item() <= 2e-2 * (1 + b.abs().max().item())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("nW,B,H,N,D", [
+    (64, 3, 4, 64, 24),       # HTS-AT stage 0, shifted
+    (1, 40, 4, 64, 24),       # HTS-AT stage 0, unshifted: 40 windows into one slab
+    (1, 3, 32, 64, 24),       # HTS-AT stage 3 (one window a frame)
+    (16, 2, 6, 144, 32),      # Swin-V2-L stage 1, shifted
+    (3, 2, 3, 50, 20),        # odd N and D
+])
+def test_cuda_window_attention_backward_bias_gradient(cuda_device, dtype, nW, B, H, N, D):
+    q, k, v, bias = (torch.from_numpy(a).to(cuda_device)
+                     for a in attn_inputs(nW, B, H, N, D, seed=6))
+    dout = torch.randn(q.shape, generator=torch.Generator().manual_seed(7)).to(cuda_device)
+    inputs = [t.to(dtype) for t in (q, k, v)]
+    before = window_attention_bwd.launches
+    out, got = _grads(window_attention, inputs + [bias], dout.to(dtype))
+    torch.cuda.synchronize()
+    assert window_attention_bwd.launches == before + 1
+    _, ref = _grads(window_attention_plain, [t.float() for t in inputs] + [bias],
+                    dout.to(dtype).float())
+    for a, b in zip(got[:3], ref[:3]):
+        _check(a, b, dtype)
+    _check_param(got[3], ref[3], dtype, B)
+    again = window_attention_bwd(*inputs, bias, out.detach(), dout.to(dtype), bias_grad=True)
+    assert torch.equal(again[3], got[3])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("with_scale", [False, True])
+@pytest.mark.parametrize("frames,L,C,pre_norm", _MLP_BWD_CASES)
+def test_cuda_mlp_block_parameter_gradients_match_plain(cuda_device, dtype, with_scale, frames,
+                                                        L, C, pre_norm):
+    """Trainable weights as float32 masters: K2 and K2b give dx and the six
+    parameter gradients, float32, as plain autograd of the plain version of
+    the same (rounded) inputs does."""
+    x, *params = (t.to(cuda_device) for t in _mlp_args(R=frames * L, C=C))
+    x = x.reshape(frames, L, C).to(dtype)
+    scale = (torch.tensor([0.0] + [1 / 0.9] * (frames - 1), device=cuda_device)
+             if with_scale else None)
+    dy = torch.randn(x.shape, generator=torch.Generator().manual_seed(9)).to(cuda_device)
+    dy = dy.to(dtype)
+    before = mlp_block_bwd.launches
+    out, got = _grads(lambda t, *w: mlp_block(t, *w, pre_norm=pre_norm, scale=scale),
+                      [x] + params, dy)
+    torch.cuda.synchronize()
+    assert mlp_block_bwd.launches == before + 1
+    rounded = [w.to(dtype).float() if i in (2, 4) else w for i, w in enumerate(params)]
+    ref, want = _grads(lambda t, *w: mlp_block_plain(t, *w, pre_norm=pre_norm, scale=scale),
+                       [x.float()] + rounded, dy.float())
+    _check(out, ref, dtype)
+    _check(got[0], want[0], dtype)
+    for a, b in zip(got[1:], want[1:]):
+        _check_param(a, b, dtype, frames * L)
+    _, again = _grads(lambda t, *w: mlp_block(t, *w, pre_norm=pre_norm, scale=scale),
+                      [x] + params, dy)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
 @pytest.mark.cuda
 def test_cuda_backward_wrappers_raise_instead_of_falling_back(cuda_device):
-    # a bias that needs a gradient (a trainable backbone) is refused on the card
-    q = torch.randn(2, 1, 16, 8, device=cuda_device, requires_grad=True)
-    bias = torch.zeros(1, 1, 16, 16, device=cuda_device, requires_grad=True)
-    with pytest.raises(ValueError, match="bias must be frozen"):
-        window_attention(q, q, q, bias)
+    # a bias that needs a gradient (a trainable backbone) gets it from K1b
+    q = torch.randn(2, 1, 16, 8, device=cuda_device)
+    bias = torch.randn(1, 1, 16, 16, device=cuda_device)
+    _, got = _grads(window_attention, (q, q, q, bias), q)
+    _, ref = _grads(window_attention_plain, (q, q, q, bias), q)
+    _check_param(got[3], ref[3], torch.float32, 2)
     # K1b holds N <= 144: a differentiable call above it is refused up front
     q = torch.randn(1, 1, 196, 8, device=cuda_device, requires_grad=True)
     with pytest.raises(ValueError, match="N <= 144"):
@@ -425,10 +501,12 @@ def test_cuda_backward_wrappers_raise_instead_of_falling_back(cuda_device):
     with pytest.raises(ValueError, match="N <= 144"):
         window_attention_bwd(*(q.detach(),) * 3, torch.zeros(1, 1, 196, 196, device=cuda_device),
                              q.detach(), q.detach())
-    # K2b gives dx only: weights that need a gradient are refused on the card
-    x, lw, lb, w1, b1, w2, b2 = (t.to(cuda_device) for t in _mlp_args(R=8, C=16))
-    with pytest.raises(ValueError, match="weights and norm must be frozen"):
-        mlp_block(x.requires_grad_(), lw, lb, w1.requires_grad_(), b1, w2, b2, pre_norm=True)
+    # weights that need a gradient get theirs from K2b
+    x, *params = (t.to(cuda_device) for t in _mlp_args(R=8, C=16))
+    _, got = _grads(lambda t, *w: mlp_block(t, *w, pre_norm=True), [x] + params, x)
+    _, ref = _grads(lambda t, *w: mlp_block_plain(t, *w, pre_norm=True), [x] + params, x)
+    for a, b in zip(got[1:], ref[1:]):
+        _check_param(a, b, torch.float32, 8)
     # bf16 rows the kernel cannot load
     bf = torch.bfloat16
     x, lw, lb, w1, b1, w2, b2 = (t.to(cuda_device) for t in _mlp_args(R=8, C=16))

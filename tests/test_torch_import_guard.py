@@ -15,7 +15,8 @@ SOURCES = sorted((ROOT / "avmoe_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "tools" / "k1b_variants.py",
     ROOT / "tools" / "k2_tile_variants.py", ROOT / "tools" / "k2b_bit_check.py",
     ROOT / "tools" / "k2b_wgmma_variants.py", ROOT / "tools" / "k3_phase_ablation.py",
-    ROOT / "tools" / "train_grad_conditioning.py"]
+    ROOT / "tools" / "train_grad_conditioning.py", ROOT / "tools" / "frozen_backward_parent.py",
+    ROOT / "tools" / "s4_grad_diagnosis.py", ROOT / "tools" / "s4_train_curve.py"]
 
 
 def _imported_roots(tree: ast.AST):

@@ -95,7 +95,7 @@ def build(out_dir: Path):
         if proc.returncode != 0:
             raise RuntimeError(f"{name}: nvcc failed\n{log}")
         lib = ctypes.CDLL(str(so))
-        lib.window_attention_bwd.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 6
+        lib.window_attention_bwd.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 6
                                              + [ctypes.c_void_p])
         lib.window_attention_bwd.restype = ctypes.c_int
         report = ", ".join(f"{fn}: {r} regs / {st} B spilled"
@@ -110,7 +110,7 @@ def backward(lib, q, k, v, bias, out, dout):
     BW, H, N, D = q.shape
     err = lib.window_attention_bwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
                                    out.data_ptr(), dout.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-                                   dv.data_ptr(), BW, H, N, D, bias.shape[0], 1,
+                                   dv.data_ptr(), 0, 0, BW, H, N, D, bias.shape[0], 1,
                                    torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError(f"window_attention_bwd failed: CUDA error {err}")
