@@ -2,18 +2,22 @@
 
 The package mirrors the layout of the JAX package `avmoe_tpu` module by
 module. It covers the four tasks' models, each with its eval forward and
-train step: AVE (`models/ave.py`, temporal attention and the CMBS head),
-AVVP (`models/avvp.py`, the MGN grouping heads), AVQA (`models/avqa.py`,
-the LSTM question encoder, audio-guided grounding, question-as-query
-attention and the frozen Swin pass over negative frames) and AVS
-(`models/avs.py`, S4 and MS3 segmentation: the stage tokens through TPAVI
-and an FPN decoder; S4's step, which trains HTS-AT, runs on the CPU only).
-Under them: the log-mel front end, the HTS-AT and Swin-V2 backbones in
-lock-step with MoE adapters, the losses, metrics, freezing, the optimizer
-and the train step. Window attention, the Swin MLP sub-block (forward and
-backward) and chains of Swin blocks run as hand-written CUDA kernels
-(`csrc/`) on the card; on CPU tensors the same wrappers take their plain
-PyTorch versions.
+train step: AVE (`models/ave.py`: temporal attention or ReLU Linear heads
+into CMBS, optionally with its interaction blocks, or the classification
+path), AVVP (`models/avvp.py`, the MGN grouping heads), AVQA
+(`models/avqa.py`, the LSTM question encoder, audio-guided grounding,
+question-as-query attention and the frozen Swin pass over negative frames)
+and AVS (`models/avs.py`, S4 and MS3 segmentation: the stage tokens through
+TPAVI and an FPN decoder; S4's step trains HTS-AT). Under them: the log-mel
+front end, the HTS-AT and Swin-V2 backbones in lock-step with MoE adapters,
+the losses, metrics, freezing, the optimizer and the train step. Window
+attention, the Swin MLP sub-block (forward and backward) and chains of Swin
+blocks run as hand-written CUDA kernels (`csrc/`) on the card; on CPU
+tensors the same wrappers take their plain PyTorch versions. AVE's driver
+sits on top: the readers and the prefetching loader (`data/`), torch
+checkpoints with resume (`checkpoint/`), expert telemetry and writers
+(`telemetry/`), the epoch loop (`train/loop.py`) and the command line
+`python -m avmoe_tpu_torch.cli.train_ave`.
 """
 
 from __future__ import annotations

@@ -94,6 +94,14 @@ class SwinV2Config:
     def num_features(self) -> int:
         return int(self.embed_dim * 2 ** (len(self.depths) - 1))
 
+    @staticmethod
+    def large() -> "SwinV2Config":
+        return SwinV2Config()
+
+    @staticmethod
+    def base() -> "SwinV2Config":
+        return SwinV2Config(embed_dim=128, num_heads=(4, 8, 16, 32))
+
 
 @dataclass(frozen=True)
 class AdapterConfig:
@@ -247,13 +255,71 @@ class AVSConfig:
 
 @dataclass(frozen=True)
 class TrainConfig:
-    """The optimizer's settings of the JAX package's TrainConfig."""
+    """Optimization settings, as the JAX package's TrainConfig."""
 
+    batch_size: int = 2
     accum_steps: int = 8
+    epochs: int = 50
     lr: float = 5e-4
     lr_mlp: float = 5e-6
     decay: float = 0.35            # StepLR gamma
     decay_epoch: int = 3           # StepLR step size, in epochs
+    early_stop: int = 20
+    seed: int = 999
+    mixup_alpha: float = 0.5
+    dtype: str = "float32"         # backbones' compute dtype; the AVE CLI sets it from --bf16
+
+
+def ave_train_preset() -> Tuple[AVEConfig, TrainConfig]:
+    """The AVE recipe's model and training settings."""
+    return AVEConfig(), TrainConfig()
+
+
+# HTS-AT pretrained-checkpoint flavors: (sample_rate, hop_length,
+# num_classes, the checkpoint file the converter expects). The geometry
+# (spec 256, patch 4, depths 2-2-6-2, width 96) is the same in all three.
+HTSAT_BACKBONE_FLAVORS = {
+    "esc-50": (32_000, 320, 50, "HTSAT_ESC_exp=1_fold=1_acc=0.985.ckpt"),
+    "audioset": (32_000, 320, 527, "HTSAT_AudioSet_Saved_1.ckpt"),
+    "scv2": (16_000, 160, 35, "HTSAT_SCV2_Saved_3.ckpt"),
+}
+
+
+def htsat_backbone_preset(backbone_type: str = "audioset") -> Tuple[HTSATConfig, str]:
+    """(HTSATConfig, checkpoint file name) of a named HTS-AT flavor."""
+    try:
+        sr, hop, classes, ckpt = HTSAT_BACKBONE_FLAVORS[backbone_type]
+    except KeyError:
+        raise NotImplementedError(
+            f"backbone_type {backbone_type!r}: expected one of "
+            f"{sorted(HTSAT_BACKBONE_FLAVORS)}") from None
+    cfg = HTSATConfig(num_classes=classes,
+                      frontend=AudioFrontendConfig(sample_rate=sr, hop_length=hop))
+    return cfg, ckpt
+
+
+def swin_model_preset(model_size: str = "large") -> SwinV2Config:
+    """Swin-V2 flavor by size: 'large', or 'base' (which the original
+    recipe's option calls 'small')."""
+    if model_size == "large":
+        return SwinV2Config.large()
+    if model_size in ("base", "small"):
+        return SwinV2Config.base()
+    raise NotImplementedError(f"model_size {model_size!r}: expected 'large' or 'base'/'small'")
+
+
+def ave_flavor_config(backbone_type: str = "audioset",
+                      model_size: str = "large") -> Tuple[AVEConfig, str]:
+    """AVEConfig with the named backbone flavors, and the HTS-AT checkpoint
+    file name."""
+    htsat, ckpt = htsat_backbone_preset(backbone_type)
+    return dataclasses.replace(AVEConfig(), htsat=htsat,
+                               swin=swin_model_preset(model_size)), ckpt
+
+
+def replace(cfg, **kwargs):
+    """Functional config update."""
+    return dataclasses.replace(cfg, **kwargs)
 
 
 def _tiny_frontend() -> AudioFrontendConfig:
@@ -361,6 +427,11 @@ def _mini_frontend() -> AudioFrontendConfig:
 
 def _mini_htsat() -> HTSATConfig:
     return dataclasses.replace(tiny_htsat(), frontend=_mini_frontend())
+
+
+def mini_ave_config() -> AVEConfig:
+    return dataclasses.replace(tiny_ave_config(), num_segments=10, audio_len=32000,
+                               htsat=_mini_htsat())
 
 
 def mini_avvp_config() -> AVVPConfig:

@@ -1,7 +1,7 @@
 """AVE task head: temporal attention + CMBS localization.
 
-Counterpart of `avmoe_tpu/heads/ave.py`. `AudioVideoInter` (used only with
-is_inter_in_cmbs=True) is not ported yet.
+Counterpart of `avmoe_tpu/heads/ave.py`. `AudioVideoInter` is the CMBS
+interaction block of `is_inter_in_cmbs=True`.
 """
 
 from __future__ import annotations
@@ -12,8 +12,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from avmoe_tpu_torch.heads.common import BiLSTM, TransformerDecoder, TransformerEncoder
+from avmoe_tpu_torch.heads.common import (BiLSTM, MultiHeadAttention, TransformerDecoder,
+                                           TransformerEncoder)
 from avmoe_tpu_torch.ops.dropout import dropout
+from avmoe_tpu_torch.ops.norm import LayerNorm
 
 
 class TemporalAttention(nn.Module):
@@ -75,28 +77,54 @@ class WeaklyLocalizationModule(nn.Module):
         return is_event, raw_logits, torch.softmax(fused_logits.amax(dim=1), dim=-1)
 
 
+class AudioVideoInter(nn.Module):
+    """CMBS interaction block: the query video * audio attends over
+    concat([audio, video]) (attention-weight dropout 0.2), then dropout 0.1
+    on the residual branch and a LayerNorm with eps 1e-5."""
+
+    def __init__(self, d_model: int, n_head: int = 4):
+        super().__init__()
+        self.mha = MultiHeadAttention(d_model, n_head)
+        self.norm1 = LayerNorm(d_model, eps=1e-5)
+
+    def forward(self, video: torch.Tensor, audio: torch.Tensor, train: bool = False,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        global_feat = video * audio
+        memory = torch.cat([audio, video], dim=1)
+        mid = self.mha(global_feat, memory, rate=0.2, train=train, generator=generator)
+        return self.norm1(global_feat + dropout(mid, 0.1, train=train, generator=generator))
+
+
 class CMBSHead(nn.Module):
     """CAS top-k scoring + supervised localization: (B, T, d_model) x 2 ->
-    (is_event_logits (B, T), event_logits (B, cls), av_score (B, cls))."""
+    (is_event_logits (B, T), event_logits (B, cls), av_score (B, cls)).
+    With `inter`, the two streams pass through `AudioVideoInter` blocks
+    (av_inter, va_inter) after the CAS scores."""
 
     def __init__(self, num_classes: int = 28, d_model: int = 256, topk: int = 4,
                  gamma: float = 0.3, inter: bool = False):
         super().__init__()
-        if inter:
-            raise NotImplementedError("is_inter_in_cmbs=True (AudioVideoInter) is not ported")
         self.topk, self.gamma = topk, gamma
         self.video_cas = nn.Linear(d_model, num_classes)
         self.audio_cas = nn.Linear(d_model, num_classes)
+        if inter:
+            self.av_inter = AudioVideoInter(d_model)
+            self.va_inter = AudioVideoInter(d_model)
+        self.inter = inter
         self.classifier = nn.Linear(d_model, 1)
         self.event_classifier = nn.Linear(d_model, num_classes)
 
-    def forward(self, visual: torch.Tensor, audio: torch.Tensor):
+    def forward(self, visual: torch.Tensor, audio: torch.Tensor, train: bool = False,
+                generator: Optional[torch.Generator] = None):
         video_cas = self.video_cas(visual)
         audio_cas = self.audio_cas(audio)
         k = min(self.topk, video_cas.shape[1])
         score_video = torch.topk(video_cas.transpose(1, 2), k, dim=-1).values.mean(-1)
         score_audio = torch.topk(audio_cas.transpose(1, 2), k, dim=-1).values.mean(-1)
         av_score = (score_video + score_audio) / 2.0
+        if self.inter:
+            visual, audio = (self.av_inter(visual, audio, train, generator),
+                             self.va_inter(audio, visual, train, generator))
         fused = (visual + audio) / 2.0
         is_event_logits = self.classifier(fused)[..., 0]
         event_logits = self.event_classifier(fused.amax(dim=1)) + self.gamma * av_score

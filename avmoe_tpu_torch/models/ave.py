@@ -7,7 +7,12 @@ channels-last, as in the JAX package:
   images (B, T, H, W, 3)  normalized RGB frames
 
 and the output is a dict: is_event_logits (B, T), event_logits (B, cls),
-av_score (B, cls), telemetry (per-site gating probs, lb_loss).
+av_score (B, cls), telemetry (per-site gating probs, lb_loss). The config
+picks the head: temporal attention (or, with is_temporal_att=False, one
+ReLU Linear per stream and dropout 0.1) into CMBS (with is_inter_in_cmbs,
+its interaction blocks); or, with is_cmbs=False, the forward-only
+classification path mlp_class -> mlp_class_2 -> softmax, whose output is
+segment_probs (B, T, cls + 1) and telemetry.
 
 The encoder runs in the model's compute dtype (float32 or bfloat16, master
 weights float32); the pooled features enter the heads as float32, as the
@@ -28,6 +33,7 @@ import math
 from typing import Callable, Dict, Optional
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from avmoe_tpu_torch import resolve_device
@@ -39,6 +45,7 @@ from avmoe_tpu_torch.losses.ave import ave_loss
 from avmoe_tpu_torch.metrics.ave import ave_accuracy
 from avmoe_tpu_torch.moe.adapter import GroupedDense, MoEAdapter
 from avmoe_tpu_torch.moe.injection import LockstepEncoder
+from avmoe_tpu_torch.ops.dropout import dropout
 from avmoe_tpu_torch.ops.norm import BatchNorm, LayerNorm
 from avmoe_tpu_torch.ops.swin import WindowAttentionV1, WindowAttentionV2
 
@@ -52,17 +59,23 @@ class AVEModel(nn.Module):
         (`moe/injection.py`)."""
         super().__init__()
         dev = resolve_device(device)
-        if not cfg.is_cmbs or not cfg.is_temporal_att:
-            raise NotImplementedError("only the is_cmbs + is_temporal_att AVE head is ported")
         self.cfg = cfg
+        c_v, c_a = cfg.swin.num_features, cfg.htsat.num_features
         with torch.device(dev):
             self.encoder = LockstepEncoder(cfg.swin, cfg.htsat, cfg.moe, cfg.injection,
                                            dtype=dtype, block_chains=block_chains)
-            self.temporal_attn = TemporalAttention(
-                video_input_dim=cfg.swin.num_features,
-                audio_input_dim=cfg.htsat.num_features, d_model=cfg.d_model)
-            self.cmbs = CMBSHead(num_classes=cfg.num_classes, d_model=cfg.d_model,
-                                 inter=cfg.is_inter_in_cmbs)
+            if not cfg.is_cmbs:
+                self.mlp_class = nn.Linear(c_v + c_a, 512)
+                self.mlp_class_2 = nn.Linear(512, cfg.num_classes + 1)
+            elif cfg.is_temporal_att:
+                self.temporal_attn = TemporalAttention(
+                    video_input_dim=c_v, audio_input_dim=c_a, d_model=cfg.d_model)
+            else:
+                self.v_fc = nn.Linear(c_v, cfg.d_model)
+                self.a_fc = nn.Linear(c_a, cfg.d_model)
+            if cfg.is_cmbs:
+                self.cmbs = CMBSHead(num_classes=cfg.num_classes, d_model=cfg.d_model,
+                                     inter=cfg.is_inter_in_cmbs)
         self.to(dev)
         self.eval()
         if seed is not None:
@@ -83,9 +96,16 @@ class AVEModel(nn.Module):
         f_v, f_a, telemetry = self.encoder(
             wave.reshape(B * T, -1), images.reshape((B * T,) + tuple(images.shape[2:])),
             train=train, mixup_lambda=mixup_lambda, generator=generator)
-        visual, audio, _ = self.temporal_attn(f_v.float().reshape(B, T, -1),
-                                              f_a.float().reshape(B, T, -1), train, generator)
-        is_event_logits, event_logits, av_score = self.cmbs(visual, audio)
+        f_v, f_a = f_v.float().reshape(B, T, -1), f_a.float().reshape(B, T, -1)
+        if not self.cfg.is_cmbs:
+            logits = self.mlp_class_2(self.mlp_class(torch.cat([f_v, f_a], dim=-1)))
+            return {"segment_probs": torch.softmax(logits, dim=-1), "telemetry": telemetry}
+        if self.cfg.is_temporal_att:
+            visual, audio, _ = self.temporal_attn(f_v, f_a, train, generator)
+        else:
+            visual = dropout(F.relu(self.v_fc(f_v)), 0.1, train=train, generator=generator)
+            audio = dropout(F.relu(self.a_fc(f_a)), 0.1, train=train, generator=generator)
+        is_event_logits, event_logits, av_score = self.cmbs(visual, audio, train, generator)
         return {"is_event_logits": is_event_logits, "event_logits": event_logits,
                 "av_score": av_score, "telemetry": telemetry}
 

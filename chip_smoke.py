@@ -7,7 +7,10 @@ nothing of JAX. It drives two paths of the AVE eval forward: the default
 path (K1 window attention + K2 MLP block in every Swin block) and the chain
 path, `AVEModel(cfg, block_chains=True)` (K3 block chains, K2 at the adapter
 seams); then the AVE train step on the default path (K1 and K2 forward, the
-backward kernels K1b and K2b); then AVVP, `MGNModel(AVVPConfig())`
+backward kernels K1b and K2b); then the rest of AVE (its other head
+settings, the scv2 / Swin-V2-B flavor) and AVE's driver,
+`python -m avmoe_tpu_torch.cli.train_ave`, run in-process to train, test
+and resume at full width; then AVVP, `MGNModel(AVVPConfig())`
 (adapters in all four stages, bmm unimodal experts, grouping heads), its
 eval forward and train step through the same kernels; then AVQA,
 `AVQAFusionModel(AVQAConfig())` (three experts, an LSTM question encoder,
@@ -86,12 +89,40 @@ script exits non-zero without printing the result line):
      times (reported, not claimed): train step ms and
      clips/s, peak memory, and a torch.profiler split of one step's device
      time by kernel;
- 14. tiny MGNModel (AVVP) in float32: the eval forward on both paths, card
+ 14. the tiny AVE model with each head setting of the rest of AVE
+     (is_inter_in_cmbs=True: AudioVideoInter in CMBS; is_temporal_att=
+     False: ReLU Linear heads; is_cmbs=False: the classification path's
+     segment_probs), float32, card (kernels) vs CPU (plain versions), every
+     output and the gating probs rtol 1e-3, atol 1e-4;
+ 15. ave_flavor_config("scv2", "base") (HTS-AT at 16 kHz, hop 160; Swin-V2-B,
+     widths 128 to 1024) at full width in bf16: the batch-4 and batch-1 eval
+     forwards with the launches of the plan (36 / 36 / 0), the bf16-vs-fp32
+     logits cosine >= 0.99, three train steps with K1b / K2b as planned,
+     frozen weights bit-identical and every trainable one moved;
+ 16. the AVE driver, `avmoe_tpu_torch.cli.train_ave.main`, in-process on the
+     full AVEConfig() in bf16, three times: train (--synthetic --batch_size 4
+     --accum_itr 2 --epochs 2 --decay_epoch 1 --num_workers 4: 16
+     micro-steps, 8 Adam updates, 4 eval batches of 4), with finite losses,
+     the updates' learning rates lr then lr * decay read from the optimizer,
+     frozen parameters bit-identical to the initial ones and every trainable
+     one moved, best.json and at most 3 step directories, the 12
+     expert_stats_*.npy files with each mean_gating_probs row summing to 1
+     within 1e-3, the K1 / K2 / K1b / K2b launches over the run equal to 16
+     steps' and 4 eval forwards' plans, no jax imported, and nothing of the
+     run left allocated on the card after main returns; --mode test, whose
+     accuracy equals best.json's metric; --resume --epochs 3, whose restored
+     state equals the saved checkpoint bit for bit (weights, running stats,
+     Adam moments, acc_grads, step, updates) and whose third epoch ends with
+     finite losses. Reported (not claimed): the loop's median step wall
+     time beside phase 13's step time, the consumer's mean wait on the
+     loader a step, one checkpoint's size and its save and restore times,
+     and the peak memory;
+ 17. tiny MGNModel (AVVP) in float32: the eval forward on both paths, card
      vs CPU, every output, gating probs and lb_loss rtol 1e-3, atol 1e-4;
      one deterministic step's trainable gradients card vs CPU (cosine and
      every leaf >= 0.9999) and a 2-step train curve (as phase 12), the
      heads' DropPath off and HAN's Gumbel noise given on both;
- 15. full AVVPConfig() in bfloat16 on the default path at batch 4 and 1
+ 18. full AVVPConfig() in bfloat16 on the default path at batch 4 and 1
      clips, seeded weights with non-zero gates, gate_av and class tokens:
      K1 / K2 / K3 launches per forward as the plan gives them (36 / 36 /
      0), shapes, finiteness, gating sums, lb_loss; cosine >= 0.99 of the
@@ -99,7 +130,7 @@ script exits non-zero without printing the result line):
      heads' largest differences and HAN's flipped straight-through
      assignments (reported: an argmax is discontinuous); the F1 suite of
      make_avvp_eval_fn finite; times and a profile as in phases 8 and 9;
- 16. the full AVVPConfig() bf16 train step at batch 4 (DropPath, SpecAugment,
+ 19. the full AVVPConfig() bf16 train step at batch 4 (DropPath, SpecAugment,
      dropout, Gumbel noise, mixup on): K1 / K2 / K1b / K2b launches per step
      (36 / 36 / 34 / 35), frozen parameters bit-identical, every trainable
      one moved, bn0's running stats moved; one deterministic step's
@@ -107,17 +138,17 @@ script exits non-zero without printing the result line):
      versions at the seeded init, cosine >= 0.9999 overall and on every
      leaf (bf16 vs fp32 there, and the same at the trained model's noised
      gates, reported); step ms, clips/s, peak memory and a profile;
- 17. K3 against its plain version at the AVQA chain geometries the AVE chain
+ 20. K3 against its plain version at the AVQA chain geometries the AVE chain
      path does not run, as phase 5 holds them; stage 2's 18 blocks as one
      chain in bf16 within K3_BF16_TOL sqrt(K / 2) of the float32 plain
      version and no farther than the plain version in bf16 is
      (`k3_bf16_budget`); with times;
- 18. tiny AVQAFusionModel in float32: the eval forward on both paths, card
+ 21. tiny AVQAFusionModel in float32: the eval forward on both paths, card
      vs CPU (every output and the gating probs rtol 1e-3, atol 1e-4), its
      launches as `avqa_kernel_launches` gives them; one deterministic
      step's trainable gradients card vs CPU (cosine and every leaf >=
      0.9999) and a 2-step train curve (as phase 12);
- 19. full AVQAConfig() in bfloat16 on both paths at batch 4 and 1 clips
+ 22. full AVQAConfig() in bfloat16 on both paths at batch 4 and 1 clips
      (positive and negative frames (4, 10, 192, 192, 3), waves (4, 10,
      32000), questions (4, 30)), seeded weights with noised gates and
      gate_av: K1 / K2 / K3 launches per forward (60 / 60 / 0 and 0 / 12 /
@@ -128,7 +159,7 @@ script exits non-zero without printing the result line):
      default's; the match logits' differences (reported); the accuracy of
      make_avqa_eval_fn; times, the negative pass alone (CUDA events and a
      profile) and a profile per path;
- 20. the full AVQAConfig() bf16 train step at batch 4 (DropPath,
+ 23. the full AVQAConfig() bf16 train step at batch 4 (DropPath,
      SpecAugment, dropout and mixup on): K1 / K2 / K1b / K2b launches per
      step (60 / 60 / 34 / 35: the negative pass launches no backward),
      frozen parameters bit-identical, every trainable one moved, bn0's
@@ -136,7 +167,7 @@ script exits non-zero without printing the result line):
      float32 through the kernels against their plain versions at the seeded
      init, cosine >= 0.9999 overall and on every leaf (bf16 vs fp32
      reported); step ms, clips/s, peak memory and a profile;
- 21. every kernel of the AVS path against its plain version at AVS's own
+ 24. every kernel of the AVS path against its plain version at AVS's own
      shapes (5 frames a clip, where the phases above run 10): K1, K2 and K3
      (every AVS chain geometry) at a batch-4 (20 frames) and a batch-1 (5
      frames) forward's, K1b and K2b at the batch-4 MS3 step's, with the
@@ -151,7 +182,7 @@ script exits non-zero without printing the result line):
      bias sums, or the rows) and bf16 max |d| <= 2e-2 (1 + max |ref|),
      bit-identical across two calls; times with and without them (K2b's
      two float32-output cuBLAS weight products alone too) and the bound;
- 22. tiny AVSModel in float32, S4 and MS3, 80-px frames resized to 64 and
+ 25. tiny AVSModel in float32, S4 and MS3, 80-px frames resized to 64 and
      the stage grids to a (24, 12, 6, 3) pyramid: the eval forward on both
      paths, card vs CPU (the mask logits, the four feature maps, the
      aligned audio, gating probs and lb_loss rtol 1e-3, atol 1e-4; for S4,
@@ -164,7 +195,7 @@ script exits non-zero without printing the result line):
      below 0.9999 passes where 1 - its cosine is within 4x the CPU's own
      largest 1 - cosine of a leaf under a 1e-6 relative input change (the
      'mha' expert), the whole gradient's cosine still >= 0.9999;
- 23. full AVSConfig() (S4) in bfloat16 on both paths at batch 4 and 1 clips
+ 26. full AVSConfig() (S4) in bfloat16 on both paths at batch 4 and 1 clips
      (frames (4, 5, 224, 224, 3), waves (4, 5, 32000)), seeded weights with
      noised gates and W_z_bn scales: K1 / K2 / K3 launches per forward (36 /
      36 / 0 and 0 / 12 / 30), shapes, finiteness, gating sums, lb_loss;
@@ -174,7 +205,7 @@ script exits non-zero without printing the result line):
      path the same way; mask IoU and F-measure of make_avs_eval_fn on
      synthetic masks (reported); times, TPAVI's four calls alone (CUDA
      events and a profile) and a profile per path;
- 24. the full MS3 bf16 train step at batch 4 (DropPath, SpecAugment,
+ 27. the full MS3 bf16 train step at batch 4 (DropPath, SpecAugment,
      dropout, router noise and mixup on): K1 / K2 / K1b / K2b launches per
      step (36 / 36 / 34 / 35), frozen parameters bit-identical, every
      trainable one moved, bn0's and W_z_bn's running stats moved; the fp32
@@ -186,8 +217,10 @@ script exits non-zero without printing the result line):
      fc2 and norm2 among them), the fp32 gradient gate on every leaf,
      HTS-AT's included.
 
-The lines four to two before the last are JSON objects of the AVVP, AVQA
-and AVS numbers (the AVS one with the S4 step's under `s4_*`), the line
+The lines five to two before the last are JSON objects of the AVVP, AVQA
+and AVS numbers (the AVS one with the S4 step's under `s4_*`) and of the
+AVE driver's and the scv2 / Swin-V2-B flavor's (`ave_cli`,
+`ave_scv2_base`), the line
 before the last one with the per-kernel summary (AVE's launches and, beside
 them, AVVP's, AVQA's and AVS's, each kernel's error and times at AVS's
 shapes under `avs_shapes`, and K1b's and K2b's parameter gradients at the
@@ -1609,6 +1642,378 @@ def phase_train(model):
 
 
 # ---------------------------------------------------------------------------
+# The rest of AVE: the head settings and flavor presets, and the driver
+# (avmoe_tpu_torch/cli/train_ave.py) run in-process at full width
+# ---------------------------------------------------------------------------
+
+
+AVE_HEADS = ({"is_inter_in_cmbs": True}, {"is_temporal_att": False}, {"is_cmbs": False})
+
+
+def phase_ave_heads_tiny():
+    """The tiny AVE model with each head setting of the rest of AVE, card
+    (kernels) vs CPU (plain versions), float32, rtol 1e-3, atol 1e-4."""
+    import dataclasses
+
+    from avmoe_tpu_torch.config import tiny_ave_config
+    from avmoe_tpu_torch.models.ave import AVEModel
+
+    for head in AVE_HEADS:
+        cfg = dataclasses.replace(tiny_ave_config(), **head)
+        cpu = AVEModel(cfg, device="cpu", seed=0)
+        _nonzero_gates_(cpu, 1)
+        wave, imgs = _inputs(cfg, 2, 2, "cpu")
+        ref = cpu(wave, imgs)
+        gpu = AVEModel(cfg, device="cuda", seed=None)
+        gpu.load_state_dict(cpu.state_dict())
+        out = gpu(wave.cuda(), imgs.cuda())
+        keys = (("segment_probs",) if not cfg.is_cmbs
+                else ("is_event_logits", "event_logits", "av_score"))
+        worst = 0.0
+        for key in keys + ("audio_p1", "audio_p2", "video_p1", "video_p2"):
+            a = (out[key] if key in out else out["telemetry"][key]).cpu()
+            b = ref[key] if key in ref else ref["telemetry"][key]
+            worst = max(worst, (a - b).abs().max().item())
+            check(torch.allclose(a, b, rtol=1e-3, atol=1e-4),
+                  f"tiny AVE {head} {key}: card vs CPU max |d| {(a - b).abs().max().item():.3e}")
+        log(f"[ave heads] tiny AVE fp32 {head}: card (kernels) vs CPU (plain) max |d| "
+            f"{worst:.3e} over {', '.join(keys)} and the gating probs (rtol 1e-3, atol 1e-4)")
+
+
+def phase_ave_flavor():
+    """ave_flavor_config('scv2', 'base') at full width in bf16: the eval
+    forward at batch 4 with the launches of the plan and the bf16-vs-fp32
+    logits cosine; then train steps with their launches, frozen weights
+    bit-identical and every trainable one moved."""
+    from avmoe_tpu_torch.config import TrainConfig, ave_flavor_config
+    from avmoe_tpu_torch.models.ave import AVEModel, make_ave_loss_fn
+    from avmoe_tpu_torch.moe.injection import backward_launches, kernel_launches
+    from avmoe_tpu_torch.train.state import create_train_state
+    from avmoe_tpu_torch.train.steps import make_train_step
+
+    cfg, _ = ave_flavor_config("scv2", "base")
+    model = AVEModel(cfg, dtype=torch.bfloat16, device="cuda", seed=0)
+    _nonzero_gates_(model, 1)
+    wave, imgs = _inputs(cfg, BATCH, 3, "cuda")
+    fwd = kernel_launches(cfg.swin, cfg.htsat, cfg.injection, block_chains=False)
+    outs, fwd_got = _drive(model, "scv2/base default path", fwd, wave, imgs)
+    f32 = AVEModel(cfg, dtype=torch.float32, device="cuda", seed=None)
+    f32.load_state_dict(model.state_dict())
+    cos = F.cosine_similarity(_logits(outs[BATCH]), _logits(f32(wave, imgs)), dim=0).item()
+    check(cos >= 0.99, f"scv2/base: bf16 vs fp32 logits cosine {cos:.5f} < 0.99")
+    del f32
+    torch.cuda.empty_cache()
+    log(f"[ave flavor] scv2 HTS-AT (16 kHz, hop 160) + Swin-V2-B bf16 batch {BATCH}: launches "
+        f"{fwd_got} (plan {fwd}); bf16 vs fp32 logits cosine {cos:.6f} (>= 0.99)")
+    state = create_train_state(model, TrainConfig(accum_steps=1), steps_per_epoch=100)
+    step = make_train_step(make_ave_loss_fn(model, mixup_alpha=0.5))
+    batch = _train_batches(cfg, BATCH, 1, 11, "cuda")[0]
+    batch.pop("mixup_lambda")
+    want = {"K1": fwd["K1"], "K2": fwd["K2"],
+            **backward_launches(cfg.swin, cfg.htsat, cfg.injection)}
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    got, losses, n_frozen, n_moved = _checked_steps("scv2/base train", model, state, step, batch,
+                                                    gen, want, ("bn0", "moe"))
+    log(f"[ave flavor] scv2/base bf16 train steps: losses {[round(v, 5) for v in losses]}; "
+        f"{n_frozen} frozen tensors bit-identical, {n_moved} trainable tensors moved; launches "
+        f"per step {got} (plan {want})")
+    return {"eval_launches": fwd_got, "bf16_vs_f32_cosine": cos, "step_launches": got}
+
+
+class _CliProbe:
+    """What phase_ave_cli reads from inside `train_ave.main`: the driver's
+    step, eval step, checkpoint manager and loaders are wrapped (in the
+    module's namespace, for the run) to record each step's start time,
+    loss, learning rate and state, each eval batch's accuracy and expert
+    telemetry, the loader's consumer waits, and each checkpoint save's and
+    restore's time and size."""
+
+    def __init__(self, resume_from=None):
+        self.step_starts, self.losses, self.update_lrs = [], [], []
+        self.evals, self.waits, self.saves, self.restores = [], [], [], []
+        self.state = self.initial = None
+        self.resume_from = resume_from     # the CheckpointManager payload to hold the state to
+        self.resume_diff = None
+
+    def patch(self, mod):
+        probe = self
+        make_train_step, make_eval_step = mod.make_train_step, mod.make_eval_step
+        Manager, Loader = mod.CheckpointManager, mod.BatchLoader
+
+        def wrapped_train_step(loss_fn):
+            step = make_train_step(loss_fn)
+
+            def run(state, batch, gen):
+                if probe.state is None:
+                    probe.state = state
+                    probe.first_step(state)
+                probe.step_starts.append(time.perf_counter())
+                state, met = step(state, batch, gen)
+                probe.losses.append(met["loss"])
+                if state.mini_step == 0:
+                    probe.update_lrs.append([g["lr"] for g in state.optimizer.param_groups])
+                return state, met
+            return run
+
+        def wrapped_eval_step(eval_fn):
+            step = make_eval_step(eval_fn)
+
+            def run(state, batch):
+                out = step(state, batch)
+                probe.evals.append({k: v.detach().clone() for k, v in
+                                    [("accuracy", out["accuracy"]), *out["telemetry"].items()]
+                                    if torch.is_tensor(v)})
+                return out
+            return run
+
+        class TimedManager(Manager):
+            def save(self, step, state, metrics=None):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                super().save(step, state, metrics)
+                probe.saves.append((time.perf_counter() - t0, os.path.getsize(
+                    os.path.join(self.step_dir(step), "state.pt"))))
+
+            def restore(self, state, step=None, params_only=False):
+                t0 = time.perf_counter()
+                out = super().restore(state, step, params_only)
+                torch.cuda.synchronize()
+                probe.restores.append(time.perf_counter() - t0)
+                return out
+
+        class TimedLoader(Loader):
+            def __iter__(self):
+                it = super().__iter__()
+                while True:
+                    t0 = time.perf_counter()
+                    try:
+                        batch = next(it)
+                    except StopIteration:
+                        return
+                    if self.shuffle:                   # the train loader
+                        probe.waits.append(time.perf_counter() - t0)
+                    yield batch
+
+        return {"make_train_step": wrapped_train_step, "make_eval_step": wrapped_eval_step,
+                "CheckpointManager": TimedManager, "BatchLoader": TimedLoader}
+
+    def first_step(self, state):
+        self.initial = {n: p.detach().clone() for n, p in state.model.named_parameters()}
+        if self.resume_from is None:
+            return
+        saved, diff = self.resume_from, []
+        model = state.model.state_dict()
+        diff += [k for k, v in saved["model"].items() if not torch.equal(model[k], v)]
+        opt = state.optimizer.state_dict()["state"]
+        for i, s in saved["optimizer"]["state"].items():
+            diff += [f"optimizer {i} {k}" for k, v in s.items()
+                     if not torch.equal(torch.as_tensor(opt[i][k]).cpu(), v.cpu())]
+        acc = state.acc_grads or []
+        if len(acc) != len(saved["acc_grads"] or []) or not all(
+                torch.equal(a, b) for a, b in zip(acc, saved["acc_grads"] or [])):
+            diff.append("acc_grads")
+        for k in ("step", "updates", "mini_step"):
+            if getattr(state, k) != saved[k]:
+                diff.append(k)
+        self.resume_diff = diff
+
+
+def _adapter_of(name: str):
+    """The adapter module of a trainable parameter ('audio_moe_p1_0'), or None."""
+    parts = name.split(".")
+    return parts[1] if parts[0] == "encoder" and "_moe_" in parts[1] else None
+
+
+# The adapters whose expert gates stall at the AVE CLI's seeded init on the
+# card: zero gates and biases (the flax init) let SpecAugment's zeroed stripes
+# give HTS-AT all-zero patch tokens, whose LayerNorm backward multiplies the
+# gradient by 1/sqrt(eps) twice a block; the first audio sites' gates then get
+# gradients whose square overflows Adam's float32 second moment, and Adam never
+# moves them (m / sqrt(inf) = 0), nor what is behind them. Both packages agree
+# on that gradient (tests/test_torch_ave_seed_init.py). Any other stall fails.
+AVE_CLI_STALLS = frozenset({"audio_moe_p1_0", "audio_moe_p2_0"})
+
+
+def _stalled_adapters(state) -> set:
+    """The adapters one of whose expert gates has a non-finite Adam second
+    moment."""
+    out = set()
+    for n, q in state.trainable.items():
+        if n.endswith(".gate") and _adapter_of(n):
+            v = state.optimizer.state[q].get("exp_avg_sq")
+            if v is not None and not bool(torch.isfinite(v).all()):
+                out.add(_adapter_of(n))
+    return out
+
+
+@contextlib.contextmanager
+def _probed(mod, probe):
+    names = probe.patch(mod)
+    old = {k: getattr(mod, k) for k in names}
+    for k, v in names.items():
+        setattr(mod, k, v)
+    try:
+        yield probe
+    finally:
+        for k, v in old.items():
+            setattr(mod, k, v)
+
+
+def phase_ave_cli(train_step_ms: float):
+    """`avmoe_tpu_torch.cli.train_ave.main` in-process on the full AVEConfig()
+    in bf16, three times: train (2 epochs of 32 synthetic clips, batch 4,
+    accum 2: 8 micro-steps and 4 Adam updates an epoch, 2 eval batches),
+    --mode test on its checkpoints, --resume for a third epoch."""
+    import gc
+    import shutil
+    import tempfile
+
+    from avmoe_tpu_torch.checkpoint.manager import CheckpointManager
+    from avmoe_tpu_torch.cli import train_ave
+    from avmoe_tpu_torch.config import AVEConfig
+    from avmoe_tpu_torch.moe.injection import backward_launches, kernel_launches
+
+    cfg = AVEConfig()
+    lr, decay = 5e-4, 0.35
+    tmp = tempfile.mkdtemp(prefix="ave_cli_")
+    argv = ["--synthetic", "--batch_size", str(BATCH), "--accum_itr", "2", "--decay_epoch", "1",
+            "--num_workers", "4", "--lr", str(lr), "--decay", str(decay),
+            "--model_save_dir", tmp]
+    counters = _train_counters()
+    fwd = kernel_launches(cfg.swin, cfg.htsat, cfg.injection, block_chains=False)
+    bwd = backward_launches(cfg.swin, cfg.htsat, cfg.injection)
+    per_step = {"K1": fwd["K1"], "K2": fwd["K2"], **bwd}
+    per_eval = {"K1": fwd["K1"], "K2": fwd["K2"], "K1b": 0, "K2b": 0}
+    try:
+        torch.cuda.synchronize()
+        base_mem = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        for c in counters.values():
+            c.launches = 0
+        t0 = time.perf_counter()
+        with _probed(train_ave, _CliProbe()) as p:
+            best = train_ave.main(argv + ["--epochs", "2"])
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        got = {k: c.launches for k, c in counters.items()}
+        steps, evals = len(p.losses), len(p.evals)
+        train_evals = [{k: v.cpu() for k, v in e.items()} for e in p.evals]
+        check(steps == 16 and evals == 4, f"ave cli: {steps} train steps, {evals} eval batches")
+        want = {k: steps * per_step[k] + evals * per_eval[k] for k in per_step}
+        check(got == want, f"ave cli: launches over the run {got}, want {want}")
+        losses = [float(v) for v in p.losses]
+        check(all(math.isfinite(v) for v in losses), f"ave cli: losses {losses}")
+        check([len(x) for x in p.update_lrs] == [1] * 8, f"ave cli: lr groups {p.update_lrs}")
+        lrs = [x[0] for x in p.update_lrs]
+        check(all(math.isclose(v, lr, rel_tol=1e-12) for v in lrs[:4])
+              and all(math.isclose(v, lr * decay, rel_tol=1e-12) for v in lrs[4:]),
+              f"ave cli: learning rates of the updates {lrs}, want 4 x {lr} then 4 x {lr * decay}")
+        state = p.state
+        frozen = [n for n, q in state.model.named_parameters() if not q.requires_grad]
+        check(all(torch.equal(q, p.initial[n]) for n, q in state.model.named_parameters()
+                  if n in frozen), "ave cli: a frozen parameter changed")
+        stalled = _stalled_adapters(state)
+        check(stalled <= AVE_CLI_STALLS, f"ave cli: adapters stalled beyond the diagnosed "
+                                         f"{sorted(AVE_CLI_STALLS)}: {sorted(stalled)}")
+        still = [n for n, q in state.trainable.items() if torch.equal(q, p.initial[n])
+                 and _adapter_of(n) not in stalled]
+        check(not still, f"ave cli: trainable parameters unchanged: {still[:5]}")
+        n_stalled = sum(_adapter_of(n) in stalled for n in state.trainable)
+        n_frozen, n_trainable = len(frozen), len(state.trainable)
+        del state, p.state, p.initial, p.evals
+        with open(os.path.join(tmp, "best.json")) as f:
+            best_json = json.load(f)
+        kept = CheckpointManager(tmp).all_steps()
+        check(best_json["metric"] == best and best_json["step"] in kept and 1 <= len(kept) <= 3,
+              f"ave cli: best.json {best_json}, steps kept {kept}")
+        for key in ("audio_p1", "audio_p2", "video_p1", "video_p2"):
+            files = [f"expert_stats_{key}_{s}.npy" for s in
+                     ("activation_counts", "activation_fraction", "mean_gating_probs")]
+            check(all(os.path.exists(os.path.join(tmp, n)) for n in files),
+                  f"ave cli: {key} telemetry files missing")
+            probs = np.load(os.path.join(tmp, files[2]))
+            check(probs.shape == (8, 2) and bool((np.abs(probs.sum(-1) - 1.0) <= 1e-3).all()),
+                  f"ave cli: {key} mean gating probs {probs}")
+        check("jax" not in sys.modules, "ave cli: jax was imported")
+        wall = [b - a for s0 in (0, 8) for a, b in
+                zip(p.step_starts[s0 + 1: s0 + 8], p.step_starts[s0 + 2: s0 + 8])]
+        step_wall_ms = float(np.median(wall)) * 1e3
+        wait_ms = float(np.mean(p.waits)) * 1e3
+        save_s, size = p.saves[-1]
+        gc.collect()
+        torch.cuda.empty_cache()
+        left = (torch.cuda.memory_allocated() - base_mem) / 2**20
+        check(left < 64, f"ave cli: {left:.1f} MiB still allocated after main returned")
+        log(f"[ave cli] train: AVEConfig() bf16, {steps} micro-steps (accum 2), {evals} eval "
+            f"batches in {train_s:.1f} s; losses {[round(v, 4) for v in losses]}; update lrs "
+            f"{lrs}; best {best} at step {best_json['step']}, steps kept {kept}; {n_frozen} "
+            f"frozen tensors bit-identical, {n_trainable - n_stalled} trainable tensors moved, "
+            f"{n_stalled} in adapters whose gate's Adam second moment overflowed "
+            f"({sorted(stalled)}); launches "
+            f"{got} (plan {want}); {left:.1f} MiB left after main returned")
+        train_got = got
+
+        t0 = time.perf_counter()
+        with _probed(train_ave, _CliProbe()) as q:
+            for c in counters.values():
+                c.launches = 0
+            acc = train_ave.main(argv + ["--mode", "test"])
+        test_s = time.perf_counter() - t0
+        got = {k: c.launches for k, c in counters.items()}
+        check(len(q.evals) == 2 and got == {k: 2 * v for k, v in per_eval.items()},
+              f"ave cli test: {len(q.evals)} eval batches, launches {got}")
+        check(acc == best_json["metric"], f"ave cli test: accuracy {acc} vs best.json "
+              f"{best_json['metric']}")
+        # test mode restores the latest step, which is the best (saves happen
+        # only on improvement): its per-batch accuracies and expert gating
+        # probabilities must equal those of that step's evaluation in the
+        # train run, bit for bit
+        check(kept[-1] == best_json["step"], f"ave cli test: latest step {kept[-1]} is not "
+                                             f"best.json's {best_json['step']}")
+        epoch = best_json["step"] // (steps // 2)
+        ref = train_evals[2 * (epoch - 1): 2 * epoch]
+        differ = [f"batch {i} {k}" for i, (a, b) in enumerate(zip(ref, q.evals))
+                  for k in a.keys() | b.keys()
+                  if k not in a or k not in b or not torch.equal(a[k], b[k].cpu())]
+        check(not differ, f"ave cli test: eval outputs differ from epoch {epoch}'s evaluation "
+                          f"in the train run: {differ}")
+        n_compared = sum(len(a) for a in ref)
+        del q.evals
+        log(f"[ave cli] test: accuracy {acc} == best.json's {best_json['metric']}; the restored "
+            f"step {kept[-1]}'s {n_compared} per-batch accuracies and gating-probability stacks "
+            f"bit-identical to epoch {epoch}'s evaluation in the train run, in {test_s:.1f} s; "
+            f"launches {got}")
+
+        saved = CheckpointManager(tmp).load(map_location="cuda")
+        with _probed(train_ave, _CliProbe(resume_from=saved)) as r:
+            train_ave.main(argv + ["--resume", "--epochs", "3"])
+        del saved
+        restore_s = r.restores[-1]
+        check(r.resume_diff == [], f"ave cli resume: restored state differs from the saved "
+                                   f"one: {r.resume_diff}")
+        losses3 = [float(v) for v in r.losses]
+        check(len(losses3) == 8 and all(math.isfinite(v) for v in losses3),
+              f"ave cli resume: third epoch's losses {losses3}")
+        log(f"[ave cli] resume: state bit-identical to step {kept[-1]}'s checkpoint (weights, "
+            f"BN stats, Adam moments, acc_grads, step, updates); epoch 3 losses "
+            f"{[round(v, 4) for v in losses3]}")
+        log(f"[time] ave cli: median loop step wall {step_wall_ms:.2f} ms (phase_train's step "
+            f"{train_step_ms:.2f} ms); loader wait {wait_ms:.3f} ms a step; checkpoint "
+            f"{size / 1e9:.3f} GB saved in {save_s * 1e3:.1f} ms, restored in "
+            f"{restore_s * 1e3:.1f} ms; peak memory {peak:.2f} GiB")
+        return {"clips": BATCH, "accum_steps": 2, "train_steps": steps, "eval_batches": evals,
+                "loop_step_wall_ms": step_wall_ms, "phase_train_step_ms": train_step_ms,
+                "loader_wait_ms_per_step": wait_ms, "checkpoint_gb": size / 1e9,
+                "checkpoint_save_ms": save_s * 1e3, "checkpoint_restore_ms": restore_s * 1e3,
+                "peak_gib": peak, "train_run_s": train_s, "test_run_s": test_s,
+                "best_val_accuracy": best, "test_accuracy": acc, "launches": train_got,
+                "stalled_adapters": sorted(stalled)}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+# ---------------------------------------------------------------------------
 # AVVP: the MGN model (adapters in all four stages, bmm unimodal experts,
 # grouping heads)
 # ---------------------------------------------------------------------------
@@ -2704,6 +3109,11 @@ def main():
     done("AVE train")
     del model
     torch.cuda.empty_cache()
+    phase_ave_heads_tiny()
+    flavor = phase_ave_flavor()
+    torch.cuda.empty_cache()
+    ave_cli = phase_ave_cli(step_ms)
+    done("AVE heads, flavor, CLI")
     avvp_tiny_k3 = phase_avvp_tiny()
     phase_avvp_gram(gen)
     avvp, avvp_fwd_ms, avvp_prof, avvp_model = phase_avvp_full()
@@ -2789,6 +3199,7 @@ def main():
         "s4_train_idle_share": s4_train["prof"][1],
         "s4_train_idle_share_profiled": s4_train["prof"][2],
         "s4_launches_per_step": s4_train["launches"]}}))
+    log(json.dumps({"ave_cli": ave_cli, "ave_scv2_base": flavor}))
     by_K = (k3_tot["rel_by_K"], avqa_k3_tot["rel_by_K"], avs_k3_rel)
     k3_rel = {K: max(d.get(K, 0.0) for d in by_K) for K in sorted(set().union(*by_K))}
     kernels = [

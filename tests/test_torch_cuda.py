@@ -699,3 +699,70 @@ def test_cuda_block_chain_negative_pass_geometries(cuda_device, dtype, index):
         rel_plain = ((block_chain_plain(xw, ops, geom).float() - ref).abs()
                      / (1.0 + ref.abs())).max().item()
         _check(out, ref, dtype, bf16_tol=chip_smoke.k3_bf16_budget(geom, rel_plain))
+
+
+# ---------------------------------------------------------------------------
+# the rest of AVE and its driver on the card
+# ---------------------------------------------------------------------------
+
+
+class _Items:
+    def __len__(self):
+        return 10
+
+    def __getitem__(self, i):
+        return {"idx": torch.tensor([i]).numpy(), "x": torch.full((3, 5), float(i)).numpy()}
+
+
+@pytest.mark.cuda
+def test_cuda_batch_loader_copies_pinned_batches_to_the_card(cuda_device):
+    from avmoe_tpu_torch.data.loader import BatchLoader
+
+    cpu = list(BatchLoader(_Items(), 4, shuffle=True, seed=3, drop_last=False))
+    gpu = BatchLoader(_Items(), 4, shuffle=True, seed=3, drop_last=False, device=cuda_device)
+    assert gpu._collate([0, 1])["x"].is_pinned()
+    got = list(gpu)
+    assert len(got) == len(cpu) == 3
+    for a, b in zip(got, cpu):
+        for k in b:
+            assert a[k].device.type == "cuda" and a[k].dtype == b[k].dtype
+            torch.testing.assert_close(a[k].cpu(), b[k], rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("head", [{"is_inter_in_cmbs": True}, {"is_temporal_att": False},
+                                  {"is_cmbs": False}])
+def test_cuda_ave_head_settings_match_cpu(cuda_device, head):
+    import dataclasses
+
+    from avmoe_tpu_torch.config import tiny_ave_config
+    from avmoe_tpu_torch.models.ave import AVEModel
+
+    cfg = dataclasses.replace(tiny_ave_config(), **head)
+    cpu = AVEModel(cfg, device="cpu", seed=0)
+    g = torch.Generator().manual_seed(1)
+    wave = 0.1 * torch.randn(2, 2, cfg.audio_len, generator=g)
+    imgs = torch.rand(2, 2, 64, 64, 3, generator=g)
+    gpu = AVEModel(cfg, device=cuda_device, seed=None)
+    gpu.load_state_dict(cpu.state_dict())
+    ref, out = cpu(wave, imgs), gpu(wave.to(cuda_device), imgs.to(cuda_device))
+    keys = ["segment_probs"] if not cfg.is_cmbs else ["is_event_logits", "event_logits",
+                                                      "av_score"]
+    for k in keys:
+        torch.testing.assert_close(out[k].cpu(), ref[k], rtol=1e-3, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_cuda_tiny_cli_trains_tests_and_resumes(cuda_device, tmp_path):
+    import json
+
+    from avmoe_tpu_torch.cli import train_ave
+
+    argv = ["--tiny", "--synthetic", "--batch_size", "2", "--accum_itr", "2",
+            "--num_workers", "2", "--model_save_dir", str(tmp_path)]
+    best = train_ave.main(argv + ["--epochs", "1"])
+    with open(tmp_path / "best.json") as f:
+        assert json.load(f) == {"step": 8, "metric": best}
+    assert train_ave.main(argv + ["--mode", "test"]) == best
+    train_ave.main(argv + ["--resume", "--epochs", "2"])
+    assert (tmp_path / "8").is_dir()
