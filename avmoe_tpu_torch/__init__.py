@@ -13,11 +13,12 @@ front end, the HTS-AT and Swin-V2 backbones in lock-step with MoE adapters,
 the losses, metrics, freezing, the optimizer and the train step. Window
 attention, the Swin MLP sub-block (forward and backward) and chains of Swin
 blocks run as hand-written CUDA kernels (`csrc/`) on the card; on CPU
-tensors the same wrappers take their plain PyTorch versions. AVE's driver
-sits on top: the readers and the prefetching loader (`data/`), torch
-checkpoints with resume (`checkpoint/`), expert telemetry and writers
-(`telemetry/`), the epoch loop (`train/loop.py`) and the command line
-`python -m avmoe_tpu_torch.cli.train_ave`.
+tensors the same wrappers take their plain PyTorch versions. Each task's
+driver sits on top: the readers and the prefetching loader (`data/`),
+torch checkpoints with resume (`checkpoint/`), expert telemetry and writers
+(`telemetry/`), the epoch loop (`train/loop.py`) and the command lines
+`python -m avmoe_tpu_torch.cli.train_{ave,avvp,avqa,avs}` (AVQA's with its
+grounding stage, `models/avqa_grounding.py`).
 """
 
 from __future__ import annotations

@@ -4,9 +4,10 @@ Counterpart of `avmoe_tpu/backbones/htsat.py`: waveform -> log-mel ->
 per-mel-bin BatchNorm (`bn0`) -> [train: SpecAugment, mixup] -> wav2img
 frequency fold -> patch embed ->
 4 stages of Swin-V1 blocks with PatchMergingV1 downsamples, driven block
-by block by the lock-step engine (`moe/injection.py`). The encoder's
-`norm`, `tscam_conv` and `head` (standalone audio tagging) are not on the
-AVE path and are not built; `load_jax_variables` skips those leaves.
+by block by the lock-step engine (`moe/injection.py`), or all at once
+without adapters by `forward_features` (AVQA's grounding stage). The
+encoder's `norm`, `tscam_conv` and `head` (standalone audio tagging) are on
+neither path and are not built; `load_jax_variables` skips those leaves.
 """
 
 from __future__ import annotations
@@ -85,3 +86,15 @@ class HTSATEncoder(nn.Module):
         """wave -> (B, N0, embed_dim) patch tokens (lock-step entry point)."""
         return self.patch_embed(self.spectrogram_image(
             wave, train=train, mixup_lambda=mixup_lambda, generator=generator))
+
+    def forward_features(self, x: torch.Tensor, *, train: bool = False,
+                         generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """Embedded tokens (B, N0, embed_dim) -> (B, N_last, num_features):
+        every stage's blocks (K1 + K2 each), then its downsample; no adapters
+        and no final norm. In train DropPath draws from `generator`."""
+        for stage, (lo, hi) in enumerate(self.stage_ranges):
+            for blk in self.blocks[lo:hi]:
+                x = blk(x, train, generator)
+            if stage < len(self.downsamples):
+                x = self.downsamples[stage](x)
+        return x

@@ -4,13 +4,13 @@ Counterpart of `avmoe_tpu/backbones/swin_v2.py`: patch embed, 4 stages of
 post-norm V2 blocks with PatchMergingV2 downsamples, final norm. The
 lock-step engine (`moe/injection.py`) drives the blocks one by one;
 `forward_features` is the plain pass without adapters (AVQA's frozen pass
-over its negative frames), block by block (K1 + K2 each) or, with
-`chains=True`, each stage's blocks as K3 chains.
+over its negative frames, and its grounding stage's passes), block by block
+(K1 + K2 each) or, with `chains=True`, each stage's blocks as K3 chains.
 """
 
 from __future__ import annotations
 
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
 import torch
 from torch import nn
@@ -59,17 +59,21 @@ class SwinV2Encoder(nn.Module):
         """(B, H, W, 3) images -> (B, N0, embed_dim) tokens (lock-step entry point)."""
         return self.patch_embed(images.to(self.dtype))
 
-    def forward_features(self, x: torch.Tensor, *, chains: bool = False) -> torch.Tensor:
-        """The eval pass: embedded tokens (B, N0, embed_dim) -> (B, N_last,
-        num_features) after the final norm, every stage's blocks, then its
-        downsample. `chains` runs each stage as K3 chains (one per run of
-        one (window, shift), `run_chain`)."""
+    def forward_features(self, x: torch.Tensor, *, chains: bool = False, train: bool = False,
+                         generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """The pass without adapters: embedded tokens (B, N0, embed_dim) ->
+        (B, N_last, num_features) after the final norm, every stage's blocks,
+        then its downsample. `chains` runs each stage as K3 chains (one per
+        run of one (window, shift), `run_chain`; eval only). In train
+        DropPath draws from `generator`."""
+        if chains and train:
+            raise ValueError("the chain path is eval only")
         for stage, (lo, hi) in enumerate(self.stage_ranges):
             if chains:
                 x = run_chain(self.blocks[lo:hi], x, "full")
             else:
                 for blk in self.blocks[lo:hi]:
-                    x = blk(x)
+                    x = blk(x, train, generator)
             if stage < len(self.downsamples):
                 x = self.downsamples[stage](x)
         return self.norm(x)

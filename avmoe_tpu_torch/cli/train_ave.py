@@ -28,13 +28,14 @@ import torch
 
 from avmoe_tpu_torch import resolve_device
 from avmoe_tpu_torch.checkpoint.manager import CheckpointManager
+from avmoe_tpu_torch.cli import add_port_flags
 from avmoe_tpu_torch.config import ave_train_preset, mini_ave_config, replace, tiny_ave_config
 from avmoe_tpu_torch.data.ave import AVEDataset, SyntheticAVEDataset
 from avmoe_tpu_torch.data.loader import BatchLoader
 from avmoe_tpu_torch.models.ave import AVEModel, make_ave_eval_fn, make_ave_loss_fn
 from avmoe_tpu_torch.telemetry.experts import ExpertUsageTracker
 from avmoe_tpu_torch.train.freeze import param_report
-from avmoe_tpu_torch.train.loop import train_and_evaluate
+from avmoe_tpu_torch.train.loop import resume_latest, train_and_evaluate
 from avmoe_tpu_torch.train.state import create_train_state
 from avmoe_tpu_torch.train.steps import make_eval_step, make_train_step
 from avmoe_tpu_torch.utils.runtime import pipelined
@@ -67,14 +68,11 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     p.add_argument("--resume", action="store_true",
                    help="restore the latest checkpoint (full train state: weights, optimizer, "
                         "step, accumulated gradient) and continue at the next epoch")
-    p.add_argument("--bf16", action=argparse.BooleanOptionalAction, default=True,
-                   help="backbones in bfloat16 (default); --no-bf16 for float32")
     p.add_argument("--num_workers", type=int, default=8)
     p.add_argument("--precise", action="store_true",
                    help="accepted for the JAX CLI's sake: the port always computes float32 "
                         "attention logits and the erf GELU")
-    p.add_argument("--device", type=str, default="cuda",
-                   help="cuda (default; raises without a card) or cpu")
+    add_port_flags(p)
     return p.parse_args(argv)
 
 
@@ -121,12 +119,7 @@ def main(argv: Optional[Sequence[str]] = None) -> float:
     ckpts = CheckpointManager(args.model_save_dir)
     tracker = ExpertUsageTracker(cfg.moe.num_experts)
 
-    start_epoch = 1
-    if args.resume and ckpts.latest_step() is not None:
-        state = ckpts.restore(state)
-        start_epoch = state.step // max(len(train_loader), 1) + 1
-        train_loader.epoch = start_epoch - 1
-        log.info("resumed from step %d", state.step)
+    start_epoch = resume_latest(ckpts, state, train_loader) if args.resume else 1
 
     if args.mode == "test":
         state = ckpts.restore(state, params_only=True)

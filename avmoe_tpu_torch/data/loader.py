@@ -15,12 +15,13 @@ from __future__ import annotations
 import queue
 import threading
 from concurrent.futures import ThreadPoolExecutor
-from typing import Dict, Iterator, Optional
+from typing import Dict, Iterator, Union
 
 import numpy as np
 import torch
 
 _POLL_S = 0.1     # how often a blocked producer looks at the stop flag
+_NUMERIC = "biufc"   # numpy kinds that become tensors: bool, ints, floats, complex
 
 
 class BatchLoader:
@@ -66,19 +67,25 @@ class BatchLoader:
             batches = [b[lo: lo + local] for b in batches]
         return batches
 
-    def _collate(self, indices) -> Dict[str, torch.Tensor]:
+    def _collate(self, indices) -> Dict[str, Union[torch.Tensor, np.ndarray]]:
         items = [self.dataset[int(i)] for i in indices]
-        batch = {k: torch.from_numpy(np.stack([it[k] for it in items])) for k in items[0]}
-        if self.device.type == "cuda":
-            batch = {k: v.pin_memory() for k, v in batch.items()}
+        batch = {}
+        for k in items[0]:
+            arr = np.stack([it[k] for it in items])
+            if arr.dtype.kind in _NUMERIC:
+                t = torch.from_numpy(arr)
+                batch[k] = t.pin_memory() if self.device.type == "cuda" else t
+            else:
+                batch[k] = arr
         return batch
 
-    def _to_device(self, batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    def _to_device(self, batch: Dict) -> Dict:
         if self.device.type == "cpu":
             return batch
-        return {k: v.to(self.device, non_blocking=True) for k, v in batch.items()}
+        return {k: v.to(self.device, non_blocking=True) if torch.is_tensor(v) else v
+                for k, v in batch.items()}
 
-    def __iter__(self) -> Iterator[Dict[str, torch.Tensor]]:
+    def __iter__(self) -> Iterator[Dict]:
         self.epoch += 1
         batches = self._index_batches()
         q: "queue.Queue" = queue.Queue(maxsize=self.prefetch)

@@ -32,6 +32,49 @@ def _scalars(metrics) -> dict:
     return {k: float(v) for k, v in metrics.items() if np.ndim(v) == 0}
 
 
+def step_generator(seed: int, device) -> torch.Generator:
+    """The train steps' generator: on `device`, seeded from `seed`."""
+    generator = torch.Generator(device=device)
+    generator.manual_seed(seed)
+    return generator
+
+
+def resume_latest(checkpoints, state, train_loader) -> int:
+    """Restore the latest checkpoint's whole state into `state` and set the
+    train loader's epoch counter after it (its shuffle seeds follow);
+    returns the epoch to continue at (1 where there is no checkpoint)."""
+    if checkpoints.latest_step() is None:
+        return 1
+    checkpoints.restore(state)
+    start_epoch = state.step // max(len(train_loader), 1) + 1
+    train_loader.epoch = start_epoch - 1
+    log.info("resumed from step %d", state.step)
+    return start_epoch
+
+
+def train_epoch(state, train_step: Callable, train_loader, generator: torch.Generator,
+                epoch: int, log_every: int = 50):
+    """One pass over `train_loader` (any iterable of batches): a train step a
+    batch, each step's metrics read back READBACK_DEPTH steps later. Returns
+    (state, the meter of the epoch's scalar metrics)."""
+    meter = AverageMeter()
+    pending = deque()
+    drained = -1  # index of the newest step whose metrics are in the meter
+    for i, batch in enumerate(train_loader):
+        state, metrics = train_step(state, batch, generator)
+        pending.append(metrics)
+        if len(pending) > READBACK_DEPTH:
+            meter.add(**_scalars(pending.popleft()))
+            drained = i - READBACK_DEPTH
+        if i % log_every == 0 and meter.count("loss"):
+            # the average lags the dispatch frontier by the queue depth
+            log.info("epoch %d step %d loss %.4f (thru step %d)",
+                     epoch, i, meter.get("loss"), drained)
+    for m in pending:
+        meter.add(**_scalars(m))
+    return state, meter
+
+
 def train_and_evaluate(*, state, train_step: Callable, eval_step: Callable, train_loader,
                        eval_loader, epochs: int, seed: int = 0, early_stop: int = 0,
                        metric_key: str = "accuracy", checkpoints=None,
@@ -44,28 +87,14 @@ def train_and_evaluate(*, state, train_step: Callable, eval_step: Callable, trai
     `start_epoch`."""
     if device is None:
         device = next(state.model.parameters()).device
-    generator = torch.Generator(device=device)
-    generator.manual_seed(seed)
+    generator = step_generator(seed, device)
     best = -math.inf
     stall = 0
     timer = Timer()
 
     for epoch in range(start_epoch, epochs + 1):
-        meter = AverageMeter()
-        pending = deque()
-        drained = -1  # index of the newest step whose metrics are in the meter
-        for i, batch in enumerate(train_loader):
-            state, metrics = train_step(state, batch, generator)
-            pending.append(metrics)
-            if len(pending) > READBACK_DEPTH:
-                meter.add(**_scalars(pending.popleft()))
-                drained = i - READBACK_DEPTH
-            if i % log_every == 0 and meter.count("loss"):
-                # the average lags the dispatch frontier by the queue depth
-                log.info("epoch %d step %d loss %.4f (thru step %d)",
-                         epoch, i, meter.get("loss"), drained)
-        for m in pending:
-            meter.add(**_scalars(m))
+        state, meter = train_epoch(state, train_step, train_loader, generator, epoch,
+                                   log_every)
 
         eval_meter = AverageMeter()
         if expert_tracker is not None:

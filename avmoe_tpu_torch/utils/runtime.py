@@ -1,14 +1,21 @@
 """Runtime helpers shared by the port's modules.
 
 Counterpart of the device-neutral part of `avmoe_tpu/utils/runtime.py`:
-the dropout switch the train path reads (the same environment variable)
-and `pipelined`, the deferred-readback iterator of the test loop.
+the dropout switch the train path reads (the same environment variable),
+`pipelined`, the deferred-readback iterator of the test loop, and
+`archive_sources`, the snapshot of the sources a run was made with.
 """
 
 from __future__ import annotations
 
 import os
+import shutil
 from collections import deque
+from typing import Optional
+
+PACKAGE_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+# the Python modules and the CUDA sources the kernels are built from
+SOURCE_SUFFIXES = (".py", ".cu", ".cuh")
 
 
 def dropout_det(train: bool) -> bool:
@@ -34,3 +41,21 @@ def pipelined(fn, iterable, depth: int = 2):
             yield q.popleft()
     while q:
         yield q.popleft()
+
+
+def archive_sources(dst_dir: str, root: Optional[str] = None) -> int:
+    """Copy the package's sources (default: this package, `csrc/` included;
+    not the kernels' build directory) to `<dst_dir>/sources/`, keeping their
+    paths under the package. Returns the number of files copied."""
+    root = root or PACKAGE_ROOT
+    count = 0
+    for dirpath, dirnames, files in os.walk(root):
+        dirnames[:] = sorted(d for d in dirnames if d not in ("__pycache__", "_build"))
+        for f in sorted(files):
+            if f.endswith(SOURCE_SUFFIXES):
+                src = os.path.join(dirpath, f)
+                out = os.path.join(dst_dir, "sources", os.path.relpath(src, root))
+                os.makedirs(os.path.dirname(out), exist_ok=True)
+                shutil.copyfile(src, out)
+                count += 1
+    return count

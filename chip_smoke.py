@@ -20,7 +20,9 @@ both paths and its train step; then AVS, `AVSModel(AVSConfig())` (5 frames
 a clip at 224 px, adapters in all four stages with 'mha' unimodal experts,
 each stage's tokens into TPAVI and an FPN decoder to 224-px masks; MS3 with
 'token' experts), its eval forward on both paths and the MS3 and S4 train
-steps (S4 trains HTS-AT: its weights' gradients come from K1b and K2b).
+steps (S4 trains HTS-AT: its weights' gradients come from K1b and K2b);
+last the AVVP, AVQA (its grounding stage too) and AVS drivers, run
+in-process to train, test and resume at full width.
 Phases (any failed check raises, and the
 script exits non-zero without printing the result line):
 
@@ -215,12 +217,50 @@ script exits non-zero without printing the result line):
      them (every HTS-AT sub-block), Swin bit-identical, every trainable
      parameter moved (every HTS-AT block's relative-position table, fc1,
      fc2 and norm2 among them), the fp32 gradient gate on every leaf,
-     HTS-AT's included.
+     HTS-AT's included;
+ 28. the AVVP driver, `avmoe_tpu_torch.cli.train_avvp.main`, in-process on
+     the full AVVPConfig() in bf16 (--synthetic --batch_size 4 --accum_itr
+     2: 8 micro-steps an epoch, the F1 suite over 2 eval batches): 2 epochs
+     with the K1 / K2 / K1b / K2b launches of 16 steps' and 4 eval
+     forwards' plans, finite losses, frozen parameters bit-identical, every
+     trainable one moved, best.json and the 12 expert dumps; --mode test,
+     whose F1 suite equals that of the best step's evaluation in the train
+     run, all ten numbers; --resume --epochs 3, whose restored state equals
+     the latest checkpoint bit for bit; nothing of a run left allocated on
+     the card after main returns; the loop's median step beside
+     phase 19's, the loader's wait, a checkpoint's size, save and restore
+     times, the peak memory (as phase 16 reports them);
+ 29. the AVQA driver, `cli/train_avqa.py`, on the full AVQAConfig() in
+     bf16: --stage grounding for an epoch (8 micro-steps of 40 one-segment
+     samples: K1 / K2 60 / 60 a step from HTS-AT's 12 blocks and Swin-V2-L's
+     24 twice, no K1b or K2b; Swin-V2 and HTS-AT bit-identical, the heads
+     moved, bn0's running stats moved), then --stage avst --grounding_ckpt
+     from its checkpoint directory (the seven grafted heads equal the
+     grounding checkpoint's bit for bit at the first step; an epoch with
+     the per-type accuracy, launches as planned), then --resume to a
+     second epoch (the restored state bit-identical; every trainable tensor
+     moved over the two runs); stage B with SpecAugment and dropout off
+     (AVMOE_DETERMINISTIC_TRAIN=1): at the seeded init SpecAugment's stripes
+     make the first audio site NaN at the first update, in both packages'
+     math (tests/test_torch_cli_seed_init.py); times as phase 28;
+ 30. the AVS driver, `cli/train_avs.py`: S4 on the full AVSConfig() in bf16
+     for 2 epochs (4 micro-steps an epoch, HTS-AT training: K1b with dbias
+     and K2b with weight gradients 12 a step each, every HTS-AT weight
+     moved; the sources archived), --mode test --save_pred_mask (40 mask
+     PNGs; the best step's mIoU and F-measure exactly), --resume to a third
+     epoch (the 220 tensors that cannot move at the seeded init,
+     `avs_seed_init_stalls`, unchanged over the runs; the others moved are
+     counted: at the recipe's lr S4 collapses to a constant loss within a
+     few updates, tools/s4_train_curve.py); then MS3 at the tiny config in
+     float32 on the card (4 micro-steps and updates, launches as planned,
+     every trainable tensor moved but its 36 that cannot, test mode's mIoU
+     the best).
 
 The lines five to two before the last are JSON objects of the AVVP, AVQA
 and AVS numbers (the AVS one with the S4 step's under `s4_*`) and of the
-AVE driver's and the scv2 / Swin-V2-B flavor's (`ave_cli`,
-`ave_scv2_base`), the line
+AVE driver's, the scv2 / Swin-V2-B flavor's and the AVVP, AVQA and AVS
+drivers' (`ave_cli`, `ave_scv2_base`, `avvp_cli`, `avqa_cli`,
+`avs_cli`), the line
 before the last one with the per-kernel summary (AVE's launches and, beside
 them, AVVP's, AVQA's and AVS's, each kernel's error and times at AVS's
 shapes under `avs_shapes`, and K1b's and K2b's parameter gradients at the
@@ -1721,23 +1761,31 @@ def phase_ave_flavor():
 
 
 class _CliProbe:
-    """What phase_ave_cli reads from inside `train_ave.main`: the driver's
-    step, eval step, checkpoint manager and loaders are wrapped (in the
-    module's namespace, for the run) to record each step's start time,
-    loss, learning rate and state, each eval batch's accuracy and expert
-    telemetry, the loader's consumer waits, and each checkpoint save's and
-    restore's time and size."""
+    """What the CLI phases read from inside a driver's `main`: the driver's
+    step, eval step or `evaluate`, checkpoint manager and loaders are
+    wrapped (in the module's namespace, for the run) to record each step's
+    start time, loss, learning rate and state, each eval batch's accuracy
+    and expert telemetry (AVE's eval step) or each evaluation's result, the
+    eval batches, the train loader's consumer waits, and each checkpoint
+    save's and restore's time and size. At the first step it copies the
+    weights and running stats, and compares the state with `resume_from`
+    (a checkpoint payload) and the named tensors of `graft_from`."""
 
-    def __init__(self, resume_from=None):
+    def __init__(self, resume_from=None, graft_from=None):
         self.step_starts, self.losses, self.update_lrs = [], [], []
-        self.evals, self.waits, self.saves, self.restores = [], [], [], []
-        self.state = self.initial = None
+        self.evals, self.results, self.waits, self.saves, self.restores = [], [], [], [], []
+        self.eval_batches = 0
+        self.state = self.initial = self.initial_stats = None
         self.resume_from = resume_from     # the CheckpointManager payload to hold the state to
         self.resume_diff = None
+        self.graft_from = graft_from       # {name: tensor} the model must start from
+        self.graft_diff = None
 
     def patch(self, mod):
         probe = self
-        make_train_step, make_eval_step = mod.make_train_step, mod.make_eval_step
+        make_train_step = mod.make_train_step
+        make_eval_step, evaluate = getattr(mod, "make_eval_step", None), getattr(mod, "evaluate",
+                                                                                None)
         Manager, Loader = mod.CheckpointManager, mod.BatchLoader
 
         def wrapped_train_step(loss_fn):
@@ -1781,6 +1829,11 @@ class _CliProbe:
                 probe.restores.append(time.perf_counter() - t0)
                 return out
 
+        def wrapped_evaluate(*args, **kwargs):
+            out = evaluate(*args, **kwargs)
+            probe.results.append(out)
+            return out
+
         class TimedLoader(Loader):
             def __iter__(self):
                 it = super().__iter__()
@@ -1792,13 +1845,25 @@ class _CliProbe:
                         return
                     if self.shuffle:                   # the train loader
                         probe.waits.append(time.perf_counter() - t0)
+                    else:
+                        probe.eval_batches += 1
                     yield batch
 
-        return {"make_train_step": wrapped_train_step, "make_eval_step": wrapped_eval_step,
-                "CheckpointManager": TimedManager, "BatchLoader": TimedLoader}
+        names = {"make_train_step": wrapped_train_step, "CheckpointManager": TimedManager,
+                 "BatchLoader": TimedLoader}
+        if make_eval_step is not None:
+            names["make_eval_step"] = wrapped_eval_step
+        if evaluate is not None:
+            names["evaluate"] = wrapped_evaluate
+        return names
 
     def first_step(self, state):
         self.initial = {n: p.detach().clone() for n, p in state.model.named_parameters()}
+        self.initial_stats = {n: b.clone() for n, b in state.batch_stats.items()}
+        if self.graft_from is not None:
+            model = state.model.state_dict()
+            self.graft_diff = [n for n, t in self.graft_from.items()
+                               if not torch.equal(model[n], t.to(model[n].device))]
         if self.resume_from is None:
             return
         saved, diff = self.resume_from, []
@@ -1832,14 +1897,37 @@ def _adapter_of(name: str):
 # moves them (m / sqrt(inf) = 0), nor what is behind them. Both packages agree
 # on that gradient (tests/test_torch_ave_seed_init.py). Any other stall fails.
 AVE_CLI_STALLS = frozenset({"audio_moe_p1_0", "audio_moe_p2_0"})
+# The same two stall in the AVVP CLI, from its first Adam update on: while its
+# expert gates are zero the stripes' blown-up gradients stay off the first
+# site, once they are not they reach it and their square overflows
+# (tests/test_torch_cli_seed_init.py; tools/cli_seed_init_grads.py).
+AVVP_CLI_STALLS = AVE_CLI_STALLS
+
+
+def avs_seed_init_stalls(cfg, names) -> set:
+    """The trainable tensors of an AVS model that no step moves from the
+    seeded init. TPAVI's W_z_conv kernel and bias and W_z_bn's scale start at
+    zero (flax's initializers, in both packages), so W_z's output is zero
+    whatever its input: W_z_bn's scale sees a normalized input of zeros,
+    W_z_conv and the g, theta and phi products before it a zero scale, and
+    none of them gets a gradient while all stay zero. Where the masked
+    audio-visual loss is off (S4), the aligned audio and the temporal
+    attention's video branch, which only scales that audio, get none either
+    (tests/test_torch_avs_seed_init.py shows both on the CPU, in both
+    packages)."""
+    dead = r"^tpavi_b\d+\.((g|theta|phi|W_z_conv)\.|W_z_bn\.weight$)"
+    if not cfg.sa_loss_flag:
+        dead += (r"|^tpavi_b\d+\.align_channel\.|^temporal_attn\."
+                 r"(v_fc|visual_rnn|video_enc_affine|video_encoder|video_gated)_\d+\.")
+    return {n for n in names if re.search(dead, n)}
 
 
 def _stalled_adapters(state) -> set:
-    """The adapters one of whose expert gates has a non-finite Adam second
-    moment."""
+    """The adapters one of whose parameters (in AVE's case an expert gate)
+    has a non-finite Adam second moment."""
     out = set()
     for n, q in state.trainable.items():
-        if n.endswith(".gate") and _adapter_of(n):
+        if _adapter_of(n):
             v = state.optimizer.state[q].get("exp_avg_sq")
             if v is not None and not bool(torch.isfinite(v).all()):
                 out.add(_adapter_of(n))
@@ -1859,12 +1947,96 @@ def _probed(mod, probe):
             setattr(mod, k, v)
 
 
+def _cli_run(mod, argv, counters, **probe_kw):
+    """`mod.main(argv)` under a `_CliProbe`, the kernels' counters zeroed just
+    before: (main's result, the probe, the launches over the run, seconds)."""
+    for c in counters.values():
+        c.launches = 0
+    t0 = time.perf_counter()
+    with _probed(mod, _CliProbe(**probe_kw)) as p:
+        out = mod.main(argv)
+    torch.cuda.synchronize()
+    return out, p, {k: c.launches for k, c in counters.items()}, time.perf_counter() - t0
+
+
+def _run_plan(per_step, per_eval, steps: int, evals: int) -> dict:
+    return {k: steps * per_step[k] + evals * per_eval[k] for k in per_step}
+
+
+def _frozen_unchanged(label: str, state, initial) -> int:
+    """Every frozen parameter bit-identical to `initial` (the run's first
+    step's copy); returns their count."""
+    params = dict(state.model.named_parameters())
+    frozen = [n for n, q in params.items() if not q.requires_grad]
+    check(all(torch.equal(params[n], initial[n]) for n in frozen),
+          f"{label}: a frozen parameter changed")
+    return len(frozen)
+
+
+def _moved(label: str, state, start, stalls=frozenset(), still=frozenset(),
+           every: bool = True):
+    """Every trainable parameter moved from `start` but for two kinds: those
+    of the adapters in `stalls` whose Adam second moment overflowed
+    (`_stalled_adapters`), and exactly the tensors of `still`, which must all
+    stay unchanged; any other stall fails. Without `every` only the second
+    holds: the tensors of `still` unchanged. Returns (moved tensors, the
+    stalled adapters)."""
+    stalled = _stalled_adapters(state)
+    if stalled:
+        log(f"[{label}] adapters with a non-finite Adam second moment: {sorted(stalled)}")
+    check(stalled <= stalls, f"{label}: adapters stalled beyond the diagnosed {sorted(stalls)}: "
+                             f"{sorted(stalled)}")
+    unchanged = {n for n, q in state.trainable.items()
+                 if torch.equal(q, start[n].to(q.device)) and _adapter_of(n) not in stalled}
+    check(unchanged == set(still) if every else unchanged >= set(still),
+          f"{label}: trainable parameters unchanged: {sorted(unchanged - set(still))[:5]}; of "
+          f"the {len(still)} that cannot move, moved: {sorted(set(still) - unchanged)[:5]}")
+    return sum(_adapter_of(n) not in stalled and n not in unchanged
+               for n in state.trainable), stalled
+
+
+def _loop_step_ms(starts, steps_per_epoch: int) -> float:
+    """Median wall between consecutive step starts inside an epoch; each
+    epoch's first step is left out (it waits for the loader's first batch)."""
+    wall = [b - a for s0 in range(0, len(starts), steps_per_epoch)
+            for a, b in zip(starts[s0 + 1: s0 + steps_per_epoch],
+                            starts[s0 + 2: s0 + steps_per_epoch])]
+    return float(np.median(wall)) * 1e3
+
+
+def _expert_dumps(label: str, directory: str, sites: int) -> None:
+    """The 12 expert_stats_*.npy files, each mean_gating_probs row summing to 1."""
+    for key in GATING:
+        files = [f"expert_stats_{key}_{s}.npy" for s in
+                 ("activation_counts", "activation_fraction", "mean_gating_probs")]
+        check(all(os.path.exists(os.path.join(directory, n)) for n in files),
+              f"{label}: {key} telemetry files missing")
+        probs = np.load(os.path.join(directory, files[2]))
+        check(probs.shape[0] == sites and bool((np.abs(probs.sum(-1) - 1.0) <= 1e-3).all()),
+              f"{label}: {key} mean gating probs {probs}")
+
+
+def _memory_left_mib(base_mem: int) -> float:
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    return (torch.cuda.memory_allocated() - base_mem) / 2**20
+
+
+def _best_json(directory: str):
+    from avmoe_tpu_torch.checkpoint.manager import CheckpointManager
+
+    with open(os.path.join(directory, "best.json")) as f:
+        best = json.load(f)
+    return best, CheckpointManager(directory).all_steps()
+
+
 def phase_ave_cli(train_step_ms: float):
     """`avmoe_tpu_torch.cli.train_ave.main` in-process on the full AVEConfig()
     in bf16, three times: train (2 epochs of 32 synthetic clips, batch 4,
     accum 2: 8 micro-steps and 4 Adam updates an epoch, 2 eval batches),
     --mode test on its checkpoints, --resume for a third epoch."""
-    import gc
     import shutil
     import tempfile
 
@@ -1888,19 +2060,12 @@ def phase_ave_cli(train_step_ms: float):
         torch.cuda.synchronize()
         base_mem = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
-        for c in counters.values():
-            c.launches = 0
-        t0 = time.perf_counter()
-        with _probed(train_ave, _CliProbe()) as p:
-            best = train_ave.main(argv + ["--epochs", "2"])
-        torch.cuda.synchronize()
-        train_s = time.perf_counter() - t0
+        best, p, got, train_s = _cli_run(train_ave, argv + ["--epochs", "2"], counters)
         peak = torch.cuda.max_memory_allocated() / 2**30
-        got = {k: c.launches for k, c in counters.items()}
         steps, evals = len(p.losses), len(p.evals)
         train_evals = [{k: v.cpu() for k, v in e.items()} for e in p.evals]
         check(steps == 16 and evals == 4, f"ave cli: {steps} train steps, {evals} eval batches")
-        want = {k: steps * per_step[k] + evals * per_eval[k] for k in per_step}
+        want = _run_plan(per_step, per_eval, steps, evals)
         check(got == want, f"ave cli: launches over the run {got}, want {want}")
         losses = [float(v) for v in p.losses]
         check(all(math.isfinite(v) for v in losses), f"ave cli: losses {losses}")
@@ -1909,59 +2074,31 @@ def phase_ave_cli(train_step_ms: float):
         check(all(math.isclose(v, lr, rel_tol=1e-12) for v in lrs[:4])
               and all(math.isclose(v, lr * decay, rel_tol=1e-12) for v in lrs[4:]),
               f"ave cli: learning rates of the updates {lrs}, want 4 x {lr} then 4 x {lr * decay}")
-        state = p.state
-        frozen = [n for n, q in state.model.named_parameters() if not q.requires_grad]
-        check(all(torch.equal(q, p.initial[n]) for n, q in state.model.named_parameters()
-                  if n in frozen), "ave cli: a frozen parameter changed")
-        stalled = _stalled_adapters(state)
-        check(stalled <= AVE_CLI_STALLS, f"ave cli: adapters stalled beyond the diagnosed "
-                                         f"{sorted(AVE_CLI_STALLS)}: {sorted(stalled)}")
-        still = [n for n, q in state.trainable.items() if torch.equal(q, p.initial[n])
-                 and _adapter_of(n) not in stalled]
-        check(not still, f"ave cli: trainable parameters unchanged: {still[:5]}")
-        n_stalled = sum(_adapter_of(n) in stalled for n in state.trainable)
-        n_frozen, n_trainable = len(frozen), len(state.trainable)
-        del state, p.state, p.initial, p.evals
-        with open(os.path.join(tmp, "best.json")) as f:
-            best_json = json.load(f)
-        kept = CheckpointManager(tmp).all_steps()
+        n_frozen = _frozen_unchanged("ave cli", p.state, p.initial)
+        n_moved, stalled = _moved("ave cli", p.state, p.initial, AVE_CLI_STALLS)
+        n_stalled = len(p.state.trainable) - n_moved
+        del p.state, p.initial, p.evals
+        best_json, kept = _best_json(tmp)
         check(best_json["metric"] == best and best_json["step"] in kept and 1 <= len(kept) <= 3,
               f"ave cli: best.json {best_json}, steps kept {kept}")
-        for key in ("audio_p1", "audio_p2", "video_p1", "video_p2"):
-            files = [f"expert_stats_{key}_{s}.npy" for s in
-                     ("activation_counts", "activation_fraction", "mean_gating_probs")]
-            check(all(os.path.exists(os.path.join(tmp, n)) for n in files),
-                  f"ave cli: {key} telemetry files missing")
-            probs = np.load(os.path.join(tmp, files[2]))
-            check(probs.shape == (8, 2) and bool((np.abs(probs.sum(-1) - 1.0) <= 1e-3).all()),
-                  f"ave cli: {key} mean gating probs {probs}")
+        _expert_dumps("ave cli", tmp, 8)
         check("jax" not in sys.modules, "ave cli: jax was imported")
-        wall = [b - a for s0 in (0, 8) for a, b in
-                zip(p.step_starts[s0 + 1: s0 + 8], p.step_starts[s0 + 2: s0 + 8])]
-        step_wall_ms = float(np.median(wall)) * 1e3
+        step_wall_ms = _loop_step_ms(p.step_starts, 8)
         wait_ms = float(np.mean(p.waits)) * 1e3
         save_s, size = p.saves[-1]
-        gc.collect()
-        torch.cuda.empty_cache()
-        left = (torch.cuda.memory_allocated() - base_mem) / 2**20
+        left = _memory_left_mib(base_mem)
         check(left < 64, f"ave cli: {left:.1f} MiB still allocated after main returned")
         log(f"[ave cli] train: AVEConfig() bf16, {steps} micro-steps (accum 2), {evals} eval "
             f"batches in {train_s:.1f} s; losses {[round(v, 4) for v in losses]}; update lrs "
             f"{lrs}; best {best} at step {best_json['step']}, steps kept {kept}; {n_frozen} "
-            f"frozen tensors bit-identical, {n_trainable - n_stalled} trainable tensors moved, "
+            f"frozen tensors bit-identical, {n_moved} trainable tensors moved, "
             f"{n_stalled} in adapters whose gate's Adam second moment overflowed "
             f"({sorted(stalled)}); launches "
             f"{got} (plan {want}); {left:.1f} MiB left after main returned")
         train_got = got
 
-        t0 = time.perf_counter()
-        with _probed(train_ave, _CliProbe()) as q:
-            for c in counters.values():
-                c.launches = 0
-            acc = train_ave.main(argv + ["--mode", "test"])
-        test_s = time.perf_counter() - t0
-        got = {k: c.launches for k, c in counters.items()}
-        check(len(q.evals) == 2 and got == {k: 2 * v for k, v in per_eval.items()},
+        acc, q, got, test_s = _cli_run(train_ave, argv + ["--mode", "test"], counters)
+        check(len(q.evals) == 2 and got == _run_plan(per_step, per_eval, 0, 2),
               f"ave cli test: {len(q.evals)} eval batches, launches {got}")
         check(acc == best_json["metric"], f"ave cli test: accuracy {acc} vs best.json "
               f"{best_json['metric']}")
@@ -1986,8 +2123,8 @@ def phase_ave_cli(train_step_ms: float):
             f"launches {got}")
 
         saved = CheckpointManager(tmp).load(map_location="cuda")
-        with _probed(train_ave, _CliProbe(resume_from=saved)) as r:
-            train_ave.main(argv + ["--resume", "--epochs", "3"])
+        _, r, _, _ = _cli_run(train_ave, argv + ["--resume", "--epochs", "3"], counters,
+                              resume_from=saved)
         del saved
         restore_s = r.restores[-1]
         check(r.resume_diff == [], f"ave cli resume: restored state differs from the saved "
@@ -3059,6 +3196,414 @@ def phase_avs_train(s4_model, model):
     return got, step_ms, max(peak, step_peak), prof, s4_out
 
 
+# ---------------------------------------------------------------------------
+# The AVVP, AVQA and AVS drivers (cli/train_{avvp,avqa,avs}.py) in-process at
+# full width in bf16: train by epoch, evaluate, keep the best checkpoint,
+# test and resume
+# ---------------------------------------------------------------------------
+
+
+def _cli_train_report(label: str, p, got, want, steps_per_epoch: int, base_mem: int,
+                      moved: bool = True, stalls=frozenset(), still=frozenset()):
+    """The checks every CLI train run takes: the launches over the run as
+    planned, finite losses, frozen parameters bit-identical, no jax imported,
+    nothing left on the card after main returned; with `moved`, every
+    trainable tensor moved but `still` (`_moved`). Returns the
+    run's numbers (step wall, loader wait, a checkpoint's size and save time,
+    the frozen / moved counts) and, on the host, the trainable tensors'
+    values at its first step."""
+    check(got == want, f"{label}: launches over the run {got}, want {want}")
+    losses = [float(v) for v in p.losses]
+    check(losses and all(math.isfinite(v) for v in losses), f"{label}: losses {losses}")
+    n_frozen = _frozen_unchanged(label, p.state, p.initial)
+    # else held over the train and resumed runs (`_cli_resume`)
+    n_moved = _moved(label, p.state, p.initial, stalls, still)[0] if moved else None
+    check("jax" not in sys.modules, f"{label}: jax was imported")
+    save_s, size = p.saves[-1]
+    start = {n: p.initial[n].cpu() for n in p.state.trainable}
+    out = {"losses": losses, "loop_step_wall_ms": _loop_step_ms(p.step_starts, steps_per_epoch),
+           "loader_wait_ms_per_step": float(np.mean(p.waits)) * 1e3,
+           "checkpoint_gb": size / 1e9, "checkpoint_save_ms": save_s * 1e3,
+           "frozen_tensors": n_frozen, "moved_tensors": n_moved}
+    p.state = p.initial = None
+    left = _memory_left_mib(base_mem)
+    check(left < 64, f"{label}: {left:.1f} MiB still allocated after main returned")
+    return out, start
+
+
+def _cli_resume(label: str, mod, argv, counters, directory: str, steps_per_epoch: int,
+                epochs: int, start=None, stalls=frozenset(), still=frozenset(),
+                every: bool = True):
+    """`--resume` to `epochs`: the restored state equals the latest checkpoint
+    bit for bit, and the run takes the epochs after that checkpoint's with
+    finite losses and its frozen parameters bit-identical. With `start` (the
+    trainable tensors at the phase's first step), every trainable tensor has
+    moved from there over the train and resumed runs, but `still` (`_moved`,
+    `every`). Returns (its losses, the restore's ms, the moved tensors or
+    None)."""
+    from avmoe_tpu_torch.checkpoint.manager import CheckpointManager
+
+    manager = CheckpointManager(directory)
+    latest = manager.latest_step()
+    saved = manager.load(map_location="cuda")
+    _, r, _, _ = _cli_run(mod, argv, counters, resume_from=saved)
+    del saved
+    check(r.resume_diff == [], f"{label} resume: restored state differs from step {latest}'s "
+                               f"checkpoint: {r.resume_diff}")
+    losses = [float(v) for v in r.losses]
+    runs = epochs - latest // steps_per_epoch
+    check(len(losses) == runs * steps_per_epoch and all(math.isfinite(v) for v in losses),
+          f"{label} resume: from step {latest}, losses {losses}")
+    _frozen_unchanged(f"{label} resume", r.state, r.initial)
+    n_moved = None if start is None else _moved(f"{label} train and resume", r.state, start,
+                                                stalls, still, every)[0]
+    log(f"[{label}] resume: state bit-identical to step {latest}'s checkpoint (weights, BN "
+        f"stats, Adam moments, acc_grads, step, updates); epochs {epochs - runs + 1} to "
+        f"{epochs}: losses {[round(v, 4) for v in losses]}"
+        + (f"; over the train and resumed runs {n_moved} of {len(start)} trainable tensors "
+           f"moved, the {len(still)} that cannot move did not" if start is not None else ""))
+    r.state = r.initial = None
+    return losses, r.restores[-1] * 1e3, n_moved
+
+
+def phase_avvp_cli(train_step_ms: float):
+    """`avmoe_tpu_torch.cli.train_avvp.main` in-process on the full
+    AVVPConfig() in bf16: train (2 epochs of 32 synthetic clips, batch 4,
+    accum 2: 8 micro-steps an epoch, the F1 suite over 2 eval batches),
+    --mode test on its checkpoints (the F1 suite of the best step's
+    evaluation, exactly), --resume to a third epoch."""
+    import shutil
+    import tempfile
+
+    from avmoe_tpu_torch.cli import train_avvp
+    from avmoe_tpu_torch.config import AVVPConfig
+    from avmoe_tpu_torch.moe.injection import backward_launches, kernel_launches, plan_injection
+
+    cfg, spe = AVVPConfig(), 8
+    tmp = tempfile.mkdtemp(prefix="avvp_cli_")
+    argv = ["--synthetic", "--batch_size", str(BATCH), "--accum_itr", "2", "--num_workers", "4",
+            "--model_save_dir", tmp]
+    counters = _train_counters()
+    fwd = kernel_launches(cfg.swin, cfg.htsat, cfg.injection, block_chains=False)
+    per_step = {"K1": fwd["K1"], "K2": fwd["K2"],
+                **backward_launches(cfg.swin, cfg.htsat, cfg.injection)}
+    per_eval = {"K1": fwd["K1"], "K2": fwd["K2"], "K1b": 0, "K2b": 0}
+    try:
+        torch.cuda.synchronize()
+        base_mem = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        best, p, got, train_s = _cli_run(train_avvp, argv + ["--epochs", "2"], counters)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        steps, evals = len(p.losses), p.eval_batches
+        check(steps == 2 * spe and evals == 4 and len(p.results) == 2,
+              f"avvp cli: {steps} train steps, {evals} eval batches, {len(p.results)} evaluations")
+        want = _run_plan(per_step, per_eval, steps, evals)
+        res, _ = _cli_train_report("avvp cli", p, got, want, spe, base_mem,
+                                   stalls=AVVP_CLI_STALLS)
+        best_json, kept = _best_json(tmp)
+        check(best_json["metric"] == best["seg_type_avg"] and best_json["step"] in kept,
+              f"avvp cli: best.json {best_json}, best {best}, steps kept {kept}")
+        _expert_dumps("avvp cli", tmp, len(plan_injection(cfg.swin, cfg.htsat, cfg.injection)))
+        log(f"[avvp cli] train: AVVPConfig() bf16, {steps} micro-steps (accum 2), {evals} eval "
+            f"batches in {train_s:.1f} s; losses {[round(v, 4) for v in res['losses']]}; seg "
+            f"Type@Avg by epoch {[r['seg_type_avg'] for r in p.results]}; best.json "
+            f"{best_json}, steps kept {kept}; {res['frozen_tensors']} frozen tensors "
+            f"bit-identical, {res['moved_tensors']} trainable tensors moved; launches {got} "
+            f"(plan {want})")
+
+        summary, q, got_t, test_s = _cli_run(train_avvp, argv + ["--mode", "test"], counters)
+        check(got_t == _run_plan(per_step, per_eval, 0, 2), f"avvp cli test: launches {got_t}")
+        epoch = best_json["step"] // spe
+        check(kept[-1] == best_json["step"] and summary == p.results[epoch - 1],
+              f"avvp cli test: F1 suite {summary} vs epoch {epoch}'s evaluation "
+              f"{p.results[epoch - 1]}")
+        log(f"[avvp cli] test: the restored step {kept[-1]}'s F1 suite equals epoch {epoch}'s "
+            f"evaluation in the train run, all 10 numbers ({summary}), in {test_s:.1f} s; "
+            f"launches {got_t}")
+        losses3, restore_ms, _ = _cli_resume("avvp cli", train_avvp,
+                                             argv + ["--resume", "--epochs", "3"], counters,
+                                             tmp, spe, 3)
+        log(f"[time] avvp cli: median loop step wall {res['loop_step_wall_ms']:.2f} ms "
+            f"(phase_avvp_train's step {train_step_ms:.2f} ms); loader wait "
+            f"{res['loader_wait_ms_per_step']:.3f} ms a step; checkpoint "
+            f"{res['checkpoint_gb']:.3f} GB saved in {res['checkpoint_save_ms']:.1f} ms, restored "
+            f"in {restore_ms:.1f} ms; peak memory {peak:.2f} GiB")
+        return {**res, "clips": BATCH, "accum_steps": 2, "train_steps": steps,
+                "eval_batches": evals, "phase_train_step_ms": train_step_ms,
+                "checkpoint_restore_ms": restore_ms, "peak_gib": peak, "train_run_s": train_s,
+                "test_run_s": test_s, "best_seg_type_avg": best["seg_type_avg"],
+                "test_f1": summary, "launches": got, "resume_losses": losses3}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+AVQA_HEADS = ("fc_a1", "fc_a2", "fc_gl", "fc1", "fc2", "fc3", "fc4")
+
+
+def phase_avqa_cli(train_step_ms: float):
+    """`avmoe_tpu_torch.cli.train_avqa.main` in-process on the full
+    AVQAConfig() in bf16: stage A (--stage grounding, 1 epoch of 32 synthetic
+    clips, batch 4 as 40 one-segment samples, accum 2: the frozen backbones'
+    passes without gradient, HTS-AT's bn0 on batch statistics), then stage B
+    (--stage avst --grounding_ckpt, 1 epoch with the per-type accuracy over
+    2 eval batches) starting from the grafted heads, then --resume to a
+    second epoch; stage B with SpecAugment and dropout off (see below)."""
+    import shutil
+    import tempfile
+
+    from avmoe_tpu_torch.checkpoint.manager import CheckpointManager
+    from avmoe_tpu_torch.cli import train_avqa
+    from avmoe_tpu_torch.config import AVQAConfig
+    from avmoe_tpu_torch.models.avqa import avqa_kernel_launches
+    from avmoe_tpu_torch.models.avqa_grounding import grounding_kernel_launches
+    from avmoe_tpu_torch.moe.injection import backward_launches, plan_injection
+
+    cfg, spe = AVQAConfig(), 8
+    grd, avst = tempfile.mkdtemp(prefix="avqa_grd_"), tempfile.mkdtemp(prefix="avqa_avst_")
+    common = ["--synthetic", "--batch_size", str(BATCH), "--accum_itr", "2", "--num_workers",
+              "4"]
+    counters = _train_counters()
+    g_step = {**grounding_kernel_launches(cfg), "K1b": 0, "K2b": 0}
+    g_step.pop("K3")
+    fwd = avqa_kernel_launches(cfg, block_chains=False)
+    per_step = {"K1": fwd["K1"], "K2": fwd["K2"],
+                **backward_launches(cfg.swin, cfg.htsat, cfg.injection)}
+    per_eval = {"K1": fwd["K1"], "K2": fwd["K2"], "K1b": 0, "K2b": 0}
+    try:
+        torch.cuda.synchronize()
+        base_mem = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        g_best, g, got, g_s = _cli_run(
+            train_avqa, common + ["--stage", "grounding", "--epochs", "1", "--model_save_dir",
+                                  grd], counters)
+        g_peak = torch.cuda.max_memory_allocated() / 2**30
+        check(len(g.losses) == spe and g.eval_batches == 0,
+              f"avqa cli grounding: {len(g.losses)} steps, {g.eval_batches} eval batches")
+        check(set(n.split(".")[0] for n in g.state.trainable) == set(AVQA_HEADS),
+              f"avqa cli grounding: trainable {sorted(g.state.trainable)[:8]}")
+        stats = g.state.batch_stats
+        check(sorted(stats) == ["htsat.bn0.running_mean", "htsat.bn0.running_var"]
+              and all(not torch.equal(b, g.initial_stats[n]) for n, b in stats.items()),
+              f"avqa cli grounding: running stats {sorted(stats)} (bn0's must move)")
+        g_res, _ = _cli_train_report("avqa cli grounding", g, got,
+                                     _run_plan(g_step, g_step, spe, 0), spe, base_mem)
+        log(f"[avqa cli] grounding: AVQAConfig() bf16, {spe} micro-steps of {BATCH * 10} "
+            f"segments (accum 2) in {g_s:.1f} s; losses "
+            f"{[round(v, 4) for v in g_res['losses']]}; best {g_best}; "
+            f"{g_res['frozen_tensors']} frozen tensors (Swin-V2, HTS-AT) bit-identical, "
+            f"{g_res['moved_tensors']} head tensors moved, bn0's running stats moved; launches "
+            f"{got} ({g_step} a step)")
+
+        donor = CheckpointManager(grd).load(map_location="cpu")["model"]
+        heads = {n: t for n, t in donor.items() if n.split(".")[0] in AVQA_HEADS}
+        del donor
+        torch.cuda.reset_peak_memory_stats()
+        argv = common + ["--model_save_dir", avst]
+        # SpecAugment off in stage B: at the seeded init its zeroed stripes
+        # blow the first audio site's gradients up to inf by the second
+        # micro-step (no gate holds them back), in bf16 and float32, through
+        # the kernels and their plain versions alike, and the first update
+        # makes that site NaN, as it does in the JAX package's math
+        # (tests/test_torch_cli_seed_init.py; tools/cli_seed_init_grads.py)
+        with _deterministic():
+            a_best, a, got, a_s = _cli_run(train_avqa, argv + ["--epochs", "1",
+                                                               "--grounding_ckpt", grd],
+                                           counters, graft_from=heads)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        check(len(heads) == 2 * len(AVQA_HEADS) and a.graft_diff == [],
+              f"avqa cli avst: grafted heads differ from the grounding checkpoint's: "
+              f"{a.graft_diff} ({len(heads)} tensors)")
+        steps, evals = len(a.losses), a.eval_batches
+        check(steps == spe and evals == 2 and len(a.results) == 1,
+              f"avqa cli avst: {steps} steps, {evals} eval batches")
+        summary = a.results[0]
+        check(summary["overall"] == a_best and len(summary) > 1,
+              f"avqa cli avst: accuracy {summary}, best {a_best}")
+        # 4 Adam updates leave tensors behind two zero-initialized gates
+        # (the expert gate, then gate_av) unmoved: moved is held over the
+        # train and resumed runs
+        res, start = _cli_train_report("avqa cli avst", a, got,
+                                       _run_plan(per_step, per_eval, steps, evals), spe,
+                                       base_mem, moved=False)
+        _expert_dumps("avqa cli", avst, len(plan_injection(cfg.swin, cfg.htsat, cfg.injection)))
+        log(f"[avqa cli] avst: AVQAConfig() bf16 from the {len(heads)} grafted head tensors "
+            f"(bit-identical to the grounding checkpoint's), {steps} micro-steps, {evals} eval "
+            f"batches in {a_s:.1f} s; losses {[round(v, 4) for v in res['losses']]}; accuracy "
+            f"per type {summary}; {res['frozen_tensors']} frozen tensors bit-identical; "
+            f"launches {got}")
+        with _deterministic():
+            losses2, restore_ms, res["moved_tensors"] = _cli_resume(
+                "avqa cli", train_avqa, argv + ["--resume", "--epochs", "2"], counters, avst,
+                spe, 2, start=start)
+        log(f"[time] avqa cli: median loop step wall {res['loop_step_wall_ms']:.2f} ms "
+            f"(phase_avqa_train's step {train_step_ms:.2f} ms), grounding step "
+            f"{g_res['loop_step_wall_ms']:.2f} ms; loader wait "
+            f"{res['loader_wait_ms_per_step']:.3f} ms a step (grounding "
+            f"{g_res['loader_wait_ms_per_step']:.3f}); checkpoint {res['checkpoint_gb']:.3f} GB "
+            f"saved in {res['checkpoint_save_ms']:.1f} ms, restored in {restore_ms:.1f} ms "
+            f"(grounding {g_res['checkpoint_gb']:.3f} GB in {g_res['checkpoint_save_ms']:.1f} "
+            f"ms); peak memory {peak:.2f} GiB (grounding {g_peak:.2f})")
+        return {**res, "clips": BATCH, "accum_steps": 2, "train_steps": steps,
+                "eval_batches": evals, "phase_train_step_ms": train_step_ms,
+                "checkpoint_restore_ms": restore_ms, "peak_gib": peak, "train_run_s": a_s,
+                "accuracy": summary, "launches": got, "resume_losses": losses2,
+                "grounding": {k: g_res[k] for k in ("losses", "loop_step_wall_ms",
+                                                    "loader_wait_ms_per_step", "checkpoint_gb",
+                                                    "checkpoint_save_ms")}
+                | {"peak_gib": g_peak, "run_s": g_s, "launches_per_step": g_step}}
+    finally:
+        shutil.rmtree(grd, ignore_errors=True)
+        shutil.rmtree(avst, ignore_errors=True)
+
+
+@contextlib.contextmanager
+def _param_grad_launches():
+    """Counts K1b's launches with dbias and K2b's with the weight gradients
+    while it is open (the wrappers the kernels' autograd Functions call are
+    swapped for counting ones)."""
+    import avmoe_tpu_torch.kernels.mlp_block as mb
+    import avmoe_tpu_torch.kernels.window_attention as wa
+
+    counts = {"K1b dbias": 0, "K2b weights": 0}
+    k1b, k2b = wa.window_attention_bwd, mb.mlp_block_bwd
+
+    def k1b_counted(*args, **kwargs):
+        n = k1b.launches
+        out = k1b(*args, **kwargs)
+        counts["K1b dbias"] += (k1b.launches - n) * bool(kwargs.get("bias_grad"))
+        return out
+
+    def k2b_counted(*args, **kwargs):
+        n = k2b.launches
+        out = k2b(*args, **kwargs)
+        counts["K2b weights"] += (k2b.launches - n) * (kwargs.get("a1") is not None)
+        return out
+
+    wa.window_attention_bwd, mb.mlp_block_bwd = k1b_counted, k2b_counted
+    try:
+        yield counts
+    finally:
+        wa.window_attention_bwd, mb.mlp_block_bwd = k1b, k2b
+
+
+def phase_avs_cli(train_step_ms: float):
+    """`avmoe_tpu_torch.cli.train_avs.main` in-process: S4 on the full
+    AVSConfig() in bf16 (2 epochs of 16 synthetic clips, batch 4, accum 2:
+    4 micro-steps an epoch in which HTS-AT trains, 2 eval batches), --mode
+    test --save_pred_mask (a PNG a mask evaluated, the best step's mIoU and
+    F-measure exactly), --resume to a third epoch; then MS3 at the tiny
+    config on the card (its full-width step is phase_avs_train's)."""
+    import shutil
+    import tempfile
+
+    from avmoe_tpu_torch.cli import train_avs
+    from avmoe_tpu_torch.config import AVSConfig, ms3_config, tiny_avs_config
+    from avmoe_tpu_torch.models.avs import avs_backward_launches, avs_kernel_launches
+    from avmoe_tpu_torch.moe.injection import plan_injection
+
+    cfg, spe = AVSConfig(), 4
+    tmp, tiny = tempfile.mkdtemp(prefix="avs_cli_"), tempfile.mkdtemp(prefix="avs_ms3_cli_")
+    argv = ["--setting", "s4", "--synthetic", "--train_batch_size", str(BATCH), "--accum_itr",
+            "2", "--num_workers", "4", "--model_save_dir", tmp]
+    counters = _train_counters()
+    fwd = avs_kernel_launches(cfg, block_chains=False)
+    per_step = {"K1": fwd["K1"], "K2": fwd["K2"], **avs_backward_launches(cfg)}
+    per_eval = {"K1": fwd["K1"], "K2": fwd["K2"], "K1b": 0, "K2b": 0}
+    htsat_blocks = sum(cfg.htsat.depths)
+    try:
+        torch.cuda.synchronize()
+        base_mem = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        with _param_grad_launches() as grads:
+            best, p, got, train_s = _cli_run(train_avs, argv + ["--max_epoches", "2"], counters)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        steps, evals = len(p.losses), p.eval_batches
+        check(steps == 2 * spe and evals == 4 and len(p.results) == 2,
+              f"avs cli: {steps} train steps, {evals} eval batches")
+        want_grads = {"K1b dbias": steps * htsat_blocks, "K2b weights": steps * htsat_blocks}
+        check(grads == want_grads, f"avs cli: parameter-gradient launches {grads}, want "
+                                   f"{want_grads} (every HTS-AT block a step)")
+        htsat = [n for n in p.state.trainable if n.startswith("encoder.htsat.")]
+        check(len(htsat) > 0 and all(not torch.equal(p.state.trainable[n], p.initial[n])
+                                     for n in htsat), "avs cli: an HTS-AT weight did not move")
+        n_htsat = len(htsat)
+        # 4 Adam updates leave tensors behind zero-initialized gates unmoved:
+        # moved is held over the train and resumed runs
+        res, start = _cli_train_report("avs cli", p, got,
+                                       _run_plan(per_step, per_eval, steps, evals), spe,
+                                       base_mem, moved=False)
+        best_json, kept = _best_json(tmp)
+        check(best_json["metric"] == best and best_json["step"] in kept,
+              f"avs cli: best.json {best_json}, best {best}, steps kept {kept}")
+        n_sources = sum(len(f) for _, _, f in os.walk(os.path.join(tmp, "sources")))
+        check(os.path.isfile(os.path.join(tmp, "sources", "csrc", "mlp_block.cu"))
+              and os.path.isfile(os.path.join(tmp, "sources", "cli", "train_avs.py")),
+              "avs cli: the sources were not archived")
+        _expert_dumps("avs cli", tmp, len(plan_injection(cfg.swin, cfg.htsat, cfg.injection)))
+        log(f"[avs cli] train: S4 AVSConfig() bf16, HTS-AT trainable, {steps} micro-steps "
+            f"(accum 2), {evals} eval batches in {train_s:.1f} s; losses "
+            f"{[round(v, 4) for v in res['losses']]}; (mIoU, F) by epoch {p.results}; best.json "
+            f"{best_json}, steps kept {kept}; {n_sources} source files archived; "
+            f"{res['frozen_tensors']} frozen tensors bit-identical, the {n_htsat} of HTS-AT "
+            f"all moved; launches {got}, with parameter gradients {grads}")
+
+        miou, q, got_t, test_s = _cli_run(train_avs, argv + ["--mode", "test",
+                                                             "--save_pred_mask"], counters)
+        masks = sorted(os.listdir(os.path.join(tmp, "pred_masks")))
+        epoch = best_json["step"] // spe
+        check(len(masks) == 2 * BATCH * cfg.num_segments and got_t == _run_plan(
+            per_step, per_eval, 0, 2), f"avs cli test: {len(masks)} masks, launches {got_t}")
+        check(kept[-1] == best_json["step"] and miou == best_json["metric"]
+              and q.results[0] == p.results[epoch - 1],
+              f"avs cli test: (mIoU, F) {q.results[0]} vs epoch {epoch}'s {p.results[epoch - 1]}")
+        log(f"[avs cli] test: the restored step {kept[-1]}'s (mIoU, F) {q.results[0]} equal "
+            f"epoch {epoch}'s evaluation in the train run; {len(masks)} mask PNGs saved (8 clips "
+            f"x 5 frames) in {test_s:.1f} s; launches {got_t}")
+        # at the recipe's lr S4 collapses to a constant loss within a few
+        # updates (tools/s4_train_curve.py: float32 through the plain
+        # versions too), so tensors behind two zero gates may never get a
+        # gradient: HTS-AT's moving is held, and the tensors that cannot move
+        still = avs_seed_init_stalls(cfg, start)
+        losses3, restore_ms, res["moved_tensors"] = _cli_resume(
+            "avs cli", train_avs, argv + ["--resume", "--max_epoches", "3"], counters, tmp, spe,
+            3, start=start, still=still, every=False)
+
+        # MS3 at the tiny config, float32, on the card: 8 clips, 4 micro-steps
+        # and Adam updates
+        ms3 = ms3_config(tiny_avs_config())
+        margv = ["--setting", "ms3", "--tiny", "--no-bf16", "--synthetic", "--train_batch_size",
+                 "2", "--accum_itr", "1", "--num_workers", "2", "--model_save_dir", tiny]
+        m_fwd = avs_kernel_launches(ms3, block_chains=False)
+        m_step = {"K1": m_fwd["K1"], "K2": m_fwd["K2"], **avs_backward_launches(ms3)}
+        m_eval = {"K1": m_fwd["K1"], "K2": m_fwd["K2"], "K1b": 0, "K2b": 0}
+        base_mem = torch.cuda.memory_allocated()
+        m_best, m, got_m, m_s = _cli_run(train_avs, margv + ["--max_epoches", "1"], counters)
+        m_still = avs_seed_init_stalls(ms3, m.state.trainable)
+        m_res, _ = _cli_train_report("avs ms3 tiny cli", m, got_m,
+                                     _run_plan(m_step, m_eval, 4, 2), 4, base_mem, still=m_still)
+        m_test, _, _, _ = _cli_run(train_avs, margv + ["--mode", "test"], counters)
+        check(m_test == m_best, f"avs ms3 tiny cli: test mIoU {m_test} vs best {m_best}")
+        log(f"[avs cli] MS3 tiny float32 on the card: 4 micro-steps, 2 eval batches in "
+            f"{m_s:.1f} s, losses {[round(v, 4) for v in m_res['losses']]}; launches {got_m}; "
+            f"{m_res['moved_tensors']} trainable tensors moved, the {len(m_still)} that cannot "
+            f"move did not; test mIoU {m_test} == best")
+        log(f"[time] avs cli: median loop step wall {res['loop_step_wall_ms']:.2f} ms "
+            f"(phase_avs_train's S4 step {train_step_ms:.2f} ms); loader wait "
+            f"{res['loader_wait_ms_per_step']:.3f} ms a step; checkpoint "
+            f"{res['checkpoint_gb']:.3f} GB saved in {res['checkpoint_save_ms']:.1f} ms, restored "
+            f"in {restore_ms:.1f} ms; peak memory {peak:.2f} GiB")
+        return {**res, "setting": "s4", "clips": BATCH, "accum_steps": 2, "train_steps": steps,
+                "eval_batches": evals, "phase_train_step_ms": train_step_ms,
+                "checkpoint_restore_ms": restore_ms, "peak_gib": peak, "train_run_s": train_s,
+                "test_run_s": test_s, "miou_fmeasure_by_epoch": p.results,
+                "test_miou": miou, "masks_saved": len(masks), "launches": got,
+                "param_grad_launches": grads, "resume_losses": losses3,
+                "seed_init_stalled_tensors": len(still), "ms3_tiny_losses": m_res["losses"]}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        shutil.rmtree(tiny, ignore_errors=True)
+
+
 def _kernel_entry(name: str, source: str, replaces: str, launches: int, err: float, tot,
                   library_ms, **extra):
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -3142,6 +3687,14 @@ def main():
     avs_train, avs_step_ms, avs_peak, avs_step_prof, s4_train = phase_avs_train(avs_s4,
                                                                                 avs_ms3)
     done("AVS train")
+    del avs_s4, avs_ms3
+    torch.cuda.empty_cache()
+    avvp_cli = phase_avvp_cli(avvp_step_ms)
+    done("AVVP CLI")
+    avqa_cli = phase_avqa_cli(avqa_step_ms)
+    done("AVQA CLI")
+    avs_cli = phase_avs_cli(s4_train["step_ms"])
+    done("AVS CLI")
     default, chain = launches["default path"], launches["chain path"]
     log(f"[time] per batch-{BATCH} forward: K1 {k1_tot['ms']:.3f} ms over {default['K1']} calls "
         f"(bound {k1_tot['bound_ms']:.3f}), K2 {k2_tot['ms']:.3f} ms over {default['K2']} calls "
@@ -3199,7 +3752,8 @@ def main():
         "s4_train_idle_share": s4_train["prof"][1],
         "s4_train_idle_share_profiled": s4_train["prof"][2],
         "s4_launches_per_step": s4_train["launches"]}}))
-    log(json.dumps({"ave_cli": ave_cli, "ave_scv2_base": flavor}))
+    log(json.dumps({"ave_cli": ave_cli, "ave_scv2_base": flavor, "avvp_cli": avvp_cli,
+                    "avqa_cli": avqa_cli, "avs_cli": avs_cli}))
     by_K = (k3_tot["rel_by_K"], avqa_k3_tot["rel_by_K"], avs_k3_rel)
     k3_rel = {K: max(d.get(K, 0.0) for d in by_K) for K in sorted(set().union(*by_K))}
     kernels = [
