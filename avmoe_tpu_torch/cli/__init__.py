@@ -1,5 +1,6 @@
-"""Training command lines, one a task; each takes its JAX counterpart's flags
-and `add_port_flags`' two."""
+"""Command lines: training, one a task, each with its JAX counterpart's flags
+and `add_port_flags`' two; and the data-prep tools `compute_audio_stats`
+(with `--device`) and `preprocess` (host code)."""
 
 from __future__ import annotations
 

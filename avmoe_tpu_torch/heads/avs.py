@@ -129,6 +129,10 @@ class FeatureFusionBlock(nn.Module):
         super().__init__()
         if skip:
             self.res1 = ResidualConvUnit(features)
+        else:
+            # the reference builds its res1 too and never calls it; a
+            # converted checkpoint holds that subtree
+            self.flax_off_path = ("res1",)
         self.res2 = ResidualConvUnit(features)
 
     def forward(self, x: torch.Tensor, skip: Optional[torch.Tensor] = None) -> torch.Tensor:

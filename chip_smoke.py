@@ -7,7 +7,9 @@ nothing of JAX. It drives two paths of the AVE eval forward: the default
 path (K1 window attention + K2 MLP block in every Swin block) and the chain
 path, `AVEModel(cfg, block_chains=True)` (K3 block chains, K2 at the adapter
 seams); then the AVE train step on the default path (K1 and K2 forward, the
-backward kernels K1b and K2b); then the rest of AVE (its other head
+backward kernels K1b and K2b); then a reference checkpoint converted and
+loaded into the same AVE model, and the audio-statistics tool on the card
+(phases 31, 32); then the rest of AVE (its other head
 settings, the scv2 / Swin-V2-B flavor) and AVE's driver,
 `python -m avmoe_tpu_torch.cli.train_ave`, run in-process to train, test
 and resume at full width; then AVVP, `MGNModel(AVVPConfig())`
@@ -254,13 +256,29 @@ script exits non-zero without printing the result line):
      few updates, tools/s4_train_curve.py); then MS3 at the tiny config in
      float32 on the card (4 micro-steps and updates, launches as planned,
      every trainable tensor moved but its 36 that cannot, test mode's mIoU
-     the best).
+     the best);
+ 31. (after 13, on its model) a full-width MMIL_Net-layout state dict from
+     seeded noise (`tests/torch_reference_layout.py`: 24 Swin-V2-L blocks,
+     12 HTS-AT blocks, 8 sites x 4 adapters, temporal_attn.*, CMBS.*, and
+     keys of reference modules no converter reads), converted by
+     `checkpoint/convert.py` `convert_mmil_net` and loaded in place: host
+     seconds of both, the keys read and dropped, every tensor changed,
+     every Swin block's cached bf16 MLP weights current; the batch-4 eval
+     on both paths with the plan's launches, cosine >= 0.99 of the logits
+     against a float32 model of the same weights, chain vs default too;
+     then `graft_backbones` from timm- and HTS-AT-layout dicts ('sed_model.'
+     stripped): every backbone tensor changed and nothing else, the caches
+     current, the default path's cosine >= 0.99; the host's peak RSS;
+ 32. `cli/compute_audio_stats.py` over 32 synthetic 10-s packs at 16 kHz
+     (192 bins, 5.2-ms shift) on the card and with --device cpu: mean and
+     std within rtol 1e-4; the tool's wall times and fbank's frames per
+     second on the card (16 packs, float64 and float32).
 
 The lines five to two before the last are JSON objects of the AVVP, AVQA
 and AVS numbers (the AVS one with the S4 step's under `s4_*`) and of the
 AVE driver's, the scv2 / Swin-V2-B flavor's and the AVVP, AVQA and AVS
 drivers' (`ave_cli`, `ave_scv2_base`, `avvp_cli`, `avqa_cli`,
-`avs_cli`), the line
+`avs_cli`) with phases 31 and 32 (`convert`, `audio_stats`), the line
 before the last one with the per-kernel summary (AVE's launches and, beside
 them, AVVP's, AVQA's and AVS's, each kernel's error and times at AVS's
 shapes under `avs_shapes`, and K1b's and K2b's parameter gradients at the
@@ -279,6 +297,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from typing import Optional
 
 import numpy as np
 import torch
@@ -794,22 +813,22 @@ def _drive(model, label: str, want, wave, imgs):
 
 
 def _times(model, label: str, *inputs) -> float:
-    """Batch-4 throughput (3 warm-ups, 20 iterations) and batch-1 p50 of
+    """Batch-4 throughput (2 warm-ups, 10 iterations) and batch-1 p50 of
     model(*inputs), the inputs batch-first."""
     torch.cuda.reset_peak_memory_stats()
-    for _ in range(3):
+    for _ in range(2):
         model(*inputs)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    for _ in range(20):
+    for _ in range(10):
         model(*inputs)
     torch.cuda.synchronize()
-    fwd_s = (time.perf_counter() - t0) / 20
+    fwd_s = (time.perf_counter() - t0) / 10
     one = tuple(t[:1] for t in inputs)
-    for _ in range(3):
+    for _ in range(2):
         model(*one)
     lat = []
-    for _ in range(20):
+    for _ in range(10):
         torch.cuda.synchronize()
         t1 = time.perf_counter()
         model(*one)
@@ -867,12 +886,12 @@ def phase_full():
     return launches, fwd_ms, model
 
 
-def _host_summary(label: str, prof, iters: int, what: str) -> None:
+def _host_summary(label: str, prof, what: str) -> None:
     """What the host does per run in a profiled window: its CUDA runtime
     calls by name (kernel launches, copies, synchronizations) and the
     PyTorch ops with the most self CPU time (the profiler's own host work
     inflates both)."""
-    cpu = [(e.key, e.count / iters, e.self_cpu_time_total / 1e3 / iters)
+    cpu = [(e.key, e.count, e.self_cpu_time_total / 1e3)
            for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CPU]
     runtime = sorted((r for r in cpu if r[0].startswith("cu")), key=lambda r: -r[2])
     ops = sorted((r for r in cpu if not r[0].startswith("cu")), key=lambda r: -r[2])
@@ -883,24 +902,33 @@ def _host_summary(label: str, prof, iters: int, what: str) -> None:
         + ", ".join(f"{k} x{n:.0f} {ms:.2f}" for k, n, ms in ops[:14]))
 
 
-def phase_profile(label: str, run, fwd_ms: float, iters: int = 3,
-                  what: str = "forward"):
+def phase_profile(label: str, run, fwd_ms: Optional[float], what: str = "forward"):
     """Device time per `run()` (a forward or a train step) by kernel
     (torch.profiler), and the share of the wall time in which the device was
-    idle: of `fwd_ms`, the unprofiled wall time of the same work, and of the
+    idle: of `fwd_ms`, the unprofiled wall time of the same work (None: no
+    such wall; the device-side time of work that keeps the device busy is
+    no bound on the profiler's own kernel timings, ~1% longer), and of the
     profiled window, whose wall time also holds the profiler's own host work.
-    Returns (device-busy ms, idle share of fwd_ms, idle share of the profiled
-    window), all None where the profiler saw no kernels. Logs what the host
+    One run is profiled, after a traced warm-up run whose events are
+    dropped: reading the trace back costs the host ~10 s for each ~10,000
+    kernel launches, device busy repeats within a few percent from run to
+    run, and without the warm-up the kernels just after the profiler starts
+    can go unrecorded (TPAVI alone read 1.67 of ~11 ms busy).
+    Returns (device-busy ms, idle share of fwd_ms or None, idle share of the
+    profiled window), all None where the profiler saw no kernels. Logs what the host
     spent the window on (_host_summary) too."""
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1), acc_events=True) as prof:
+        run()
         torch.cuda.synchronize()
+        prof.step()
         t0 = time.perf_counter()
-        for _ in range(iters):
-            run()
+        run()
         torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) / iters * 1e3
+        wall = (time.perf_counter() - t0) * 1e3
+        prof.step()
     by_name = {}
     for e in prof.events():
         # device-side kernel and memcpy events only: the host ops that
@@ -913,13 +941,13 @@ def phase_profile(label: str, run, fwd_ms: float, iters: int = 3,
         if us is None:
             us = getattr(e, "self_cuda_time_total", 0.0)
         if us > 0:
-            by_name[e.key] = by_name.get(e.key, 0.0) + us / 1e3 / iters
+            by_name[e.key] = by_name.get(e.key, 0.0) + us / 1e3
     busy = sum(by_name.values())
     if busy == 0:
         log(f"[profile] {label}: device time not measured (the profiler saw no CUDA kernels)")
         return None, None, None
     # one stream, synchronized at both ends of each window: its kernels fit in it
-    for w in (wall, fwd_ms):
+    for w in (wall,) if fwd_ms is None else (wall, fwd_ms):
         check(busy <= w, f"{label}: device busy {busy:.3f} ms > wall {w:.3f} ms")
     # first matching group wins
     rules = (("K3 block_chain", ("block_chain_kernel",)),
@@ -935,15 +963,17 @@ def phase_profile(label: str, run, fwd_ms: float, iters: int = 3,
     for name, ms in by_name.items():
         group = next((g for g, keys in rules if any(k in name for k in keys)), "other")
         groups[group] += ms
-    log(f"[profile] {label} batch {BATCH}: device busy {busy:.2f} ms of {fwd_ms:.2f} ms wall per "
-        f"{what} (idle share {1.0 - busy / fwd_ms:.3f}; of the profiled window's {wall:.2f} ms "
-        f"{1.0 - busy / wall:.3f}); "
-        + ", ".join(f"{k} {v:.2f} ms" for k, v in groups.items()))
+    idle = None if fwd_ms is None else 1.0 - busy / fwd_ms
+    of_fwd = "" if fwd_ms is None else f"of {fwd_ms:.2f} ms wall "
+    log(f"[profile] {label} batch {BATCH}: device busy {busy:.2f} ms {of_fwd}per {what} "
+        + ("" if idle is None else f"(idle share {idle:.3f}; ")
+        + f"{'(' if idle is None else ''}of the profiled window's {wall:.2f} ms "
+        f"{1.0 - busy / wall:.3f}); " + ", ".join(f"{k} {v:.2f} ms" for k, v in groups.items()))
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
     for name, ms in top:
         log(f"[profile] {label}  {ms:8.3f} ms  {100 * ms / busy:5.1f}%  {name[:100]}")
-    _host_summary(label, prof, iters, what)
-    return busy, 1.0 - busy / fwd_ms, 1.0 - busy / wall
+    _host_summary(label, prof, what)
+    return busy, idle, 1.0 - busy / wall
 
 
 # ---------------------------------------------------------------------------
@@ -1514,26 +1544,40 @@ def _trainable_grads(model, loss_fn, batch, seed: int, cores=None):
             for (n, p), g in zip(named, grads)}
 
 
-def _leaf_cosines(a, b):
+def _cosine_sums(a, b, device="cuda"):
+    """(x . y, x . x, y . y) in float64 for each leaf of b (x from a, y from
+    b), as a (leaves, 3) CPU tensor. The sums run on `device` a leaf at a
+    time: on the host they took ~4 s for a full-width model's gradients."""
+    rows = []
+    for n in b:
+        x, y = a[n].to(device, torch.float64), b[n].to(device, torch.float64)
+        rows.append(torch.stack([torch.dot(x, y), torch.dot(x, x), torch.dot(y, y)]))
+    return torch.stack(rows).cpu()
+
+
+def _cos(xy, xx, yy) -> float:
+    """x . y / (max(|x|, 1e-8) max(|y|, 1e-8)), as F.cosine_similarity."""
+    return float(xy / (max(math.sqrt(xx), 1e-8) * max(math.sqrt(yy), 1e-8)))
+
+
+def _leaf_cosines(a, b, sums=None):
     """{leaf: cosine of a's and b's gradients}, in float64, over the leaves
     where b's rms is above 1e-5 of its largest leaf's. Below that a leaf's
     gradient is rounding (biases that a norm or a softmax right after them
     cancels, 1e-7 of the largest and less)."""
-    a, b = {n: a[n].double() for n in b}, {n: b[n].double() for n in b}
-    rms = {n: b[n].pow(2).mean().sqrt().item() for n in b}
+    s = (_cosine_sums(a, b) if sums is None else sums).tolist()
+    rms = {n: math.sqrt(s[i][2] / b[n].numel()) for i, n in enumerate(b)}
     top = max(rms.values())
-    return {n: F.cosine_similarity(a[n], b[n], dim=0).item() for n in b
-            if rms[n] > 1e-5 * top}
+    return {n: _cos(*s[i]) for i, n in enumerate(b) if rms[n] > 1e-5 * top}
 
 
 def _grad_cosines(a, b):
     """(cosine of the whole flattened gradients, the lowest per-leaf cosine
     (`_leaf_cosines`) and its leaf), in float64."""
-    leaves = _leaf_cosines(a, b)
+    sums = _cosine_sums(a, b)
+    leaves = _leaf_cosines(a, b, sums)
     worst = min(leaves, key=leaves.get)
-    whole = F.cosine_similarity(torch.cat([a[n].double() for n in b]),
-                                torch.cat([b[n].double() for n in b]), dim=0).item()
-    return whole, leaves[worst], worst
+    return _cos(*sums.sum(dim=0).tolist()), leaves[worst], worst
 
 
 def phase_train_grads(model, loss_fn, batch):
@@ -1629,13 +1673,12 @@ def _checked_steps(label: str, model, state, step, batch, gen, want, stat_keys):
 
 
 def _step_times(label: str, step, state, batch, gen):
-    """A train step's wall time (median of 5 synced steps after 2 warm-ups),
+    """A train step's wall time (median of 3 synced steps after a warm-up),
     its peak memory and a profile: (step ms, peak GiB, profile)."""
     torch.cuda.reset_peak_memory_stats()
-    for _ in range(2):
-        step(state, batch, gen)
+    step(state, batch, gen)
     times = []
-    for _ in range(5):
+    for _ in range(3):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         step(state, batch, gen)
@@ -1643,11 +1686,10 @@ def _step_times(label: str, step, state, batch, gen):
         times.append(time.perf_counter() - t0)
     step_ms = float(np.median(times)) * 1e3
     peak = torch.cuda.max_memory_allocated() / 2**30
-    log(f"[time] {label} bf16 batch {BATCH} (default path): median {step_ms:.2f} ms over 5 "
-        f"steps ({', '.join(f'{t * 1e3:.2f}' for t in times)} ms), {BATCH / step_ms * 1e3:.3f} "
+    log(f"[time] {label} bf16 batch {BATCH} (default path): median {step_ms:.2f} ms over "
+        f"3 steps ({', '.join(f'{t * 1e3:.2f}' for t in times)} ms), {BATCH / step_ms * 1e3:.3f} "
         f"clips/s; peak memory {peak:.2f} GiB")
-    prof = phase_profile(label, lambda: step(state, batch, gen), step_ms, iters=1,
-                         what="train step")
+    prof = phase_profile(label, lambda: step(state, batch, gen), step_ms, what="train step")
     return step_ms, peak, prof
 
 
@@ -1679,6 +1721,226 @@ def phase_train(model):
     phase_train_grads(model, loss_fn, batch)
     step_ms, _, _ = _step_times("train step", step, state, batch, gen)
     return got, step_ms
+
+
+# ---------------------------------------------------------------------------
+# Reference checkpoints (avmoe_tpu_torch/checkpoint/convert.py) into the full
+# AVE model, and the audio-statistics tool on the card
+# ---------------------------------------------------------------------------
+
+
+def _reference_layout():
+    """tests/torch_reference_layout.py: reference state dicts written from
+    flax-layout trees, and seeded trees (numpy only)."""
+    tests = str(Path(__file__).resolve().parent / "tests")
+    if tests not in sys.path:
+        sys.path.insert(0, tests)
+    import torch_reference_layout
+
+    return torch_reference_layout
+
+
+def _seeded_tree(module, ref, seed: int):
+    """Seeded noise in the shape of `module`'s flax tree, as numpy float32."""
+    from avmoe_tpu_torch.convert import export_jax_variables
+
+    return ref.seeded_variables(export_jax_variables(module), seed)
+
+
+def _snapshot(model):
+    return {k: v.detach().clone() for k, v in model.state_dict().items()}
+
+
+def _mlp_caches_current(model, label: str) -> int:
+    """Every Swin block's compute-dtype MLP weights, as its K2 reads them,
+    equal its weights now. Returns the blocks checked."""
+    from avmoe_tpu_torch.ops.swin import SwinBlock
+
+    blocks = [m for m in model.modules() if isinstance(m, SwinBlock)]
+    for blk in blocks:
+        w1, w2, _, _ = blk._mlp_weights(torch.bfloat16, False)
+        check(torch.equal(w1, blk.mlp.fc1.weight.to(torch.bfloat16))
+              and torch.equal(w2, blk.mlp.fc2.weight.to(torch.bfloat16)),
+              f"{label}: a block's cached MLP weights are stale")
+    return len(blocks)
+
+
+def _converted_cosines(model, f32, wave, imgs, label: str, paths) -> dict:
+    """bf16 `model` against the float32 `f32` (same weights) on each path:
+    the plan's K1 / K2 / K3 launches, finite logits, cosine >= 0.99."""
+    from avmoe_tpu_torch.moe.injection import kernel_launches
+
+    cfg = model.cfg
+    counters = _counters()
+    out, cos = {}, {}
+    for chains in paths:
+        path = "chain path" if chains else "default path"
+        model.encoder.block_chains = f32.encoder.block_chains = chains
+        for c in counters.values():
+            c.launches = 0
+        out[path] = model(wave, imgs)
+        torch.cuda.synchronize()
+        got = {k: c.launches for k, c in counters.items()}
+        want = kernel_launches(cfg.swin, cfg.htsat, cfg.injection, chains)
+        check(got == want, f"{label} {path}: launches {got}, want {want}")
+        check(bool(torch.isfinite(_logits(out[path])).all()), f"{label} {path}: logits not finite")
+        ref = f32(wave, imgs)
+        cos[path] = F.cosine_similarity(_logits(out[path]), _logits(ref), dim=0).item()
+        check(cos[path] >= 0.99, f"{label} {path}: bf16 vs fp32 logits cosine "
+                                 f"{cos[path]:.5f} < 0.99")
+        log(f"[convert] {label}, {path}: launches {got}, bf16 vs fp32 logits cosine "
+            f"{cos[path]:.6f} (>= 0.99)")
+    model.encoder.block_chains = f32.encoder.block_chains = False
+    if len(paths) == 2:
+        cos["chain vs default"] = F.cosine_similarity(
+            _logits(out["chain path"]), _logits(out["default path"]), dim=0).item()
+        check(cos["chain vs default"] >= 0.99, f"{label}: bf16 chain vs default logits cosine "
+                                              f"{cos['chain vs default']:.5f} < 0.99")
+        log(f"[convert] {label}: bf16 chain path vs default path logits cosine "
+            f"{cos['chain vs default']:.6f} (>= 0.99)")
+    return cos
+
+
+def phase_convert(model):
+    """A full-width MMIL_Net-layout state dict (24 Swin-V2-L blocks, 12
+    HTS-AT blocks, 8 sites x 4 adapters, temporal_attn.*, CMBS.*, and the
+    keys of the reference modules no converter reads), made from seeded
+    noise, converted by `convert_mmil_net` and loaded into the AVEConfig()
+    bf16 model of phase 7 in place; then timm- and HTS-AT-layout backbone
+    dicts grafted into it by `graft_backbones`. Checks: every tensor changed
+    on the load (the graft: every backbone tensor, nothing else), every Swin
+    block's cached bf16 MLP weights current, and the batch-4 eval logits
+    against a float32 model of the same weights on both paths (after the
+    graft on the default path), cosine >= 0.99, chain vs default too."""
+    import resource
+
+    from avmoe_tpu_torch.checkpoint.convert import (KeyLog, convert_mmil_net, graft_backbones,
+                                                    strip_prefix)
+    from avmoe_tpu_torch.convert import load_jax_variables
+    from avmoe_tpu_torch.models.ave import AVEModel
+
+    ref = _reference_layout()
+    cfg = model.cfg
+    t0 = time.perf_counter()
+    tree = _seeded_tree(model, ref, 21)            # the model's own seed was 0
+    sd = ref.mmil_net_state_dict(tree, dropped=True)
+    make_s = time.perf_counter() - t0
+    sd_gib = sum(v.nbytes for v in sd.values()) / 2**30
+    log(f"[convert] reference MMIL_Net state dict: {len(sd)} keys, {sd_gib:.3f} GiB, made in "
+        f"{make_s:.2f} s (host)")
+
+    wave, imgs = _inputs(cfg, BATCH, 3, "cuda")
+    model.encoder.block_chains = False
+    model(wave, imgs)                         # the bf16 MLP caches hold the old weights
+    before = _snapshot(model)
+    t0 = time.perf_counter()
+    keys = KeyLog(sd)
+    params, stats = convert_mmil_net(keys, n_sites=ref.n_sites(tree["params"]["encoder"]),
+                                     swin_depths=cfg.swin.depths, htsat_depths=cfg.htsat.depths)
+    convert_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    load_jax_variables(model, {"params": params, "batch_stats": stats})
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    dropped = keys.unread()
+    log(f"[convert] convert_mmil_net {convert_s:.3f} s, load_jax_variables {load_s:.3f} s "
+        f"(host, to the card); reference keys read {len(keys.read)}, dropped {len(dropped)} "
+        f"(e.g. {dropped[:3]})")
+    after = model.state_dict()
+    same = [k for k in after if torch.equal(after[k], before[k])]
+    check(not same, f"converted load: tensors unchanged: {same[:5]}")
+    n_blocks = _mlp_caches_current(model, "converted load")
+    log(f"[convert] all {len(after)} tensors changed on the load; {n_blocks} blocks' bf16 MLP "
+        f"weight caches current")
+    del params, stats, before
+
+    f32 = AVEModel(cfg, dtype=torch.float32, device="cuda", seed=None)
+    f32.load_state_dict(model.state_dict())
+    cos = _converted_cosines(model, f32, wave, imgs, "converted", (False, True))
+
+    t0 = time.perf_counter()
+    swin_sd = ref.swinv2_timm_state_dict(_seeded_tree(model.encoder.swin, ref, 22)["params"],
+                                         dropped=True)
+    h = _seeded_tree(model.encoder.htsat, ref, 23)
+    htsat_sd = {"sed_model." + k: v for k, v in ref.htsat_state_dict(
+        h["params"], h["batch_stats"], dropped=True).items()}
+    graft_make_s = time.perf_counter() - t0
+    before = _snapshot(model)
+    t0 = time.perf_counter()
+    graft_backbones(model, swin_sd=swin_sd, htsat_sd=strip_prefix(htsat_sd, "sed_model."))
+    torch.cuda.synchronize()
+    graft_s = time.perf_counter() - t0
+    after = model.state_dict()
+    backbone = [k for k in after if k.startswith(("encoder.swin.", "encoder.htsat."))]
+    check(backbone and all(not torch.equal(after[k], before[k]) for k in backbone),
+          "graft: a backbone tensor unchanged")
+    check(all(torch.equal(after[k], before[k]) for k in after if k not in backbone),
+          "graft: a tensor outside the backbones changed")
+    _mlp_caches_current(model, "graft")
+    log(f"[convert] graft_backbones {graft_s:.3f} s (dicts made in {graft_make_s:.2f} s): "
+        f"{len(swin_sd)} timm + {len(htsat_sd)} HTS-AT keys, all {len(backbone)} backbone "
+        f"tensors changed, the other {len(after) - len(backbone)} bit-identical")
+    f32.load_state_dict(model.state_dict())
+    cos["grafted default path"] = _converted_cosines(model, f32, wave, imgs, "grafted",
+                                                     (False,))["default path"]
+    del f32, before, after
+    torch.cuda.empty_cache()
+    rss = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20
+    log(f"[convert] host peak RSS so far {rss:.2f} GiB")
+    return {"reference_keys": len(sd), "reference_gib": sd_gib, "keys_read": len(keys.read),
+            "keys_dropped": len(dropped), "make_s": make_s, "convert_s": convert_s,
+            "load_s": load_s, "graft_s": graft_s, "host_peak_rss_gib": rss,
+            "bf16_vs_f32_cosines": cos}
+
+
+def phase_audio_stats():
+    """`cli/compute_audio_stats.py` over 32 synthetic 10-s packs at 16 kHz
+    (its defaults: 192 mel bins, a 5.2-ms shift) on the card and with
+    --device cpu: mean and std within rtol 1e-4; the tool's wall time on
+    each, and fbank alone on the card in frames per second (one batch of
+    16 packs, float64 as the tool runs it, and float32)."""
+    import shutil
+    import tempfile
+
+    from avmoe_tpu_torch.audio.kaldi import fbank
+    from avmoe_tpu_torch.cli import compute_audio_stats
+
+    tmp = tempfile.mkdtemp(prefix="audio_stats_")
+    try:
+        rng = np.random.RandomState(31)
+        t = np.arange(16_000) / 16_000.0
+        for i in range(32):
+            tone = np.sin(2 * np.pi * rng.uniform(100.0, 4000.0) * t)
+            pack = rng.uniform(0.01, 0.5) * (0.3 * rng.randn(10, 16_000) + tone)
+            np.save(os.path.join(tmp, f"clip{i:02d}.npy"), pack.astype(np.float32))
+        res, wall = {}, {}
+        for dev in ("cuda", "cpu"):
+            t0 = time.perf_counter()
+            res[dev] = compute_audio_stats.main(["--wave_dir", tmp, "--device", dev])
+            torch.cuda.synchronize()
+            wall[dev] = time.perf_counter() - t0
+        for i, what in enumerate(("mean", "std")):
+            a, b = res["cuda"][i], res["cpu"][i]
+            check(math.isfinite(a) and abs(a - b) <= 1e-4 * abs(b),
+                  f"audio stats {what}: card {a!r} vs CPU {b!r} (rtol 1e-4)")
+        files = sorted(os.listdir(tmp))[:compute_audio_stats.PACKS_PER_BATCH]
+        waves = np.stack([np.load(os.path.join(tmp, f)).reshape(-1) for f in files])
+        kw = dict(sample_frequency=16_000.0, num_mel_bins=192, frame_shift_ms=5.2)
+        rates = {}
+        for dt in (torch.float64, torch.float32):
+            x = torch.from_numpy(waves).to("cuda", dt)
+            frames = math.prod(fbank(x, **kw).shape[:2])
+            ms = time_ms(lambda: fbank(x, **kw), iters=20, warmup=3)
+            rates[str(dt).split(".")[-1]] = {"ms": ms, "frames_per_s": frames / ms * 1e3}
+        log(f"[audio stats] 32 packs of 10 s at 16 kHz: mean {res['cuda'][0]!r} std "
+            f"{res['cuda'][1]!r} on the card, {res['cpu'][0]!r} / {res['cpu'][1]!r} on the "
+            f"CPU (rtol 1e-4); tool wall time {wall['cuda']:.3f} s card, {wall['cpu']:.3f} s "
+            f"CPU; fbank of {len(files)} packs on the card: "
+            + ", ".join(f"{k} {v['ms']:.3f} ms, {v['frames_per_s']:.0f} frames/s"
+                        for k, v in rates.items()))
+        return {"card": res["cuda"], "cpu": res["cpu"], "wall_s": wall, "fbank": rates}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
 
 
 # ---------------------------------------------------------------------------
@@ -2994,7 +3256,9 @@ def _avs_tpavi_time(model, images, wave):
                 mod(*args)
 
     ms = time_ms(run, iters=10, warmup=2)
-    busy, _, _ = phase_profile("AVS TPAVI alone (4 stages)", run, ms)
+    # the device does not idle here: the events' ms is device time, not a
+    # wall that bounds the profiler's kernel timings
+    busy, _, _ = phase_profile("AVS TPAVI alone (4 stages)", run, None)
     N0 = int(np.prod(seen[0][1][0].shape[1:4]))
     log(f"[avs] TPAVI alone, its 4 calls of one batch-{images.shape[0]} forward: {ms:.3f} ms "
         f"(CUDA events), device busy {busy} ms; stage 0's float32 logits (B, N, N), N = "
@@ -3652,6 +3916,9 @@ def main():
     phase_train_tiny()
     train, step_ms = phase_train(model)
     done("AVE train")
+    convert = phase_convert(model)
+    audio_stats = phase_audio_stats()
+    done("AVE convert, audio stats")
     del model
     torch.cuda.empty_cache()
     phase_ave_heads_tiny()
@@ -3753,7 +4020,8 @@ def main():
         "s4_train_idle_share_profiled": s4_train["prof"][2],
         "s4_launches_per_step": s4_train["launches"]}}))
     log(json.dumps({"ave_cli": ave_cli, "ave_scv2_base": flavor, "avvp_cli": avvp_cli,
-                    "avqa_cli": avqa_cli, "avs_cli": avs_cli}))
+                    "avqa_cli": avqa_cli, "avs_cli": avs_cli, "convert": convert,
+                    "audio_stats": audio_stats}))
     by_K = (k3_tot["rel_by_K"], avqa_k3_tot["rel_by_K"], avs_k3_rel)
     k3_rel = {K: max(d.get(K, 0.0) for d in by_K) for K in sorted(set().union(*by_K))}
     kernels = [

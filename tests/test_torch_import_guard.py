@@ -1,6 +1,7 @@
 """The port imports no JAX: no module under avmoe_tpu_torch/, not
-chip_smoke.py and not the port's chip tools under tools/ import jax, flax,
-optax or the JAX package avmoe_tpu (avmoe_tpu_torch itself is allowed).
+chip_smoke.py, not the port's chip tools under tools/ and not the test
+helper chip_smoke.py imports import jax, flax, optax or the JAX package
+avmoe_tpu (avmoe_tpu_torch itself is allowed).
 Nor does any of them import pandas, which the card's machine lacks, or PIL
 at import time (the readers import it where they decode an image)."""
 
@@ -22,7 +23,8 @@ SOURCES = sorted((ROOT / "avmoe_tpu_torch").rglob("*.py")) + [
     ROOT / "tools" / "k2b_wgmma_variants.py", ROOT / "tools" / "k3_phase_ablation.py",
     ROOT / "tools" / "train_grad_conditioning.py", ROOT / "tools" / "frozen_backward_parent.py",
     ROOT / "tools" / "s4_grad_diagnosis.py", ROOT / "tools" / "s4_train_curve.py",
-    ROOT / "tools" / "cli_seed_init_grads.py"]
+    ROOT / "tools" / "cli_seed_init_grads.py",
+    ROOT / "tests" / "torch_reference_layout.py"]     # a test helper chip_smoke.py imports
 
 
 def _imported_roots(tree: ast.AST):
@@ -57,7 +59,9 @@ def test_sources_found():
     pkg = ROOT / "avmoe_tpu_torch"
     for mod in ("models/ave.py", "kernels/block_chain.py", "data/avvp.py", "data/avqa.py",
                 "data/avs.py", "models/avqa_grounding.py", "cli/train_avvp.py",
-                "cli/train_avqa.py", "cli/train_avs.py", "metrics/avs.py", "utils/runtime.py"):
+                "cli/train_avqa.py", "cli/train_avs.py", "metrics/avs.py", "utils/runtime.py",
+                "checkpoint/convert.py", "audio/kaldi.py", "cli/compute_audio_stats.py",
+                "cli/preprocess.py"):
         assert pkg / mod in SOURCES, mod
 
 
