@@ -6,7 +6,9 @@ keeps its JAX name and signature and maps a reference state dict ({name:
 ndarray}; `torch_state_dict_to_numpy` of a loaded checkpoint) onto the same
 nested {name: ndarray} tree as the JAX function: timm Swin-V2, HTS-AT, the
 MoE adapters and the four task models (AVE's MMIL_Net, AVVP's MGN_Net,
-AVQA's AVQA_Fusion_Net and its grounding net, AVS's Pred_endecoder).
+AVQA's AVQA_Fusion_Net and its grounding net, AVS's Pred_endecoder), and
+AVE's legacy models (MMIL_Net v1 with its DG-SCT adapters, the LAVisH
+MMIL_Net_v2).
 
 This module knows the reference's names; `avmoe_tpu_torch/convert.py` knows
 the port's tensors. `load_jax_variables` fills a port model from the trees
@@ -21,7 +23,7 @@ HTS-AT's `norm` does not in the AVE tree.
 the rest are the reference modules the converters drop.
 
 The converters of models the port does not have yet (PVT-v2, the ResNets,
-VGGish, the legacy AVE adapters) are not here.
+VGGish) are not here.
 """
 
 from __future__ import annotations
@@ -511,6 +513,136 @@ def convert_mmil_net(
     return params, {encoder_scope: ebs}
 
 
+# ------------------------------------------------- legacy AVE (MMIL v1 / v2)
+
+
+def _adapter_tail(p: Flat, bs: Flat, sd, *, num_conv_group: int, use_bn: bool,
+                  use_gate: bool, before_layernorm: bool, post_layernorm: bool) -> None:
+    """What the legacy adapters share: latent tokens, gate_av, [gate],
+    [ln_before], [ln_post] and the grouped bottleneck with [bn1, bn2]."""
+    _set(p, "latent_tokens", sd["my_tokens"])
+    _set(p, "gate_av", sd["gate_av"])
+    if use_gate:
+        _set(p, "gate", sd["gate"])
+    if before_layernorm:
+        _ln(p, sd, "ln_before", "ln_before")
+    if post_layernorm:
+        _ln(p, sd, "ln_post", "ln_post")
+    _set(p, "bottleneck/down/kernel",
+         _grouped_conv1x1(sd["down_sampler.weight"], num_conv_group))
+    _set(p, "bottleneck/up/kernel", _grouped_conv1x1(sd["up_sampler.weight"], num_conv_group))
+    if use_bn:
+        for bn in ("bn1", "bn2"):
+            _bn(p, bs, sd, bn, f"bottleneck/{bn}")
+
+
+def convert_dgsct_adapter(
+    sd: Dict[str, np.ndarray],
+    *,
+    num_conv_group: int = 2,
+    use_bn: bool = True,
+    use_gate: bool = True,
+    before_layernorm: bool = True,
+    post_layernorm: bool = True,
+) -> Tuple[Dict, Dict]:
+    """Reference VisualAdapter (MMIL_Net v1's DG-SCT adapter) -> (params,
+    batch_stats) of moe.dgsct_adapter.DGSCTAdapter. Its gate_tk, which the
+    reference's forward never reads, is dropped."""
+    p: Flat = {}
+    bs: Flat = {}
+    _set(p, "token_proj_kernel", sd["conv_adapter.weight"].reshape(
+        sd["conv_adapter.weight"].shape[:2]))
+    _set(p, "token_proj_bias", sd["conv_adapter.bias"])
+    for name in ("fc", "fc_affine_audio_1", "fc_affine_video_1", "fc_affine_bottleneck",
+                 "fc_affine_video_2", "fc_affine_audio_2", "fc_affine_v_s_att",
+                 "fc_affine_v_c_att"):
+        _dense(p, sd, name, name)
+    _adapter_tail(p, bs, sd, num_conv_group=num_conv_group, use_bn=use_bn, use_gate=use_gate,
+                  before_layernorm=before_layernorm, post_layernorm=post_layernorm)
+    return _unflatten(p), _unflatten(bs)
+
+
+def convert_lavish_adapter(
+    sd: Dict[str, np.ndarray],
+    *,
+    num_conv_group: int = 2,
+    use_bn: bool = True,
+    use_gate: bool = True,
+    before_layernorm: bool = True,
+    post_layernorm: bool = True,
+) -> Tuple[Dict, Dict]:
+    """Reference VisualAdapter_lavish -> (params, batch_stats) of
+    models.ave_legacy.LAVisHAdapter."""
+    p: Flat = {}
+    bs: Flat = {}
+    _adapter_tail(p, bs, sd, num_conv_group=num_conv_group, use_bn=use_bn, use_gate=use_gate,
+                  before_layernorm=before_layernorm, post_layernorm=post_layernorm)
+    return _unflatten(p), _unflatten(bs)
+
+
+_LEGACY_LISTS = (("audio_adapter_blocks_p1", "audio_adapter_p1"),
+                 ("vis_adapter_blocks_p1", "vis_adapter_p1"),
+                 ("audio_adapter_blocks_p2", "audio_adapter_p2"),
+                 ("vis_adapter_blocks_p2", "vis_adapter_p2"))
+
+
+def _legacy_adapters(p: Dict, bs: Dict, sd, convert, n: int, adapter_kwargs: Dict) -> None:
+    """The four adapter lists, n adapters each, into p / bs as
+    {kind}_{i}; the visual ones keep their gate (the reference builds them
+    with use_gate=True whatever the option says)."""
+    for src, dst in _LEGACY_LISTS:
+        kw = dict(adapter_kwargs)
+        if dst.startswith("vis_"):
+            kw["use_gate"] = True
+        for i in range(n):
+            ap, abs_ = convert(_scope(sd, f"{src}.{i}."), **kw)
+            p[f"{dst}_{i}"] = ap
+            if abs_:
+                bs[f"{dst}_{i}"] = abs_
+
+
+def convert_mmil_v1(
+    sd: Dict[str, np.ndarray],
+    *,
+    n_sites: int = 12,
+    swin_depths: Sequence[int] = (2, 2, 18, 2),
+    htsat_depths: Sequence[int] = (2, 2, 6, 2),
+    inter: bool = False,
+    adapter_kwargs: Optional[Dict] = None,
+) -> Tuple[Dict, Dict]:
+    """Reference MMIL_Net (v1) state_dict -> (params, batch_stats) of
+    models.ave_legacy.MMILNetV1. Its adapter_token_downsampler list, built
+    and never called, is dropped."""
+    ep: Dict = {"swin": convert_swinv2_timm(_scope(sd, "swin."), swin_depths)}
+    hp, hbs = convert_htsat(_scope(sd, "htsat."), htsat_depths)
+    ep["htsat"] = hp
+    ebs: Dict = {"htsat": hbs}
+    _legacy_adapters(ep, ebs, sd, convert_dgsct_adapter, n_sites, adapter_kwargs or {})
+    params: Dict = {"encoder": ep,
+                    "temporal_attn": convert_temporal_attention(_scope(sd, "temporal_attn.")),
+                    "cmbs": convert_cmbs(_scope(sd, "CMBS."), inter=inter)}
+    return params, {"encoder": ebs}
+
+
+def convert_mmil_v2(
+    sd: Dict[str, np.ndarray],
+    *,
+    swin_depths: Sequence[int] = (2, 2, 18, 2),
+    adapter_kwargs: Optional[Dict] = None,
+) -> Tuple[Dict, Dict]:
+    """Reference MMIL_Net_v2 (LAVisH, the Swin flavor) state_dict ->
+    (params, batch_stats) of models.ave_legacy.MMILNetV2."""
+    params: Dict = {"swin": convert_swinv2_timm(_scope(sd, "swin."), swin_depths)}
+    bs: Dict = {}
+    _legacy_adapters(params, bs, sd, convert_lavish_adapter, sum(swin_depths),
+                     adapter_kwargs or {})
+    p: Flat = {}
+    _dense(p, sd, "mlp_class", "mlp_class")
+    _dense(p, sd, "mlp_class_2", "mlp_class_2")
+    params.update(_unflatten(p))
+    return params, bs
+
+
 # ------------------------------------------------------------- the graft
 
 
@@ -519,13 +651,16 @@ def graft_backbones(model, *, swin_sd: Optional[Dict[str, np.ndarray]] = None,
     """Load a timm Swin-V2 and / or an HTS-AT state dict into the backbones
     of a built port model, in place (on whatever device it is): the task
     models' `encoder.swin` / `encoder.htsat`, or `swin` / `htsat` of a model
-    without a lock-step encoder (AVQA's grounding model). Each load is
+    without a lock-step encoder (AVQA's grounding model, the LAVisH
+    MMIL_Net_v2, whose one Swin-V2 runs both streams). Each load is
     strict within its backbone; HTS-AT's tagging tail is skipped
     (`flax_off_path`). Strip a checkpoint's 'sed_model.' prefix first
     (`strip_prefix`). Returns the model."""
     from avmoe_tpu_torch.convert import load_jax_variables
 
     host = getattr(model, "encoder", model)
+    if htsat_sd is not None and not hasattr(host, "htsat"):
+        raise ValueError(f"{type(model).__name__} has no HTS-AT backbone to graft into")
     if swin_sd is not None:
         load_jax_variables(host.swin, {"params": convert_swinv2_timm(
             swin_sd, host.swin.cfg.depths)})

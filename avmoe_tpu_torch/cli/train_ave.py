@@ -5,6 +5,10 @@ build the model, freeze the backbones, Adam + StepLR + gradient
 accumulation, then the epoch loop with evaluation, best-checkpoint saving,
 early stop and expert telemetry; `--resume` continues from the latest full
 state, `--mode test` evaluates the latest (best) checkpoint's weights.
+`--model v3` is the MoE model (`models/ave.py`); `--model v1` MMIL_Net v1
+with its DG-SCT adapters and `--model lavish` the LAVisH MMIL_Net_v2
+(`models/ave_legacy.py`), whose datasets `LAVisHView` wraps so that each
+clip's audio arrives as fbank images.
 
 It runs on the card (`--device cuda`, the default; it raises if there is
 none); `--device cpu` runs it on the CPU, through the kernels' plain
@@ -30,9 +34,12 @@ from avmoe_tpu_torch import resolve_device
 from avmoe_tpu_torch.checkpoint.manager import CheckpointManager
 from avmoe_tpu_torch.cli import add_port_flags
 from avmoe_tpu_torch.config import ave_train_preset, mini_ave_config, replace, tiny_ave_config
-from avmoe_tpu_torch.data.ave import AVEDataset, SyntheticAVEDataset
+from avmoe_tpu_torch.data.ave import AVEDataset, LAVisHView, SyntheticAVEDataset
 from avmoe_tpu_torch.data.loader import BatchLoader
 from avmoe_tpu_torch.models.ave import AVEModel, make_ave_eval_fn, make_ave_loss_fn
+from avmoe_tpu_torch.models.ave_legacy import (MMILNetV1, MMILNetV2, make_mmil_v1_eval_fn,
+                                               make_mmil_v1_loss_fn, make_mmil_v2_eval_fn,
+                                               make_mmil_v2_loss_fn)
 from avmoe_tpu_torch.telemetry.experts import ExpertUsageTracker
 from avmoe_tpu_torch.train.freeze import param_report
 from avmoe_tpu_torch.train.loop import resume_latest, train_and_evaluate
@@ -46,8 +53,8 @@ log = logging.getLogger("avmoe_tpu_torch")
 def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     p = argparse.ArgumentParser()
     p.add_argument("--model", choices=["v3", "v1", "lavish"], default="v3",
-                   help="v3: the MoE model; v1 (DG-SCT MMIL_Net) and lavish (MMIL_Net_v2) "
-                        "are not ported yet")
+                   help="v3: the MoE model; v1: the DG-SCT MMIL_Net; lavish: the "
+                        "shared-backbone MMIL_Net_v2")
     p.add_argument("--mode", choices=["train", "test"], default="train",
                    help="test = restore the latest checkpoint's weights and evaluate")
     p.add_argument("--data_root", type=str, default=None)
@@ -76,14 +83,18 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     return p.parse_args(argv)
 
 
+def _model_kit(name: str):
+    """(model class, loss closure maker, eval closure maker) of `--model`."""
+    return {"v3": (AVEModel, make_ave_loss_fn, make_ave_eval_fn),
+            "v1": (MMILNetV1, make_mmil_v1_loss_fn, make_mmil_v1_eval_fn),
+            "lavish": (MMILNetV2, make_mmil_v2_loss_fn, make_mmil_v2_eval_fn)}[name]
+
+
 def main(argv: Optional[Sequence[str]] = None) -> float:
     """Run the driver; returns the best validation accuracy (train) or the
     test accuracy (--mode test)."""
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(message)s", force=True)
     args = parse_args(argv)
-    if args.model != "v3":
-        raise NotImplementedError(
-            f"--model {args.model} is not ported yet (ROADMAP.md A15); use --model v3")
     dev = resolve_device(args.device)
     if args.precise:
         log.info("--precise: the port always runs float32 attention logits and the erf GELU")
@@ -102,20 +113,27 @@ def main(argv: Optional[Sequence[str]] = None) -> float:
     else:
         train_ds = AVEDataset(args.data_root, "train", img_size=cfg.swin.img_size)
         val_ds = AVEDataset(args.data_root, "test", img_size=cfg.swin.img_size)
+    if args.model == "lavish":
+        # the fbank images' side is the Swin input size
+        view = dict(sample_rate=cfg.htsat.frontend.sample_rate, size=cfg.swin.img_size)
+        train_ds, val_ds = LAVisHView(train_ds, **view), LAVisHView(val_ds, **view)
 
     train_loader = BatchLoader(train_ds, tcfg.batch_size, shuffle=True,
                                num_workers=args.num_workers, seed=tcfg.seed, device=dev)
     val_loader = BatchLoader(val_ds, tcfg.batch_size, shuffle=False, drop_last=False,
                              num_workers=args.num_workers, device=dev)
 
-    model = AVEModel(cfg, dtype=getattr(torch, tcfg.dtype), device=dev, seed=tcfg.seed)
+    Model, make_loss_fn, make_eval_fn = _model_kit(args.model)
+    model = Model(cfg, dtype=getattr(torch, tcfg.dtype), device=dev, seed=tcfg.seed)
     report = param_report(model)
     log.info("params: trainable %.4f%% additional %.4f%% total %.1fM",
              report["trainable_pct"], report["additional_pct"], report["total"] / 1e6)
 
     state = create_train_state(model, tcfg, steps_per_epoch=len(train_loader))
-    train_step = make_train_step(make_ave_loss_fn(model, mixup_alpha=tcfg.mixup_alpha))
-    eval_step = make_eval_step(make_ave_eval_fn(model))
+    loss_fn = (make_loss_fn(model) if args.model == "lavish"
+               else make_loss_fn(model, mixup_alpha=tcfg.mixup_alpha))
+    train_step = make_train_step(loss_fn)
+    eval_step = make_eval_step(make_eval_fn(model))
     ckpts = CheckpointManager(args.model_save_dir)
     tracker = ExpertUsageTracker(cfg.moe.num_experts)
 

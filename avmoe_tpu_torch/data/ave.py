@@ -11,6 +11,11 @@ Counterpart of `avmoe_tpu/data/ave.py`, reading the same on-disk layout:
 `SyntheticAVEDataset` makes random data of the same schema, seeded per
 index. Both yield dicts of numpy arrays, bit-identical to the JAX package's
 for the same index and seed. h5py is imported by `AVEDataset` only.
+
+`LAVisHView` wraps either for the LAVisH baseline (MMIL_Net_v2): its
+'wave' becomes 'audio_spec', the segments' normalized Kaldi-fbank images
+(`wave_to_lavish_spec`), made on the host in float64 by the loader's
+workers.
 """
 
 from __future__ import annotations
@@ -19,7 +24,9 @@ import os
 from typing import Dict, List
 
 import numpy as np
+import torch
 
+from avmoe_tpu_torch.audio.kaldi import fbank
 from avmoe_tpu_torch.data.transforms import load_image, pad_or_trim_wave
 
 
@@ -110,3 +117,46 @@ class SyntheticAVEDataset:
                     wave[t] += tone
                     images[t, :sz, :sz] = (r, g, 1.0)
         return {"wave": wave, "images": images, "labels": labels}
+
+
+# ----------------------------------------------------- LAVisH (MMIL_Net_v2)
+
+# AVE's fbank normalization statistics for the 192-bin Swin input
+LAVISH_NORM_MEAN = -4.984795570373535
+LAVISH_NORM_STD = 3.7079780101776123
+
+
+def wave_to_lavish_spec(wave: np.ndarray, *, sample_rate: int = 16_000, size: int = 192,
+                        frame_shift_ms: float = 5.2, norm_mean: float = LAVISH_NORM_MEAN,
+                        norm_std: float = LAVISH_NORM_STD) -> np.ndarray:
+    """(T, L) waveform segments -> (T, size, size) float32 fbank images: all
+    T segments through one float64 Kaldi fbank call (`size` mel bins, a
+    5.2-ms shift, hanning window), (x - mean) / (2 std), zero-padded or cut
+    to `size` frames."""
+    fb = fbank(torch.from_numpy(np.asarray(wave, np.float64).reshape(wave.shape[0], -1)),
+               sample_frequency=sample_rate, frame_shift_ms=frame_shift_ms,
+               num_mel_bins=size, window_type="hanning").numpy()
+    fb = (fb - norm_mean) / (norm_std * 2.0)
+    out = np.zeros((wave.shape[0], size, size), np.float32)
+    n = min(size, fb.shape[1])
+    out[:, :n] = fb[:, :n]
+    return out
+
+
+class LAVisHView:
+    """An AVE-shaped dataset with 'wave' replaced by the LAVisH 'audio_spec'
+    fbank images (the MMIL_Net_v2 input)."""
+
+    def __init__(self, base, *, sample_rate: int = 16_000, size: int = 192):
+        self.base = base
+        self.sample_rate = sample_rate
+        self.size = size
+
+    def __len__(self) -> int:
+        return len(self.base)
+
+    def __getitem__(self, idx: int) -> Dict[str, np.ndarray]:
+        item = dict(self.base[idx])
+        item["audio_spec"] = wave_to_lavish_spec(item.pop("wave"),
+                                                 sample_rate=self.sample_rate, size=self.size)
+        return item

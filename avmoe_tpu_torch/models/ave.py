@@ -189,8 +189,10 @@ def init_parameters(model: nn.Module, gen: torch.Generator) -> None:
                 _lecun_(p, p.shape[0], gen)
             elif isinstance(mod, WindowAttentionV2) and name == "logit_scale":
                 p.fill_(math.log(10.0))
-            elif isinstance(mod, MoEAdapter) and name in ("token_proj_kernel", "fc_kernel"):
-                _lecun_(p, p.shape[1] if name == "token_proj_kernel" else p.shape[0], gen)
+            elif name == "token_proj_kernel":   # (N, M): the MoE and DG-SCT adapters'
+                _lecun_(p, p.shape[1], gen)
+            elif isinstance(mod, MoEAdapter) and name == "fc_kernel":
+                _lecun_(p, p.shape[0], gen)
             elif name == "latent_tokens":
                 p.uniform_(0.0, 1.0, generator=gen)
             else:  # biases, gates, gate_av

@@ -32,28 +32,34 @@ def _per_expert(p: torch.Tensor, ndim: int) -> torch.Tensor:
 
 class GroupedDense(nn.Module):
     """Grouped 1x1 projection over the channel axis (block-diagonal matmul),
-    stacked over E experts: kernel (E, g, in/g, out/g), input (E, ..., in)."""
+    stacked over E experts: kernel (E, g, in/g, out/g), input (E, ..., in).
+    With num=None it is one unstacked projection, kernel (g, in/g, out/g)
+    over any (..., in), as the single adapters of the legacy AVE models
+    store it."""
 
-    def __init__(self, in_dim: int, features: int, num_groups: int, num: int):
+    def __init__(self, in_dim: int, features: int, num_groups: int, num: Optional[int]):
         super().__init__()
         g = num_groups
         if in_dim % g or features % g:
             raise ValueError(f"GroupedDense: {in_dim} -> {features} not divisible by {g} groups")
         self.num_groups = g
         self.features = features
-        self.kernel = nn.Parameter(torch.zeros(num, g, in_dim // g, features // g))
+        lead = () if num is None else (num,)
+        self.kernel = nn.Parameter(torch.zeros(*lead, g, in_dim // g, features // g))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         g = self.num_groups
         xg = x.reshape(*x.shape[:-1], g, x.shape[-1] // g)
-        out = torch.einsum("e...gi,egio->e...go", xg, self.kernel.to(x.dtype))
+        spec = "...gi,gio->...go" if self.kernel.dim() == 3 else "e...gi,egio->e...go"
+        out = torch.einsum(spec, xg, self.kernel.to(x.dtype))
         return out.reshape(*x.shape[:-1], self.features)
 
 
 class _Bottleneck(nn.Module):
-    """down -> BN -> [ReLU] -> up -> BN, stacked over E experts."""
+    """down -> BN -> [ReLU] -> up -> BN, stacked over E experts (unstacked
+    with num=None)."""
 
-    def __init__(self, dim: int, cfg: AdapterConfig, use_activation: bool, num: int):
+    def __init__(self, dim: int, cfg: AdapterConfig, use_activation: bool, num: Optional[int]):
         super().__init__()
         hidden = max(dim // cfg.downsample, cfg.num_conv_group)
         self.use_activation = use_activation
@@ -61,8 +67,9 @@ class _Bottleneck(nn.Module):
         self.up = GroupedDense(hidden, dim, cfg.num_conv_group, num)
         self.use_bn = cfg.use_bn
         if cfg.use_bn:
-            self.bn1 = BatchNorm(hidden, stack=(num,))
-            self.bn2 = BatchNorm(dim, stack=(num,))
+            stack = () if num is None else (num,)
+            self.bn1 = BatchNorm(hidden, stack=stack)
+            self.bn2 = BatchNorm(dim, stack=stack)
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         z = self.down(x)
@@ -264,6 +271,23 @@ class UnimodalExpert(_Expert):
         return self._tail(xe, train)
 
 
+def project_tokens(other: torch.Tensor, tk: torch.Tensor, tb: torch.Tensor,
+                   fk: torch.Tensor, fb: torch.Tensor) -> torch.Tensor:
+    """The other modality in this one's shape, in other's dtype: (B, M,
+    C_other) through the token-axis dense tk (N, M) with bias tb (N,), then
+    the channel dense fk (C_other, C) with bias fb (C,), -> (B, N, C). The
+    two products commute, so the cheaper order is taken, and the token bias
+    is folded through fk's column sums."""
+    dt = other.dtype
+    tkd, fkd = tk.to(dt), fk.to(dt)
+    if fk.shape[1] < fk.shape[0]:
+        proj = torch.matmul(tkd, other @ fkd)
+    else:
+        proj = torch.matmul(tkd, other) @ fkd
+    folded = tb[:, None] * fk.sum(dim=0)[None, :] + fb[None, :]
+    return proj + folded.to(dt)[None]
+
+
 def router_noise(shape, generator: Optional[torch.Generator], device) -> torch.Tensor:
     """Standard normal router-logit noise of `shape`, drawn from `generator`."""
     if generator is None:
@@ -309,16 +333,8 @@ class MoEAdapter(nn.Module):
 
     def project_other(self, other: torch.Tensor) -> torch.Tensor:
         """(B, M, C_other) -> (B, N, C)."""
-        dt = other.dtype
-        tk = self.token_proj_kernel.to(dt)
-        fk = self.fc_kernel.to(dt)
-        if self.dim < self.other_dim:
-            proj = torch.matmul(tk, other @ fk)
-        else:
-            proj = torch.matmul(tk, other) @ fk
-        folded = (self.token_proj_bias[:, None] * self.fc_kernel.sum(dim=0)[None, :]
-                  + self.fc_bias[None, :])
-        return proj + folded.to(dt)[None]
+        return project_tokens(other, self.token_proj_kernel, self.token_proj_bias,
+                              self.fc_kernel, self.fc_bias)
 
     def forward(self, x: torch.Tensor, other: torch.Tensor, train: bool = False,
                 generator: Optional[torch.Generator] = None

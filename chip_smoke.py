@@ -12,7 +12,10 @@ loaded into the same AVE model, and the audio-statistics tool on the card
 (phases 31, 32); then the rest of AVE (its other head
 settings, the scv2 / Swin-V2-B flavor) and AVE's driver,
 `python -m avmoe_tpu_torch.cli.train_ave`, run in-process to train, test
-and resume at full width; then AVVP, `MGNModel(AVVPConfig())`
+and resume at full width; then AVE's legacy models, MMIL_Net v1 (one DG-SCT
+adapter per site and side, every stage) and the LAVisH MMIL_Net_v2 (one
+Swin-V2 over both streams), their eval forwards and train steps and their
+drivers (`train_ave --model v1|lavish`); then AVVP, `MGNModel(AVVPConfig())`
 (adapters in all four stages, bmm unimodal experts, grouping heads), its
 eval forward and train step through the same kernels; then AVQA,
 `AVQAFusionModel(AVQAConfig())` (three experts, an LSTM question encoder,
@@ -26,7 +29,11 @@ steps (S4 trains HTS-AT: its weights' gradients come from K1b and K2b);
 last the AVVP, AVQA (its grounding stage too) and AVS drivers, run
 in-process to train, test and resume at full width.
 Phases (any failed check raises, and the
-script exits non-zero without printing the result line):
+script exits non-zero without printing the result line). Of the profiles
+the list below names, only the windows in `PROFILED` are traced (AVE's
+default-path eval and train step, the AVVP, AVQA, AVS S4 and MMIL_Net v1
+train steps, AVQA's negative pass and TPAVI); the others report "not
+profiled", to keep the script inside its time limit:
 
   1. card: nvidia-smi name and power limit, torch / CUDA versions;
   2. build: the four CUDA sources with nvcc (one process each, in parallel);
@@ -272,15 +279,52 @@ script exits non-zero without printing the result line):
  32. `cli/compute_audio_stats.py` over 32 synthetic 10-s packs at 16 kHz
      (192 bins, 5.2-ms shift) on the card and with --device cpu: mean and
      std within rtol 1e-4; the tool's wall times and fbank's frames per
-     second on the card (16 packs, float64 and float32).
+     second on the card (16 packs, float64 and float32);
+ 33. (after 16) MMILNetV1(AVEConfig()) and MMILNetV2(AVEConfig()) in bf16
+     at batch 4 (`phase_legacy`), seeded weights with noised gates and
+     gate_av: the eval forward's K1 / K2 / K3 launches as planned (36 / 36
+     / 0 and 48 / 48 / 0, `models/ave_legacy.py` `mmil_v*_kernel_launches`),
+     output shapes and finiteness, LAVisH's probabilities summing to 1,
+     cosine >= 0.99 of the logits (and LAVisH's probabilities) against a
+     float32 forward of the same weights; eval wall ms and clips/s; three
+     train steps with the recipes' draws (v1: DropPath, SpecAugment, mixup,
+     from the noised gates; LAVisH: DropPath, from the seeded init: from
+     noised gates its gradient explodes through stage 2 in both packages,
+     tools/lavish_grad_conditioning.py, tools/legacy_grad_diagnosis.py):
+     K1 / K2 / K1b / K2b launches a step as planned (36
+     / 36 / 34 / 35 and 48 / 48 / 46 / 48), frozen weights bit-identical,
+     every trainable tensor moved, the adapters' running stats (and v1's
+     bn0) moved; step ms, clips/s, peak memory, v1's step profiled; v1's 48
+     token projections' device time alone (profiled kernels, forward and
+     forward + backward) beside the eval wall and the step's device busy;
+ 34. every distinct kernel shape those runs gave the four wrappers
+     (`_kernel_shapes`) is one phases 3, 4, 10 and 11 hold against the
+     plain versions at 40 frames; a shape of another frame count is held
+     there by that kernel's phase at its frames (`phase_legacy_shapes`);
+ 35. the AVE driver with `--model v1` and `--model lavish`
+     (`phase_legacy_cli`), in-process on the full AVEConfig() in bf16,
+     three times each: train one epoch (--synthetic --batch_size 4
+     --accum_itr 1: 8 micro-steps and updates, 2 eval batches; LAVisH's
+     clips through `LAVisHView`'s fbank images in the loader's workers),
+     with the launches of 8 steps' and 2 eval forwards' plans, finite
+     losses, frozen parameters bit-identical, best.json, no jax imported,
+     nothing left on the card; --mode test, whose accuracy is best.json's
+     and whose per-batch accuracies equal that epoch's evaluation bit for
+     bit; --resume --epochs 2, whose restored state equals the checkpoint
+     bit for bit, and after which every trainable tensor has moved over
+     the two runs (but `LEGACY_CLI_STALLS`); the loop's median step, the
+     loader's wait, a checkpoint's size, save and restore times, the peak
+     memory.
 
-The lines five to two before the last are JSON objects of the AVVP, AVQA
-and AVS numbers (the AVS one with the S4 step's under `s4_*`) and of the
-AVE driver's, the scv2 / Swin-V2-B flavor's and the AVVP, AVQA and AVS
-drivers' (`ave_cli`, `ave_scv2_base`, `avvp_cli`, `avqa_cli`,
-`avs_cli`) with phases 31 and 32 (`convert`, `audio_stats`), the line
-before the last one with the per-kernel summary (AVE's launches and, beside
-them, AVVP's, AVQA's and AVS's, each kernel's error and times at AVS's
+The lines six to two before the last are JSON objects of the AVVP, AVQA
+and AVS numbers (the AVS one with the S4 step's under `s4_*`), of the
+legacy models' and their drivers' (`ave_legacy`: `v1`, `lavish`, `v1_cli`,
+`lavish_cli`) and of the AVE driver's, the scv2 / Swin-V2-B flavor's and
+the AVVP, AVQA and AVS drivers' (`ave_cli`, `ave_scv2_base`, `avvp_cli`,
+`avqa_cli`, `avs_cli`) with phases 31 and 32 (`convert`, `audio_stats`),
+the line before the last one with the per-kernel summary (AVE's launches
+and, beside them, AVVP's, AVQA's, AVS's and the legacy models'
+(`mmil_v1_launches`, `lavish_launches`), each kernel's error and times at AVS's
 shapes under `avs_shapes`, and K1b's and K2b's parameter gradients at the
 S4 step's shapes under `param_grads`); the last line is {"ok": true,
 "device": {...}}.
@@ -812,31 +856,33 @@ def _drive(model, label: str, want, wave, imgs):
     return outs, got
 
 
-def _times(model, label: str, *inputs) -> float:
-    """Batch-4 throughput (2 warm-ups, 10 iterations) and batch-1 p50 of
-    model(*inputs), the inputs batch-first."""
+def _times(model, label: str, *inputs, batch1: bool = True) -> float:
+    """Batch-4 throughput (2 warm-ups, 5 iterations) and, with `batch1`,
+    batch-1 p50 (of 5) of model(*inputs), the inputs batch-first."""
     torch.cuda.reset_peak_memory_stats()
     for _ in range(2):
         model(*inputs)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    for _ in range(10):
+    for _ in range(5):
         model(*inputs)
     torch.cuda.synchronize()
-    fwd_s = (time.perf_counter() - t0) / 10
-    one = tuple(t[:1] for t in inputs)
-    for _ in range(2):
-        model(*one)
-    lat = []
-    for _ in range(10):
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        model(*one)
-        torch.cuda.synchronize()
-        lat.append(time.perf_counter() - t1)
-    p50 = float(np.percentile(lat, 50)) * 1e3
+    fwd_s = (time.perf_counter() - t0) / 5
+    p50 = ""
+    if batch1:
+        one = tuple(t[:1] for t in inputs)
+        for _ in range(2):
+            model(*one)
+        lat = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            model(*one)
+            torch.cuda.synchronize()
+            lat.append(time.perf_counter() - t1)
+        p50 = f"; batch-1 p50 {float(np.percentile(lat, 50)) * 1e3:.2f} ms"
     log(f"[time] {label} eval batch {BATCH}: {fwd_s * 1e3:.2f} ms/forward, "
-        f"{BATCH / fwd_s:.3f} clips/s; batch-1 p50 {p50:.2f} ms; peak memory "
+        f"{BATCH / fwd_s:.3f} clips/s{p50}; peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     return fwd_s * 1e3
 
@@ -902,6 +948,36 @@ def _host_summary(label: str, prof, what: str) -> None:
         + ", ".join(f"{k} x{n:.0f} {ms:.2f}" for k, n, ms in ops[:14]))
 
 
+def _device_ms_by_name(prof) -> dict:
+    """{kernel name: device ms} of a profiler's window: device-side kernel
+    and memcpy events only (the host ops that launched them carry the same
+    device time again, and so do the device spans of annotations, such as
+    the optimizer's step)."""
+    by_name = {}
+    for e in prof.events():
+        if (e.device_type != torch.autograd.DeviceType.CUDA
+                or getattr(e, "is_user_annotation", False)):
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0.0)
+        if us > 0:
+            by_name[e.key] = by_name.get(e.key, 0.0) + us / 1e3
+    return by_name
+
+
+# The windows phase_profile traces: each costs 1 to 40 s of host time
+# (mostly the trace's read-back), and device busy repeats within 2.5% from
+# run to run. Kept: AVE's eval (default path) and train step, a
+# train step of each other model (AVS: S4's; LAVisH's is not profiled), and
+# the two small windows of AVQA's negative pass and TPAVI. The host's side
+# (`_host_summary`) is read in AVE's two windows.
+PROFILED = ("default path", "train step", "v1 train step", "AVVP train step",
+            "AVQA negative pass (default path)", "AVQA train step",
+            "AVS TPAVI alone (4 stages)", "AVS S4 train step")
+HOST_SUMMARY = ("default path", "train step")
+
+
 def phase_profile(label: str, run, fwd_ms: Optional[float], what: str = "forward"):
     """Device time per `run()` (a forward or a train step) by kernel
     (torch.profiler), and the share of the wall time in which the device was
@@ -909,7 +985,8 @@ def phase_profile(label: str, run, fwd_ms: Optional[float], what: str = "forward
     such wall; the device-side time of work that keeps the device busy is
     no bound on the profiler's own kernel timings, ~1% longer), and of the
     profiled window, whose wall time also holds the profiler's own host work.
-    One run is profiled, after a traced warm-up run whose events are
+    Only the windows in `PROFILED` are traced (the others return three
+    Nones). One run is profiled, after a traced warm-up run whose events are
     dropped: reading the trace back costs the host ~10 s for each ~10,000
     kernel launches, device busy repeats within a few percent from run to
     run, and without the warm-up the kernels just after the profiler starts
@@ -919,6 +996,9 @@ def phase_profile(label: str, run, fwd_ms: Optional[float], what: str = "forward
     spent the window on (_host_summary) too."""
     from torch.profiler import ProfilerActivity, profile, schedule
 
+    if label not in PROFILED:
+        log(f"[profile] {label}: not profiled (chip_smoke.PROFILED)")
+        return None, None, None
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                  schedule=schedule(wait=0, warmup=1, active=1), acc_events=True) as prof:
         run()
@@ -929,19 +1009,7 @@ def phase_profile(label: str, run, fwd_ms: Optional[float], what: str = "forward
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
         prof.step()
-    by_name = {}
-    for e in prof.events():
-        # device-side kernel and memcpy events only: the host ops that
-        # launched them carry the same device time again, and so do the
-        # device spans of annotations (the optimizer's step)
-        if (e.device_type != torch.autograd.DeviceType.CUDA
-                or getattr(e, "is_user_annotation", False)):
-            continue
-        us = getattr(e, "self_device_time_total", None)
-        if us is None:
-            us = getattr(e, "self_cuda_time_total", 0.0)
-        if us > 0:
-            by_name[e.key] = by_name.get(e.key, 0.0) + us / 1e3
+    by_name = _device_ms_by_name(prof)
     busy = sum(by_name.values())
     if busy == 0:
         log(f"[profile] {label}: device time not measured (the profiler saw no CUDA kernels)")
@@ -972,7 +1040,8 @@ def phase_profile(label: str, run, fwd_ms: Optional[float], what: str = "forward
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
     for name, ms in top:
         log(f"[profile] {label}  {ms:8.3f} ms  {100 * ms / busy:5.1f}%  {name[:100]}")
-    _host_summary(label, prof, what)
+    if label in HOST_SUMMARY:
+        _host_summary(label, prof, what)
     return busy, idle, 1.0 - busy / wall
 
 
@@ -1674,7 +1743,8 @@ def _checked_steps(label: str, model, state, step, batch, gen, want, stat_keys):
 
 def _step_times(label: str, step, state, batch, gen):
     """A train step's wall time (median of 3 synced steps after a warm-up),
-    its peak memory and a profile: (step ms, peak GiB, profile)."""
+    its peak memory and a profile where `PROFILED` names it: (step ms, peak
+    GiB, profile)."""
     torch.cuda.reset_peak_memory_stats()
     step(state, batch, gen)
     times = []
@@ -2146,9 +2216,12 @@ class _CliProbe:
 
 
 def _adapter_of(name: str):
-    """The adapter module of a trainable parameter ('audio_moe_p1_0'), or None."""
+    """The adapter module of a trainable parameter ('audio_moe_p1_0', or a
+    legacy model's 'audio_adapter_p1_0'), or None."""
     parts = name.split(".")
-    return parts[1] if parts[0] == "encoder" and "_moe_" in parts[1] else None
+    if parts[0] == "encoder":
+        parts = parts[1:]
+    return parts[0] if re.fullmatch(r"(audio|vis)_(moe|adapter)_p[12]_\d+", parts[0]) else None
 
 
 # The adapters whose expert gates stall at the AVE CLI's seeded init on the
@@ -2408,6 +2481,354 @@ def phase_ave_cli(train_step_ms: float):
                 "peak_gib": peak, "train_run_s": train_s, "test_run_s": test_s,
                 "best_val_accuracy": best, "test_accuracy": acc, "launches": train_got,
                 "stalled_adapters": sorted(stalled)}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+# ---------------------------------------------------------------------------
+# AVE's legacy models: MMIL_Net v1 (DG-SCT adapters) and the LAVisH
+# MMIL_Net_v2 (one Swin-V2 for both streams)
+# ---------------------------------------------------------------------------
+
+LEGACY = {"v1": "MMILNetV1", "lavish": "MMILNetV2"}
+# The adapters that may stall at the legacy CLIs' seeded init (as
+# AVE_CLI_STALLS): none is diagnosed, so any stall fails.
+LEGACY_CLI_STALLS = {"v1": frozenset(), "lavish": frozenset()}
+
+
+@contextlib.contextmanager
+def _kernel_shapes():
+    """The distinct (kernel, shape, dtype) of every K1, K2, K1b and K2b call
+    inside the block: K1 and K2 as ops/swin.py calls them, K1b and K2b as
+    their autograd Functions do. The wrappers still count their launches."""
+    import avmoe_tpu_torch.kernels.mlp_block as mb
+    import avmoe_tpu_torch.kernels.window_attention as wa
+    import avmoe_tpu_torch.ops.swin as swin
+
+    seen = set()
+
+    def k1(q, k, v, bias, *a, **kw):
+        return ("K1", (q.shape[0], q.shape[1], q.shape[2], q.shape[3], bias.shape[0]))
+
+    def k2(x, *a, pre_norm, **kw):
+        return ("K2", (x.numel() // x.shape[-1], x.shape[-1], pre_norm))
+
+    def k1b(q, *a, **kw):
+        return ("K1b", k1(q, *a)[1])
+
+    def k2b(dy, *a, pre_norm, **kw):
+        return ("K2b", k2(dy, pre_norm=pre_norm)[1])
+
+    class Recorded:
+        """The wrapper `fn`, recording each call's shape; its `launches`
+        are the wrapper's own."""
+
+        def __init__(self, fn, key):
+            object.__setattr__(self, "fn", fn)
+            object.__setattr__(self, "key", key)
+
+        def __call__(self, *a, **kw):
+            kind, shape = self.key(*a, **kw)
+            seen.add((kind, shape, str(a[0].dtype).replace("torch.", "")))
+            return self.fn(*a, **kw)
+
+        def __getattr__(self, name):
+            return getattr(self.fn, name)
+
+        def __setattr__(self, name, value):
+            setattr(self.fn, name, value)
+
+    sites = ((swin, "window_attention", k1), (swin, "mlp_block", k2),
+             (wa, "window_attention_bwd", k1b), (mb, "mlp_block_bwd", k2b))
+    kept = [getattr(mod, name) for mod, name, _ in sites]
+    for (mod, name, key), fn in zip(sites, kept):
+        setattr(mod, name, Recorded(fn, key))
+    try:
+        yield seen
+    finally:
+        for (mod, name, _), fn in zip(sites, kept):
+            setattr(mod, name, fn)
+
+
+def _checked_shapes(frames: int):
+    """{kernel: the shapes phases 3, 4, 10 and 11 hold against the plain
+    versions at `frames` frames}, each in float32 and bfloat16."""
+    return {"K1": {s[:-1] for s in k1_shapes(frames)}, "K2": {s[:-1] for s in k2_shapes(frames)},
+            "K1b": {s[:-1] for s in k1b_shapes(frames)},
+            "K2b": {s[:-1] for s in k2b_shapes(frames)}}
+
+
+def phase_legacy_shapes(gen, seen, label: str):
+    """Every kernel shape a legacy model's run gave the wrappers is one the
+    AVE phases hold against the plain versions (at 10 * BATCH frames); a
+    shape of another frame count is held here by that kernel's phase at its
+    frames. Returns the distinct shapes seen."""
+    runs = {"K1": phase_k1, "K2": phase_k2, "K1b": phase_k1b, "K2b": phase_k2b}
+    checked = _checked_shapes(BATCH * 10)
+    out = []
+    for kind, shape, dtype in sorted(seen):
+        check(dtype in ("float32", "bfloat16"), f"{label}: {kind} at {shape} in {dtype}")
+        if shape in checked[kind]:
+            continue
+        frames = next((f for f in range(1, 8 * BATCH * 10 + 1)
+                       if shape in _checked_shapes(f)[kind]), None)
+        check(frames is not None, f"{label}: {kind} shape {shape} is on no plan")
+        out.append((kind, frames))
+    for kind, frames in sorted(set(out)):
+        runs[kind](gen, frames, f"{label} {kind} at {frames} frames")
+    log(f"[{label}] {len(seen)} distinct kernel shapes: "
+        + ", ".join(f"{k} {sum(s[0] == k for s in seen)}" for k in runs)
+        + (f"; held here at other frame counts: {sorted(set(out))}" if out else
+           f"; all held by phases 3, 4, 10 and 11 at {BATCH * 10} frames"))
+    return len(seen)
+
+
+def _legacy_inputs(cfg, name: str, seed: int):
+    """(audio input, frames) of a batch-BATCH eval: the waveform (v1) or
+    fbank images at the normalized spectrogram's scale (lavish)."""
+    wave, imgs = _inputs(cfg, BATCH, seed, "cuda")
+    if name == "v1":
+        return wave, imgs
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    S = cfg.swin.img_size
+    return 0.5 * torch.randn(BATCH, cfg.num_segments, S, S, generator=g, device="cuda"), imgs
+
+
+def _legacy_outputs(name: str, out) -> torch.Tensor:
+    keys = ("is_event_logits", "event_logits") if name == "v1" else ("event_logits",)
+    return torch.cat([out[k].float().flatten() for k in keys])
+
+
+def _token_projection_ms(model, a, imgs):
+    """Device time of MMIL_Net v1's 48 token projections (`moe/adapter.py`
+    `project_tokens`, the library products of the DG-SCT adapters) at one
+    batch-BATCH forward's inputs: forward alone and forward + backward (the
+    gradients of the stream and of the trainable kernels and biases), the
+    sum of the kernels' device times in one profiled run of all 48 after a
+    dropped warm-up (CUDA events would also count the device's idle gaps
+    between these short launches). Returns (forward ms, forward + backward
+    ms, GFLOP of the forward products)."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    import avmoe_tpu_torch.moe.dgsct_adapter as dg
+
+    calls = []
+    inner = dg.project_tokens
+    dg.project_tokens = lambda *args: (calls.append(args), inner(*args))[1]
+    try:
+        model(a, imgs)
+    finally:
+        dg.project_tokens = inner
+    flops = 0.0
+    for other, tk, _, fk, _ in calls:
+        B, M, Co = other.shape
+        N, C = tk.shape[0], fk.shape[1]
+        flops += 2.0 * B * (N * M * Co + N * Co * C if C >= Co else M * Co * C + N * M * C)
+
+    def fwd():
+        for args in calls:
+            inner(*args)
+
+    leaves = [(other.detach().requires_grad_(), tk.detach().requires_grad_(), tb.detach()
+               .requires_grad_(), fk.detach().requires_grad_(), fb.detach().requires_grad_())
+              for other, tk, tb, fk, fb in calls]
+
+    def both():
+        for args in leaves:
+            out = inner(*args)
+            torch.autograd.grad(out, args, torch.ones_like(out))
+
+    times = []
+    for run in (fwd, both):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1), acc_events=True) as prof:
+            for _ in range(2):
+                run()
+                torch.cuda.synchronize()
+                prof.step()
+        times.append(sum(_device_ms_by_name(prof).values()))
+    return times[0], times[1], flops / 1e9
+
+
+def phase_legacy(name: str, gen):
+    """A legacy AVE model at full width (AVEConfig()) in bf16 at batch BATCH,
+    seeded weights with noised gates and gate_av: the eval forward's
+    launches as planned, shapes, finiteness, the bf16-vs-fp32 cosine of its
+    logits (and LAVisH's probabilities) >= 0.99, its wall time; three train
+    steps with the recipe's draws (v1: DropPath, SpecAugment, mixup; lavish:
+    DropPath): launches as planned, frozen weights bit-identical, every
+    trainable tensor and the adapters' running stats moved (and v1's bn0);
+    the step's time and peak memory, v1's profile; every kernel shape of
+    both runs held against the plain versions; v1's token projections timed
+    alone. v1 trains from the eval's noised gates; LAVisH, whose gradient
+    explodes there in both packages, from the seeded init. Returns the
+    numbers."""
+    import avmoe_tpu_torch.models.ave_legacy as al
+    from avmoe_tpu_torch.config import AVEConfig, TrainConfig
+    from avmoe_tpu_torch.train.state import create_train_state
+    from avmoe_tpu_torch.train.steps import make_train_step
+
+    cfg, v = AVEConfig(), "1" if name == "v1" else "2"
+    Model = getattr(al, LEGACY[name])
+    fwd = getattr(al, f"mmil_v{v}_kernel_launches")(cfg)
+    bwd = getattr(al, f"mmil_v{v}_backward_launches")(cfg)
+    t0 = time.perf_counter()
+    model = Model(cfg, dtype=torch.bfloat16, device="cuda", seed=0)
+    _nonzero_gates_(model, 1)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    a, imgs = _legacy_inputs(cfg, name, 3)
+    counters = _counters()
+    with _kernel_shapes() as seen:
+        for c in counters.values():
+            c.launches = 0
+        out = model(a, imgs)
+        torch.cuda.synchronize()
+        got = {k: c.launches for k, c in counters.items()}
+        check(got == fwd, f"{name}: launches per forward {got}, want {fwd}")
+        T, C = cfg.num_segments, cfg.num_classes
+        want = ({"is_event_logits": (BATCH, T), "event_logits": (BATCH, C),
+                 "av_score": (BATCH, C), "av_gate": (BATCH, T)} if name == "v1"
+                else {"event_probs": (BATCH * T, C + 1), "event_logits": (BATCH * T, C + 1)})
+        for key, shape in want.items():
+            check(tuple(out[key].shape) == shape and bool(torch.isfinite(out[key]).all()),
+                  f"{name}: {key} {tuple(out[key].shape)} (want {shape}) not finite or shaped")
+        if name == "lavish":
+            check(bool(((out["event_probs"].sum(-1) - 1).abs() <= 1e-3).all()),
+                  "lavish: event_probs rows do not sum to 1")
+        f32 = Model(cfg, dtype=torch.float32, device="cuda", seed=None)
+        f32.load_state_dict(model.state_dict())
+        ref = f32(a, imgs)
+        cos = {"logits": F.cosine_similarity(_legacy_outputs(name, out),
+                                             _legacy_outputs(name, ref), dim=0).item()}
+        if name == "lavish":
+            cos["probs"] = F.cosine_similarity(out["event_probs"].flatten(),
+                                               ref["event_probs"].flatten(), dim=0).item()
+        del f32, ref
+        torch.cuda.empty_cache()
+        check(min(cos.values()) >= 0.99, f"{name}: bf16 vs fp32 cosines {cos} < 0.99")
+        log(f"[{name}] AVEConfig() bf16 batch {BATCH}, built in {build_s:.1f} s: launches per "
+            f"forward {got} (plan {fwd}), shapes ok, finite; bf16 vs fp32 cosines "
+            + ", ".join(f"{k} {c:.6f}" for k, c in cos.items()) + " (>= 0.99)")
+        fwd_ms = _times(model, f"{name} default path", a, imgs, batch1=False)
+        proj = _token_projection_ms(model, a, imgs) if name == "v1" else None
+
+        batch = _train_batches(cfg, BATCH, 1, 11, "cuda")[0]
+        batch.pop("mixup_lambda")               # v1: λ drawn per frame from Beta(0.5, 0.5)
+        if name == "lavish":
+            batch["audio_spec"] = _legacy_inputs(cfg, name, 4)[0]
+            batch.pop("wave")
+            # from the noised gates LAVisH's gradient explodes through stage
+            # 2, in both packages (tools/lavish_grad_conditioning.py; on the
+            # card tools/legacy_grad_diagnosis.py): it trains from where
+            # training starts, the seeded init
+            model = Model(cfg, dtype=torch.bfloat16, device="cuda", seed=0)
+        state = create_train_state(model, TrainConfig(accum_steps=1), steps_per_epoch=100)
+        loss_fn = (al.make_mmil_v1_loss_fn(model, mixup_alpha=0.5) if name == "v1"
+                   else al.make_mmil_v2_loss_fn(model))
+        step = make_train_step(loss_fn)
+        want = {"K1": fwd["K1"], "K2": fwd["K2"], **bwd}
+        g = torch.Generator(device="cuda").manual_seed(12)
+        got_s, losses, n_frozen, n_moved = _checked_steps(
+            f"{name} train", model, state, step, batch, g, want,
+            ("bn0", "adapter") if name == "v1" else ("adapter",))
+    log(f"[{name}] train steps bf16 batch {BATCH}, DropPath" + (
+        " + SpecAugment + mixup, gates noised" if name == "v1" else ", the seeded init") +
+        f": losses "
+        f"{[round(x, 5) for x in losses]}; {n_frozen} frozen tensors bit-identical, {n_moved} "
+        f"trainable tensors moved, running stats moved; launches per step {got_s} (plan {want})")
+    step_ms, peak, prof = _step_times(f"{name} train step", step, state, batch, g)
+    n_shapes = phase_legacy_shapes(gen, seen, name)
+    res = {"clips": BATCH, "build_s": build_s, "eval_ms": fwd_ms,
+           "eval_clips_per_s": BATCH / fwd_ms * 1e3, "bf16_vs_f32_cosines": cos,
+           "launches_per_forward": got, "launches_per_step": got_s, "train_losses": losses,
+           "train_step_ms": step_ms, "train_clips_per_s": BATCH / step_ms * 1e3,
+           "train_peak_gib": peak, "train_device_busy_ms": prof[0],
+           "train_idle_share": prof[1], "train_idle_share_profiled": prof[2],
+           "distinct_kernel_shapes": n_shapes}
+    if proj is not None:
+        fwd_p, both_p, gflop = proj
+        res.update(token_projection_fwd_ms=fwd_p, token_projection_fwd_bwd_ms=both_p,
+                   token_projection_gflop=gflop,
+                   token_projection_share_of_eval_wall=fwd_p / fwd_ms,
+                   token_projection_share_of_step_device_busy=(
+                       None if prof[0] is None else both_p / prof[0]))
+        log(f"[v1] token projections (48 a forward, {gflop:.1f} GFLOP): {fwd_p:.3f} ms forward "
+            f"({fwd_p / fwd_ms:.3f} of the eval forward's wall), {both_p:.3f} ms forward + "
+            f"backward" + ("" if prof[0] is None else
+                           f" ({both_p / prof[0]:.3f} of the train step's device busy)"))
+    del model, state, step
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_legacy_cli(name: str, train_step_ms: float):
+    """`avmoe_tpu_torch.cli.train_ave.main --model v1|lavish` in-process on
+    the full AVEConfig() in bf16, three times: train one epoch (32 synthetic
+    clips, batch 4, accum 1: 8 micro-steps and updates, 2 eval batches),
+    --mode test on its checkpoint (the per-batch accuracies of that epoch's
+    evaluation, bit for bit), --resume for a second epoch (the restored
+    state bit-identical; every trainable tensor moved over the two runs but
+    the diagnosed stalls, LEGACY_CLI_STALLS)."""
+    import shutil
+    import tempfile
+
+    import avmoe_tpu_torch.models.ave_legacy as al
+    from avmoe_tpu_torch.cli import train_ave
+    from avmoe_tpu_torch.config import AVEConfig
+
+    cfg, spe, label = AVEConfig(), 8, f"{name} cli"
+    v = "1" if name == "v1" else "2"
+    tmp = tempfile.mkdtemp(prefix=f"{name}_cli_")
+    argv = ["--model", name, "--synthetic", "--batch_size", str(BATCH), "--accum_itr", "1",
+            "--num_workers", "4", "--model_save_dir", tmp]
+    counters = _train_counters()
+    fwd = getattr(al, f"mmil_v{v}_kernel_launches")(cfg)
+    per_step = {"K1": fwd["K1"], "K2": fwd["K2"], **getattr(al, f"mmil_v{v}_backward_launches")(
+        cfg)}
+    per_eval = {"K1": fwd["K1"], "K2": fwd["K2"], "K1b": 0, "K2b": 0}
+    try:
+        torch.cuda.synchronize()
+        base_mem = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        best, p, got, train_s = _cli_run(train_ave, argv + ["--epochs", "1"], counters)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        steps, evals = len(p.losses), len(p.evals)
+        check(steps == spe and evals == 2, f"{label}: {steps} train steps, {evals} eval batches")
+        train_evals = [{k: t.cpu() for k, t in e.items()} for e in p.evals]
+        res, start = _cli_train_report(label, p, got, _run_plan(per_step, per_eval, steps, evals),
+                                       spe, base_mem, moved=False)
+        best_json, kept = _best_json(tmp)
+        check(best_json == {"step": spe, "metric": best} and kept == [spe],
+              f"{label}: best.json {best_json}, best {best}, steps kept {kept}")
+        log(f"[{label}] train: AVEConfig() bf16, {steps} micro-steps and updates, {evals} eval "
+            f"batches in {train_s:.1f} s; losses {[round(x, 4) for x in res['losses']]}; "
+            f"best.json {best_json}; {res['frozen_tensors']} frozen tensors bit-identical; "
+            f"launches {got}")
+
+        acc, q, got_t, test_s = _cli_run(train_ave, argv + ["--mode", "test"], counters)
+        check(got_t == _run_plan(per_step, per_eval, 0, 2) and acc == best_json["metric"],
+              f"{label} test: launches {got_t}, accuracy {acc} vs best.json {best_json}")
+        differ = [f"batch {i} {k}" for i, (x, y) in enumerate(zip(train_evals, q.evals))
+                  for k in x.keys() | y.keys()
+                  if k not in x or k not in y or not torch.equal(x[k], y[k].cpu())]
+        check(len(q.evals) == 2 and not differ,
+              f"{label} test: eval outputs differ from the train run's evaluation: {differ}")
+        log(f"[{label}] test: accuracy {acc} == best.json's; the per-batch accuracies "
+            f"bit-identical to epoch 1's evaluation in the train run, in {test_s:.1f} s")
+        losses2, restore_ms, n_moved = _cli_resume(
+            label, train_ave, argv + ["--resume", "--epochs", "2"], counters, tmp, spe, 2,
+            start=start, stalls=LEGACY_CLI_STALLS[name])
+        log(f"[time] {label}: median loop step wall {res['loop_step_wall_ms']:.2f} ms "
+            f"(phase_legacy's step {train_step_ms:.2f} ms); loader wait "
+            f"{res['loader_wait_ms_per_step']:.3f} ms a step; checkpoint "
+            f"{res['checkpoint_gb']:.3f} GB saved in {res['checkpoint_save_ms']:.1f} ms, restored "
+            f"in {restore_ms:.1f} ms; peak memory {peak:.2f} GiB")
+        return {**res, "clips": BATCH, "accum_steps": 1, "train_steps": steps,
+                "eval_batches": evals, "phase_train_step_ms": train_step_ms,
+                "checkpoint_restore_ms": restore_ms, "peak_gib": peak, "train_run_s": train_s,
+                "test_run_s": test_s, "best_val_accuracy": best, "test_accuracy": acc,
+                "launches": got, "resume_losses": losses2, "moved_tensors": n_moved}
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -3878,6 +4299,14 @@ def _kernel_entry(name: str, source: str, replaces: str, launches: int, err: flo
             "library_ms": library_ms, **extra}
 
 
+def _legacy_launches(legacy, kernel: str) -> dict:
+    """The legacy models' launches of `kernel` (a forward's, or a train
+    step's for K1b / K2b) under mmil_v1_launches / lavish_launches."""
+    key = "launches_per_step" if kernel.endswith("b") else "launches_per_forward"
+    return {("mmil_v1" if name == "v1" else name) + "_launches": legacy[name][key][kernel]
+            for name in LEGACY}
+
+
 def _param_grads_entry(err: float, tot) -> dict:
     """K1b's dbias or K2b's weight gradients at the S4 step's shapes: errors,
     times with and without them, per S4 step."""
@@ -3926,6 +4355,13 @@ def main():
     torch.cuda.empty_cache()
     ave_cli = phase_ave_cli(step_ms)
     done("AVE heads, flavor, CLI")
+    legacy = {}
+    for name in LEGACY:
+        legacy[name] = phase_legacy(name, gen)
+        done(f"{name} eval, train")
+    for name in LEGACY:
+        legacy[f"{name}_cli"] = phase_legacy_cli(name, legacy[name]["train_step_ms"])
+        done(f"{name} CLI")
     avvp_tiny_k3 = phase_avvp_tiny()
     phase_avvp_gram(gen)
     avvp, avvp_fwd_ms, avvp_prof, avvp_model = phase_avvp_full()
@@ -4019,6 +4455,7 @@ def main():
         "s4_train_idle_share": s4_train["prof"][1],
         "s4_train_idle_share_profiled": s4_train["prof"][2],
         "s4_launches_per_step": s4_train["launches"]}}))
+    log(json.dumps({"ave_legacy": legacy}))
     log(json.dumps({"ave_cli": ave_cli, "ave_scv2_base": flavor, "avvp_cli": avvp_cli,
                     "avqa_cli": avqa_cli, "avs_cli": avs_cli, "convert": convert,
                     "audio_stats": audio_stats}))
@@ -4028,6 +4465,7 @@ def main():
         _kernel_entry("window_attention", "avmoe_tpu_torch/csrc/window_attention.cu",
                       "experiments/pallas/window_attn.py:55", default["K1"], k1_err, k1_tot,
                       k1_tot["library_ms"], avvp_launches=avvp["K1"],
+                      **_legacy_launches(legacy, "K1"),
                       avqa_launches=avqa["default path"]["K1"],
                       avs_launches=avs["default path"]["K1"], avs_shapes=avs_kern["K1"]),
         # the TPU kernel has no backward (JAX differentiates its XLA
@@ -4037,6 +4475,7 @@ def main():
                       "experiments/pallas/window_attn.py:55", train["K1b"], k1b_err, k1b_tot,
                       k1b_tot["library_ms"], backward_of="window_attention",
                       max_rel_err=k1b_tot["max_rel_err"], avvp_launches=avvp_train["K1b"],
+                      **_legacy_launches(legacy, "K1b"),
                       avqa_launches=avqa_train["K1b"], avs_launches=avs_train["K1b"],
                       avs_s4_launches=s4_train["launches"]["K1b"], avs_shapes=avs_kern["K1b"],
                       param_grads=_param_grads_entry(k1b_bias_err, k1b_bias)),
@@ -4046,6 +4485,7 @@ def main():
                       "experiments/pallas/fused_block.py:315", default["K2"], k2_err, k2_tot,
                       None, products_ms=k2_tot["products_ms"],
                       cublas_products_only_ms=k2_tot["cublas_ms"], avvp_launches=avvp["K2"],
+                      **_legacy_launches(legacy, "K2"),
                       avqa_launches=avqa["default path"]["K2"],
                       avqa_chain_launches=avqa["chain path"]["K2"],
                       avs_launches=avs["default path"]["K2"],
@@ -4055,6 +4495,7 @@ def main():
                       None, backward_of="mlp_block", products_ms=k2b_tot["products_ms"],
                       cublas_products_only_ms=k2b_tot["cublas_ms"],
                       avvp_launches=avvp_train["K2b"], avqa_launches=avqa_train["K2b"],
+                      **_legacy_launches(legacy, "K2b"),
                       avs_launches=avs_train["K2b"], avs_s4_launches=s4_train["launches"]["K2b"],
                       avs_shapes=avs_kern["K2b"],
                       param_grads=_param_grads_entry(k2b_params_err, k2b_params)),

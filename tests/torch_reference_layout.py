@@ -352,6 +352,91 @@ def mmil_net_state_dict(variables: Mapping, dropped: bool = False) -> SD:
     return sd
 
 
+# ------------------------------------------------- legacy AVE (MMIL v1 / v2)
+
+_LEGACY_LISTS = (("audio_adapter_p1", "audio_adapter_blocks_p1"),
+                 ("vis_adapter_p1", "vis_adapter_blocks_p1"),
+                 ("audio_adapter_p2", "audio_adapter_blocks_p2"),
+                 ("vis_adapter_p2", "vis_adapter_blocks_p2"))
+
+
+def lavish_adapter_state_dict(params: Mapping, stats: Optional[Mapping] = None,
+                              dropped: bool = False) -> SD:
+    """LAVisHAdapter params / batch_stats -> a reference VisualAdapter_lavish
+    state dict (`dropped` has nothing to add: the LAVisH adapter's modules
+    are all read)."""
+    del dropped
+    stats = stats or {}
+    sd: SD = {"my_tokens": _f32(params["latent_tokens"]), "gate_av": _f32(params["gate_av"])}
+    if "gate" in params:
+        sd["gate"] = _f32(params["gate"])
+    for ln in ("ln_before", "ln_post"):
+        if ln in params:
+            _ln(sd, ln, params[ln])
+    bott = params["bottleneck"]
+    sd["down_sampler.weight"] = _grouped_conv1x1(bott["down"]["kernel"])
+    sd["up_sampler.weight"] = _grouped_conv1x1(bott["up"]["kernel"])
+    for bn in ("bn1", "bn2"):
+        if bn in bott:
+            _bn(sd, bn, bott[bn], stats["bottleneck"][bn])
+    return sd
+
+
+def dgsct_adapter_state_dict(params: Mapping, stats: Optional[Mapping] = None,
+                             dropped: bool = False) -> SD:
+    """DGSCTAdapter params / batch_stats -> a reference VisualAdapter (DG-SCT)
+    state dict; with `dropped` also its gate_tk, which no converter reads."""
+    sd = lavish_adapter_state_dict(params, stats)
+    tp = np.asarray(params["token_proj_kernel"])
+    sd["conv_adapter.weight"] = _f32(tp[:, :, None, None])
+    sd["conv_adapter.bias"] = _f32(params["token_proj_bias"])
+    for name in ("fc", "fc_affine_audio_1", "fc_affine_video_1", "fc_affine_bottleneck",
+                 "fc_affine_video_2", "fc_affine_audio_2", "fc_affine_v_s_att",
+                 "fc_affine_v_c_att"):
+        _dense(sd, name, params[name])
+    if dropped:
+        sd["gate_tk"] = np.float32([0.5])
+    return sd
+
+
+def _legacy_adapter_lists(params: Mapping, stats: Mapping, write, dropped: bool) -> SD:
+    sd: SD = {}
+    for key, tree in params.items():
+        for dst, src in _LEGACY_LISTS:
+            m = re.fullmatch(dst + r"_(\d+)", key)
+            if m:
+                sd.update(_prefixed(f"{src}.{m.group(1)}.", write(tree, stats.get(key),
+                                                                  dropped)))
+    return sd
+
+
+def mmil_v1_state_dict(variables: Mapping, dropped: bool = False) -> SD:
+    """MMILNetV1 variables -> a reference MMIL_Net (v1) state dict; with
+    `dropped` also its adapter_token_downsampler convs, built and never
+    called."""
+    p, bs = variables["params"], variables.get("batch_stats", {})
+    enc, ebs = p["encoder"], bs["encoder"]
+    sd = _prefixed("swin.", swinv2_timm_state_dict(enc["swin"], dropped))
+    sd.update(_prefixed("htsat.", htsat_state_dict(enc["htsat"], ebs["htsat"], dropped)))
+    sd.update(_legacy_adapter_lists(enc, ebs, dgsct_adapter_state_dict, dropped))
+    if dropped:
+        sd["adapter_token_downsampler.0.weight"] = np.zeros((4, 4, 1, 1), np.float32)
+    sd.update(_prefixed("temporal_attn.", temporal_attention_state_dict(
+        p["temporal_attn"], dropped)))
+    sd.update(_prefixed("CMBS.", cmbs_state_dict(p["cmbs"])))
+    return sd
+
+
+def mmil_v2_state_dict(variables: Mapping, dropped: bool = False) -> SD:
+    """MMILNetV2 variables -> a reference MMIL_Net_v2 (LAVisH) state dict."""
+    p, bs = variables["params"], variables.get("batch_stats", {})
+    sd = _prefixed("swin.", swinv2_timm_state_dict(p["swin"], dropped))
+    sd.update(_legacy_adapter_lists(p, bs, lavish_adapter_state_dict, dropped))
+    _dense(sd, "mlp_class", p["mlp_class"])
+    _dense(sd, "mlp_class_2", p["mlp_class_2"])
+    return sd
+
+
 # --------------------------------------------------------------------- AVVP
 
 
