@@ -18,7 +18,11 @@ driver sits on top: the readers and the prefetching loader (`data/`),
 torch checkpoints with resume (`checkpoint/`), expert telemetry and writers
 (`telemetry/`), the epoch loop (`train/loop.py`) and the command lines
 `python -m avmoe_tpu_torch.cli.train_{ave,avvp,avqa,avs}` (AVQA's with its
-grounding stage, `models/avqa_grounding.py`).
+grounding stage, `models/avqa_grounding.py`). Beside them, the original
+AVSBench model (`models/avs_baseline.py`: a PVT-v2 or ResNet-50 encoder,
+ASPP, TPAVI and the FPN decoder, fed by the VGGish embeddings of
+`backbones/vggish.py`), the legacy backbones, the attention zoo and the
+loss library of the reference's surface.
 """
 
 from __future__ import annotations

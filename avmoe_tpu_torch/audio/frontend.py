@@ -11,6 +11,9 @@ builders); the transforms are GEMMs against them:
   * train-time augmentation: SpecAugment stripes and batch mixup. The random
     draws (`stripe_mask`, `get_mix_lambda`) take an explicit generator; the
     ops themselves (`apply_spec_augment`, `mixup`) take the masks and λ.
+
+`mel_filterbank_htk` (`avmoe_tpu/audio/frontend.py:75-100`) is VGGish's
+HTK-scale filterbank (`backbones/vggish.py` `waveform_to_examples`).
 """
 
 from __future__ import annotations
@@ -84,6 +87,33 @@ def mel_filterbank(sample_rate: int, n_fft: int, n_mels: int, fmin: float,
     enorm = 2.0 / (mel_f[2: n_mels + 2] - mel_f[:n_mels])
     weights *= enorm[:, None]
     return weights.T.astype(np.float32)
+
+
+def _hz_to_mel_htk(f) -> np.ndarray:
+    return 2595.0 * np.log10(1.0 + np.asarray(f, dtype=np.float64) / 700.0)
+
+
+def _mel_to_hz_htk(m) -> np.ndarray:
+    return 700.0 * (10.0 ** (np.asarray(m, dtype=np.float64) / 2595.0) - 1.0)
+
+
+@functools.lru_cache(maxsize=None)
+def mel_filterbank_htk(sample_rate: int, n_fft: int, n_mels: int, fmin: float,
+                       fmax: float) -> np.ndarray:
+    """(n_freq, n_mels) HTK-scale unnormalized triangular filterbank of the
+    VGGish front end: float64 arithmetic, rounded to float32; the DC row is
+    zero."""
+    n_freq = n_fft // 2 + 1
+    spectrogram_mels = _hz_to_mel_htk(np.linspace(0.0, sample_rate / 2.0, n_freq))
+    band_edges = np.linspace(_hz_to_mel_htk(fmin), _hz_to_mel_htk(fmax), n_mels + 2)
+    weights = np.zeros((n_freq, n_mels), dtype=np.float64)
+    for i in range(n_mels):
+        lo, center, hi = band_edges[i: i + 3]
+        lower = (spectrogram_mels - lo) / (center - lo)
+        upper = (hi - spectrogram_mels) / (hi - center)
+        weights[:, i] = np.maximum(0.0, np.minimum(lower, upper))
+    weights[0, :] = 0.0
+    return weights.astype(np.float32)
 
 
 def _cubic_kernel(s: np.ndarray, a: float = -0.75) -> np.ndarray:

@@ -8,7 +8,8 @@ nested {name: ndarray} tree as the JAX function: timm Swin-V2, HTS-AT, the
 MoE adapters and the four task models (AVE's MMIL_Net, AVVP's MGN_Net,
 AVQA's AVQA_Fusion_Net and its grounding net, AVS's Pred_endecoder), and
 AVE's legacy models (MMIL_Net v1 with its DG-SCT adapters, the LAVisH
-MMIL_Net_v2).
+MMIL_Net_v2), and the AVSBench baseline's backbones (PVT-v2, B2_ResNet,
+the ResNet-18 of the legacy surface, VGGish and its PCA file).
 
 This module knows the reference's names; `avmoe_tpu_torch/convert.py` knows
 the port's tensors. `load_jax_variables` fills a port model from the trees
@@ -21,9 +22,6 @@ HTS-AT's `norm` does not in the AVE tree.
 
 `KeyLog` wraps a state dict to record which of its keys a converter read;
 the rest are the reference modules the converters drop.
-
-The converters of models the port does not have yet (PVT-v2, the ResNets,
-VGGish) are not here.
 """
 
 from __future__ import annotations
@@ -295,6 +293,107 @@ def convert_swinv2_timm(
     _set(p, "norm/scale", sd["norm.weight"])
     _set(p, "norm/bias", sd["norm.bias"])
     return _unflatten(p)
+
+
+# --------------------------------------------- AVSBench baseline backbones
+
+
+def convert_pvt_v2(
+    sd: Dict[str, np.ndarray],
+    depths: Sequence[int] = (3, 6, 40, 3),
+    sr_ratios: Sequence[int] = (8, 4, 2, 1),
+) -> Dict:
+    """Reference PVT-v2 state_dict -> params of backbones.pvt.PVTv2."""
+    p: Flat = {}
+    for s in range(4):
+        pe = f"patch_embed{s + 1}"
+        _conv(p, sd, f"{pe}.proj", f"{pe}/proj")
+        _ln(p, sd, f"{pe}.norm", f"{pe}/norm")
+        for i in range(depths[s]):
+            src, dst = f"block{s + 1}.{i}", f"block{s + 1}_{i}"
+            _ln(p, sd, f"{src}.norm1", f"{dst}/norm1")
+            _ln(p, sd, f"{src}.norm2", f"{dst}/norm2")
+            for name in ("q", "kv", "proj"):
+                _dense(p, sd, f"{src}.attn.{name}", f"{dst}/attn/{name}")
+            if sr_ratios[s] > 1:
+                _conv(p, sd, f"{src}.attn.sr", f"{dst}/attn/sr")
+                _ln(p, sd, f"{src}.attn.norm", f"{dst}/attn/norm")
+            _dense(p, sd, f"{src}.mlp.fc1", f"{dst}/mlp/fc1")
+            _dense(p, sd, f"{src}.mlp.fc2", f"{dst}/mlp/fc2")
+            _conv(p, sd, f"{src}.mlp.dwconv.dwconv", f"{dst}/mlp/dwconv/dwconv")
+        _ln(p, sd, f"norm{s + 1}", f"norm{s + 1}")
+    return _unflatten(p)
+
+
+def _resnet_block(p, bs, sd, src: str, dst: str, convs: int) -> None:
+    for c in range(1, convs + 1):
+        _conv(p, sd, f"{src}.conv{c}", f"{dst}/conv{c}")
+        _bn(p, bs, sd, f"{src}.bn{c}", f"{dst}/bn{c}")
+    if f"{src}.downsample.0.weight" in sd:
+        _conv(p, sd, f"{src}.downsample.0", f"{dst}/downsample_conv")
+        _bn(p, bs, sd, f"{src}.downsample.1", f"{dst}/downsample_bn")
+
+
+def convert_b2_resnet(
+    sd: Dict[str, np.ndarray], depths: Sequence[int] = (3, 4, 6, 3)
+) -> Tuple[Dict, Dict]:
+    """Reference B2_ResNet -> (params, batch_stats) of
+    backbones.resnet.B2ResNet, each branch the dict holds (layer3_1 /
+    layer4_1, layer3_2 / layer4_2)."""
+    p: Flat = {}
+    bs: Flat = {}
+    _conv(p, sd, "conv1", "conv1")
+    _bn(p, bs, sd, "bn1", "bn1")
+    layers = [("layer1", depths[0]), ("layer2", depths[1]),
+              ("layer3_1", depths[2]), ("layer4_1", depths[3]),
+              ("layer3_2", depths[2]), ("layer4_2", depths[3])]
+    for name, depth in layers:
+        if f"{name}.0.conv1.weight" not in sd:
+            continue
+        for i in range(depth):
+            _resnet_block(p, bs, sd, f"{name}.{i}", f"{name}/block_{i}", 3)
+    return _unflatten(p), _unflatten(bs)
+
+
+def convert_resnet18(
+    sd: Dict[str, np.ndarray], depths: Sequence[int] = (2, 2, 2, 2)
+) -> Tuple[Dict, Dict]:
+    """torchvision-style ResNet-18 -> (params, batch_stats) of
+    backbones.legacy.ResNet18."""
+    p: Flat = {}
+    bs: Flat = {}
+    _conv(p, sd, "conv1", "conv1")
+    _bn(p, bs, sd, "bn1", "bn1")
+    for s in range(4):
+        for i in range(depths[s]):
+            _resnet_block(p, bs, sd, f"layer{s + 1}.{i}", f"layer{s + 1}_{i}", 2)
+    if "fc.weight" in sd:
+        _dense(p, sd, "fc", "fc")
+    return _unflatten(p), _unflatten(bs)
+
+
+# torchvggish's nn.Sequential indices
+_VGGISH_FEATURES = [(0, "conv1"), (3, "conv2"), (6, "conv3_1"), (8, "conv3_2"),
+                    (11, "conv4_1"), (13, "conv4_2")]
+_VGGISH_EMBEDDINGS = [(0, "fc1_1"), (2, "fc1_2"), (4, "fc2")]
+
+
+def convert_vggish(sd: Dict[str, np.ndarray]) -> Dict:
+    """torchvggish VGG state_dict -> params of backbones.vggish.VGGish."""
+    p: Flat = {}
+    for idx, dst in _VGGISH_FEATURES:
+        _conv(p, sd, f"features.{idx}", dst)
+    for idx, dst in _VGGISH_EMBEDDINGS:
+        _dense(p, sd, f"embeddings.{idx}", dst)
+    return _unflatten(p)
+
+
+def convert_vggish_pca(sd: Dict[str, np.ndarray]):
+    """The VGGish PCA params file -> backbones.vggish.VGGishPostprocessor
+    (on the CPU)."""
+    from avmoe_tpu_torch.backbones.vggish import VGGishPostprocessor
+
+    return VGGishPostprocessor(sd["pca_eigen_vectors"], sd["pca_means"])
 
 
 # ------------------------------------------------------------- MoE adapters

@@ -1,5 +1,5 @@
-"""AVS decoder: resizes, FPN fusion, TPAVI and the four-scale temporal
-attention.
+"""AVS decoder: resizes, the ASPP classifier, FPN fusion, TPAVI and the
+four-scale temporal attention.
 
 Counterpart of `avmoe_tpu/heads/avs.py`. Feature maps stay channels-last,
 (B, H, W, C), as in the JAX package; the convs read them through a
@@ -104,6 +104,27 @@ class Conv2d(nn.Conv2d):
                          allow_tf32=b.allow_tf32):
                 return super().forward(x).permute(0, 2, 3, 1)
         return super().forward(x).permute(0, 2, 3, 1)
+
+
+class ASPPClassifier(nn.Module):
+    """The AVSBench baseline's per-stage projection
+    (`avmoe_tpu/heads/avs.py:73`): the sum of four 3x3 convs dilated by 3,
+    6, 12 and 18, each padded by its dilation."""
+
+    def __init__(self, in_channels: int, features: int,
+                 dilations: Tuple[int, ...] = (3, 6, 12, 18)):
+        super().__init__()
+        self.convs = []
+        for i, d in enumerate(dilations):
+            m = Conv2d(in_channels, features, 3, padding=d, dilation=d)
+            self.add_module(f"conv_{i}", m)
+            self.convs.append(m)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        out = self.convs[0](x)
+        for conv in self.convs[1:]:
+            out = out + conv(x)
+        return out
 
 
 class ResidualConvUnit(nn.Module):

@@ -26,7 +26,11 @@ a clip at 224 px, adapters in all four stages with 'mha' unimodal experts,
 each stage's tokens into TPAVI and an FPN decoder to 224-px masks; MS3 with
 'token' experts), its eval forward on both paths and the MS3 and S4 train
 steps (S4 trains HTS-AT: its weights' gradients come from K1b and K2b);
-last the AVVP, AVQA (its grounding stage too) and AVS drivers, run
+then the AVSBench baseline, `AVSBaselineModel` with a PVT-v2-b5 and with a
+ResNet-50 encoder in float32, fed by the port's VGGish from the wave, its
+eval forward and S4 train step (no kernel of the port on its path), and the
+slice's other modules (legacy backbones, attention zoo, losses) card vs
+CPU; last the AVVP, AVQA (its grounding stage too) and AVS drivers, run
 in-process to train, test and resume at full width.
 Phases (any failed check raises, and the
 script exits non-zero without printing the result line). Of the profiles
@@ -229,12 +233,12 @@ profiled", to keep the script inside its time limit:
      HTS-AT's included;
  28. the AVVP driver, `avmoe_tpu_torch.cli.train_avvp.main`, in-process on
      the full AVVPConfig() in bf16 (--synthetic --batch_size 4 --accum_itr
-     2: 8 micro-steps an epoch, the F1 suite over 2 eval batches): 2 epochs
-     with the K1 / K2 / K1b / K2b launches of 16 steps' and 4 eval
+     2: 8 micro-steps an epoch, the F1 suite over 2 eval batches): 1 epoch
+     with the K1 / K2 / K1b / K2b launches of 8 steps' and 2 eval
      forwards' plans, finite losses, frozen parameters bit-identical, every
      trainable one moved, best.json and the 12 expert dumps; --mode test,
      whose F1 suite equals that of the best step's evaluation in the train
-     run, all ten numbers; --resume --epochs 3, whose restored state equals
+     run, all ten numbers; --resume --epochs 2, whose restored state equals
      the latest checkpoint bit for bit; nothing of a run left allocated on
      the card after main returns; the loop's median step beside
      phase 19's, the loader's wait, a checkpoint's size, save and restore
@@ -253,11 +257,11 @@ profiled", to keep the script inside its time limit:
      make the first audio site NaN at the first update, in both packages'
      math (tests/test_torch_cli_seed_init.py); times as phase 28;
  30. the AVS driver, `cli/train_avs.py`: S4 on the full AVSConfig() in bf16
-     for 2 epochs (4 micro-steps an epoch, HTS-AT training: K1b with dbias
-     and K2b with weight gradients 12 a step each, every HTS-AT weight
-     moved; the sources archived), --mode test --save_pred_mask (40 mask
-     PNGs; the best step's mIoU and F-measure exactly), --resume to a third
-     epoch (the 220 tensors that cannot move at the seeded init,
+     for 1 epoch (4 micro-steps, HTS-AT training: K1b with dbias and K2b
+     with weight gradients 12 a step each, every HTS-AT weight moved; the
+     sources archived), --mode test --save_pred_mask (40 mask PNGs; the
+     best step's mIoU and F-measure exactly), --resume to a second epoch
+     (the 220 tensors that cannot move at the seeded init,
      `avs_seed_init_stalls`, unchanged over the runs; the others moved are
      counted: at the recipe's lr S4 collapses to a constant loss within a
      few updates, tools/s4_train_curve.py); then MS3 at the tiny config in
@@ -314,12 +318,39 @@ profiled", to keep the script inside its time limit:
      bit for bit, and after which every trainable tensor has moved over
      the two runs (but `LEGACY_CLI_STALLS`); the loop's median step, the
      loader's wait, a checkpoint's size, save and restore times, the peak
-     memory.
+     memory;
+ 36. (after 27) every module of the AVSBench baseline's slice in float32 at
+     tiny configs, card vs CPU on the same weights and inputs, rtol 1e-3,
+     atol 1e-4 (`phase_avs_baseline_tiny`): VGGish on 4 examples, PVT-v2-b0,
+     ResNet at depths 1-1-1-1 in eval and train mode (with its running
+     statistics), `AVSBaselineModel` with either encoder cut down (64-px
+     frames, T = 2, channel 32): its outputs, then one S4 train forward's
+     loss (rtol 1e-4), gradients (cosines as phase 12) and running
+     statistics; the legacy backbones, the attention zoo, the audio-guided
+     attention and every loss of the loss library (rtol 1e-4);
+ 37. the VGGish front end at full width (`phase_vggish_full`): waves (4, 5 x
+     16000) through `waveform_to_examples` on the card, in float64, against
+     the CPU's, |d| <= 1e-6 (1 + |ref|), then VGGish (seeded, float32) to (4,
+     5, 128) embeddings, finite and >= 0; both timed (CUDA events);
+ 38. `AVSBaselineModel` at full width in float32, once with PVT-v2-b5 and
+     once with ResNet-50 (`phase_avs_baseline`), seeded, frames (4, 5, 224,
+     224, 3) and phase 37's embeddings: the eval forward (the pyramid at 56
+     / 28 / 14 / 7, mask logits (20, 224, 224), the maps and the aligned
+     audio, all finite); the S4 objective's gradients at the seeded init,
+     every one finite and zero exactly on `baseline_seed_init_stalls`
+     (TPAVI's W_z set and the aligned audio's projection); one S4 step with
+     Adam over every parameter (PVT's DropPath on): a finite loss, every
+     parameter moved but that set, every running variance moved; no kernel
+     of the port launched (K1 to K2b counted over the phase); wall and
+     CUDA-event ms of the eval forward and of the step, peak memory, each
+     beside the card's name and power limit.
 
-The lines six to two before the last are JSON objects of the AVVP, AVQA
+The lines seven to two before the last are JSON objects of the AVVP, AVQA
 and AVS numbers (the AVS one with the S4 step's under `s4_*`), of the
 legacy models' and their drivers' (`ave_legacy`: `v1`, `lavish`, `v1_cli`,
-`lavish_cli`) and of the AVE driver's, the scv2 / Swin-V2-B flavor's and
+`lavish_cli`), of the AVSBench baseline's (`avs_baseline`: `vggish`, `pvt`,
+`resnet`, each with the card's name and power limit) and of the AVE
+driver's, the scv2 / Swin-V2-B flavor's and
 the AVVP, AVQA and AVS drivers' (`ave_cli`, `ave_scv2_base`, `avvp_cli`,
 `avqa_cli`, `avs_cli`) with phases 31 and 32 (`convert`, `audio_stats`),
 the line before the last one with the per-kernel summary (AVE's launches
@@ -333,6 +364,7 @@ S4 step's shapes under `param_grads`); the last line is {"ok": true,
 from __future__ import annotations
 
 import contextlib
+import copy
 import json
 import math
 import os
@@ -464,13 +496,17 @@ def k2b_shapes(bp: int):
     return [tuple(s) for s in out]
 
 
+def _card_line() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True, text=True,
+                          check=True, timeout=60).stdout.strip().splitlines()[0]
+
+
 def phase_card():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; this needs a GPU")
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True, text=True,
-                         check=True, timeout=60).stdout.strip().splitlines()[0]
-    log(smi)
+    log(_card_line())
     log(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]} "
         f"device {torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2200,19 +2236,32 @@ class _CliProbe:
             return
         saved, diff = self.resume_from, []
         model = state.model.state_dict()
-        diff += [k for k, v in saved["model"].items() if not torch.equal(model[k], v)]
+        diff += [k for k, v in saved["model"].items()
+                 if not torch.equal(model[k], v.to(model[k].device))]
         opt = state.optimizer.state_dict()["state"]
         for i, s in saved["optimizer"]["state"].items():
             diff += [f"optimizer {i} {k}" for k, v in s.items()
                      if not torch.equal(torch.as_tensor(opt[i][k]).cpu(), v.cpu())]
         acc = state.acc_grads or []
         if len(acc) != len(saved["acc_grads"] or []) or not all(
-                torch.equal(a, b) for a, b in zip(acc, saved["acc_grads"] or [])):
+                torch.equal(a, b.to(a.device)) for a, b in zip(acc, saved["acc_grads"] or [])):
             diff.append("acc_grads")
         for k in ("step", "updates", "mini_step"):
             if getattr(state, k) != saved[k]:
                 diff.append(k)
         self.resume_diff = diff
+
+
+def _saved_payload(manager):
+    """The latest checkpoint's payload for `_CliProbe`'s resume check,
+    memory-mapped on the host: each tensor is read where it is compared,
+    from the page cache the save left, instead of the whole file being
+    deserialized and copied to the card first (7.8 s for S4's 4.885-GB
+    checkpoint on an H100 machine)."""
+    from avmoe_tpu_torch.checkpoint.manager import STATE_FILE
+
+    return torch.load(os.path.join(manager.step_dir(manager.latest_step()), STATE_FILE),
+                      map_location="cpu", mmap=True, weights_only=True)
 
 
 def _adapter_of(name: str):
@@ -2239,6 +2288,12 @@ AVE_CLI_STALLS = frozenset({"audio_moe_p1_0", "audio_moe_p2_0"})
 AVVP_CLI_STALLS = AVE_CLI_STALLS
 
 
+# TPAVI's W_z conv kernel and bias and its BN scale start at zero (flax's
+# initializers, both packages): W_z's output is zero whatever its input, so
+# neither W_z nor the g, theta and phi products before it get a gradient
+TPAVI_W_Z_STALLS = r"^tpavi_b\d+\.((g|theta|phi|W_z_conv)\.|W_z_bn\.weight$)"
+
+
 def avs_seed_init_stalls(cfg, names) -> set:
     """The trainable tensors of an AVS model that no step moves from the
     seeded init. TPAVI's W_z_conv kernel and bias and W_z_bn's scale start at
@@ -2250,7 +2305,7 @@ def avs_seed_init_stalls(cfg, names) -> set:
     attention's video branch, which only scales that audio, get none either
     (tests/test_torch_avs_seed_init.py shows both on the CPU, in both
     packages)."""
-    dead = r"^tpavi_b\d+\.((g|theta|phi|W_z_conv)\.|W_z_bn\.weight$)"
+    dead = TPAVI_W_Z_STALLS
     if not cfg.sa_loss_flag:
         dead += (r"|^tpavi_b\d+\.align_channel\.|^temporal_attn\."
                  r"(v_fc|visual_rnn|video_enc_affine|video_encoder|video_gated)_\d+\.")
@@ -2457,7 +2512,7 @@ def phase_ave_cli(train_step_ms: float):
             f"bit-identical to epoch {epoch}'s evaluation in the train run, in {test_s:.1f} s; "
             f"launches {got}")
 
-        saved = CheckpointManager(tmp).load(map_location="cuda")
+        saved = _saved_payload(CheckpointManager(tmp))
         _, r, _, _ = _cli_run(train_ave, argv + ["--resume", "--epochs", "3"], counters,
                               resume_from=saved)
         del saved
@@ -3882,6 +3937,405 @@ def phase_avs_train(s4_model, model):
 
 
 # ---------------------------------------------------------------------------
+# The AVSBench baseline (models/avs_baseline.py) in float32: VGGish embeddings
+# from the wave, a PVT-v2-b5 or ResNet-50 encoder, ASPP, TPAVI and the FPN
+# decoder; and every other module of its slice (the legacy backbones, the
+# attention zoo, the audio-guided attention, the loss library) card vs CPU
+# ---------------------------------------------------------------------------
+
+BASELINE_T = 5                   # AVSBench S4: 5 frames a clip at 224 px, 5 s of 16 kHz
+BASELINE_FRAME = 224
+BASELINE_WAVE = 5 * 16_000
+
+
+def baseline_seed_init_stalls(names) -> set:
+    """The parameters of an AVSBaselineModel that an S4 step cannot move
+    from the seeded init: TPAVI's W_z set (`TPAVI_W_Z_STALLS`) and, since
+    the S4 loss has no masked audio-visual term, the aligned audio's
+    projection, which only feeds phi."""
+    dead = TPAVI_W_Z_STALLS + r"|^tpavi_b\d+\.align_channel\."
+    return {n for n in names if re.search(dead, n)}
+
+
+@torch.no_grad()
+def _noised_(module, seed: int):
+    """Seeded noise in every parameter and running statistic of `module`
+    (kernels at 1 / sqrt(fan-in), norm scales near 1, biases at 0.1,
+    running variances positive), so that no branch of a card-vs-CPU check
+    is zero. Returns the module."""
+    from avmoe_tpu_torch.ops.norm import BatchNorm, LayerNorm
+
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    for mod in module.modules():
+        norm = isinstance(mod, (LayerNorm, BatchNorm))
+        for name, t in list(mod.named_parameters(recurse=False)) + list(
+                mod.named_buffers(recurse=False)):
+            n = torch.randn(t.shape, generator=g)
+            if name == "running_var":
+                v = 0.5 + 0.2 * n.abs()
+            elif norm and name == "weight":
+                v = 1.0 + 0.1 * n
+            elif t.dim() >= 2:
+                v = n / math.sqrt(t[0].numel())
+            else:
+                v = 0.1 * n
+            t.copy_(v.to(t.device, t.dtype))
+    return module
+
+
+def _to_card(x):
+    """x with its tensors (in tuples, lists and dicts) copied to the card."""
+    if isinstance(x, torch.Tensor):
+        return x.cuda()
+    if isinstance(x, dict):
+        return {k: _to_card(v) for k, v in x.items()}
+    if isinstance(x, (tuple, list)):
+        return type(x)(_to_card(v) for v in x)
+    return x
+
+
+def _outputs_close(label: str, got, ref) -> float:
+    """Every tensor of `got` (card) against `ref` (CPU), in tuples, lists and
+    dicts, rtol 1e-3, atol 1e-4; the largest |d|."""
+    def flat(o):
+        if isinstance(o, dict):
+            o = [o[k] for k in sorted(o)]
+        if isinstance(o, (tuple, list)):
+            return [t for v in o for t in flat(v)]
+        return [o] if isinstance(o, torch.Tensor) else []
+
+    got, ref = flat(got), flat(ref)
+    check(len(got) == len(ref) and got, f"{label}: {len(got)} outputs vs {len(ref)}")
+    worst = 0.0
+    for a, b in zip(got, ref):
+        check(a.is_cuda and a.shape == b.shape, f"{label}: output on the card, shape")
+        d = (a.cpu() - b).abs()
+        worst = max(worst, d.max().item() if d.numel() else 0.0)
+        check(bool((d <= 1e-4 + 1e-3 * b.abs()).all()), f"{label}: card vs CPU max |d| "
+              f"{d.max().item():.3e}")
+    return worst
+
+
+def _module_vs_cpu(label: str, cpu_mod, *args, **kwargs) -> float:
+    """cpu_mod on the CPU and a copy on the card, on the same inputs."""
+    gpu_mod = copy.deepcopy(cpu_mod).cuda()
+    with torch.no_grad():
+        ref = cpu_mod(*args, **kwargs)
+        got = gpu_mod(*_to_card(args), **{k: _to_card(v) for k, v in kwargs.items()})
+    torch.cuda.synchronize()
+    return _outputs_close(label, got, ref)
+
+
+def _grads_vs_cpu(label: str, cpu, gpu, loss_fn, batch):
+    """One train forward's loss (rtol 1e-4) and every parameter's gradient,
+    card vs CPU, as the tiny train phases hold them (`_grad_cosines`: the
+    whole gradient's cosine and every leaf's above 1e-5 of the largest rms
+    >= 0.9999); then the running statistics the forward left, rtol 1e-3,
+    atol 1e-4. Returns (the whole cosine, the lowest leaf's)."""
+    out = {}
+    for name, model, b in (("cpu", cpu, batch), ("gpu", gpu, _to_card(batch))):
+        loss, _ = loss_fn(model, b, None)
+        names = [n for n, _ in model.named_parameters()]
+        grads = torch.autograd.grad(loss, [p for _, p in model.named_parameters()])
+        out[name] = (loss.item(), {n: g.detach().flatten() for n, g in zip(names, grads)})
+    (l_cpu, ref), (l_gpu, got) = out["cpu"], out["gpu"]
+    check(abs(l_gpu - l_cpu) <= 1e-4 * abs(l_cpu), f"{label}: loss {l_gpu} vs CPU {l_cpu}")
+    whole, low, leaf = _grad_cosines(got, ref)
+    check(whole >= 0.9999 and low >= 0.9999, f"{label}: gradients card vs CPU cosine "
+          f"{whole:.7f}, lowest leaf {low:.7f} ({leaf})")
+    stats_cpu = dict(cpu.named_buffers())
+    for n, b in gpu.named_buffers():
+        check(torch.allclose(b.cpu(), stats_cpu[n], rtol=1e-3, atol=1e-4),
+              f"{label}: running statistic {n} card vs CPU")
+    return whole, low
+
+
+def phase_avs_baseline_tiny():
+    """Every module of the baseline's slice in float32 at a tiny config, card
+    vs CPU on the same weights and inputs (rtol 1e-3, atol 1e-4): VGGish on
+    4 examples; PVT-v2-b0; ResNet at depths 1-1-1-1 (eval and train mode);
+    the baseline with both encoders (64-px frames, T = 2, channel 32): the
+    eval outputs, then one S4 train forward's loss, its gradients (cosines
+    per leaf, as phase 12 holds them) and the running statistics; the legacy backbones, the attention zoo, the
+    audio-guided attention and the loss library."""
+    import avmoe_tpu_torch.losses.classification as cl
+    import avmoe_tpu_torch.losses.contrastive as ct
+    import avmoe_tpu_torch.losses.yb as yb
+    from avmoe_tpu_torch.backbones import legacy
+    from avmoe_tpu_torch.backbones.pvt import PVTv2, pvt_v2_b0
+    from avmoe_tpu_torch.backbones.resnet import B2ResNet
+    from avmoe_tpu_torch.backbones.vggish import VGGish, waveform_to_examples
+    from avmoe_tpu_torch.heads.audio_guided import AudioGuidedAttention
+    from avmoe_tpu_torch.models.avs_baseline import AVSBaselineModel, make_avs_baseline_loss_fn
+    from avmoe_tpu_torch.ops import attention_zoo as zoo
+
+    rng = np.random.RandomState(41)
+    r = lambda *s: torch.from_numpy(rng.randn(*s).astype(np.float32))
+    u = lambda *s: torch.from_numpy(rng.uniform(0.02, 0.98, s).astype(np.float32))
+    hot = lambda *s: torch.from_numpy((rng.rand(*s) < 0.2).astype(np.float32))
+    worst = {}
+    ex = waveform_to_examples(0.1 * r(2, 32_000))[..., None].reshape(-1, 96, 64, 1)
+    worst["vggish"] = _module_vs_cpu("tiny VGGish", _noised_(VGGish(), 1), ex)
+    frames = torch.rand((4, 64, 64, 3), generator=torch.Generator().manual_seed(2))
+    worst["pvt_v2_b0"] = _module_vs_cpu("tiny PVT-v2-b0", _noised_(pvt_v2_b0(), 2), frames)
+    res = _noised_(B2ResNet(depths=(1, 1, 1, 1)), 3)
+    worst["resnet_eval"] = _module_vs_cpu("tiny ResNet eval", res, frames)
+    gpu_res = copy.deepcopy(res).cuda()
+    with torch.no_grad():
+        worst["resnet_train"] = _outputs_close("tiny ResNet train", gpu_res(frames.cuda(),
+                                                                          train=True),
+                                               res(frames, train=True))
+    gbufs = dict(gpu_res.named_buffers())
+    check(all(torch.allclose(gbufs[n].cpu(), b, rtol=1e-3, atol=1e-4)
+              for n, b in res.named_buffers()), "tiny ResNet train: running stats")
+    cosines = {}
+    for backbone in ("pvt", "resnet"):
+        enc = PVTv2(dims=(32, 64, 160, 256), depths=(1, 1, 1, 1), mlp_ratios=(8, 8, 4, 4),
+                    drop_path_rate=0.0) if backbone == "pvt" else B2ResNet(depths=(1, 1, 1, 1))
+        cpu = _noised_(AVSBaselineModel(backbone, channel=32, num_segments=2, device="cpu",
+                                        seed=None, encoder=enc), 4)
+        imgs, audio = torch.rand((2, 2, 64, 64, 3), generator=torch.Generator().manual_seed(5)), \
+            r(2, 2, 128)
+        label = f"tiny AVS baseline {backbone}"
+        worst[f"baseline_{backbone}"] = _module_vs_cpu(label, cpu, imgs, audio)
+        gpu = copy.deepcopy(cpu).cuda()
+        batch = dict(images=imgs, audio_feature=audio,
+                     mask=(torch.rand((2, 64, 64), generator=torch.Generator().manual_seed(6))
+                           > 0.6).float())
+        cosines[backbone] = _grads_vs_cpu(f"{label} S4 train", cpu, gpu,
+                                          make_avs_baseline_loss_fn(cpu), batch)
+    worst["resnet18"] = _module_vs_cpu("tiny ResNet-18", _noised_(legacy.ResNet18(5), 7),
+                                       torch.rand((2, 64, 64, 3),
+                                                  generator=torch.Generator().manual_seed(8)))
+    worst["netvlad"] = _module_vs_cpu("tiny NetVLAD", _noised_(legacy.NetVLAD(4, 8), 9),
+                                      r(2, 4, 4, 8))
+    worst["avenet"] = _module_vs_cpu("tiny AVENet", _noised_(legacy.AVENet(24), 10),
+                                     r(2, 32, 16, 1))
+    worst["simple_vit"] = _module_vs_cpu(
+        "tiny SimpleViT", _noised_(legacy.SimpleViT(16, 2, 2, 8, num_patches=16), 11),
+        r(2, 32, 32, 3))
+    worst["phm_linear"] = _module_vs_cpu("tiny PHMLinear", _noised_(legacy.PHMLinear(2, 8, 6),
+                                                                    12), r(3, 8))
+    mask = torch.from_numpy(rng.rand(2, 3, 5) > 0.3)
+    worst["scaled_dot_product"] = _module_vs_cpu(
+        "ScaledDotProductAttention", zoo.ScaledDotProductAttention(), r(2, 3, 8), r(2, 5, 8),
+        r(2, 5, 4), mask)
+    worst["additive"] = _module_vs_cpu("AdditiveAttention",
+                                       _noised_(zoo.AdditiveAttention(8, 6, 4), 13),
+                                       r(2, 3, 8), r(2, 5, 6), r(2, 5, 7))
+    worst["location_aware"] = _module_vs_cpu(
+        "LocationAwareAttention", _noised_(zoo.LocationAwareAttention(8, 6, 4, 3, True), 14),
+        r(2, 8), r(2, 5, 6), torch.softmax(r(2, 5), -1))
+    worst["multi_head"] = _module_vs_cpu("MultiHeadAttention",
+                                         _noised_(zoo.MultiHeadAttention(10, 6, 7, 8, 2), 15),
+                                         r(2, 3, 10), r(2, 5, 6), r(2, 5, 7))
+    worst["audio_guided"] = _module_vs_cpu(
+        "AudioGuidedAttention", _noised_(AudioGuidedAttention(16, 8, 12), 16),
+        r(2, 2, 3, 3, 16), r(2, 2, 8))
+    t28, p28 = hot(6, 28), u(6, 28)
+    bags = u(10, 10, 2, 28)
+    losses = {
+        "label_smoothed_bce": (cl.label_smoothed_bce, (p28, t28, 0.1)),
+        "asymmetric_loss": (cl.asymmetric_loss, (p28, t28)),
+        "yb_loss": (yb.yb_loss, (bags, torch.tensor([2, 2, 0, 5]), torch.tensor([1, 3, 4, 5]),
+                                 t28)),
+        "yb_loss2_ada": (lambda *a: yb.yb_loss2("ada", x1=a[0], x2=a[1], target_pair=a[2:]),
+                         (r(6, 16), r(6, 16), t28, hot(6, 28))),
+        "yb_loss2_mimix": (lambda *a: yb.yb_loss2("mimix", x1=a[0], x2=a[1], target=a[2],
+                                                  rand_idx=a[3], sample_idx=a[4]),
+                           (r(6, 16), r(6, 16), t28, torch.tensor([5, 4, 2, 0, 1, 3]),
+                            torch.tensor([0, 3, 3, 1, 1, 2]))),
+        "contrastive_loss": (ct.contrastive_loss, (r(8, 5), r(8, 5), hot(8))),
+        "info_nce_loss": (ct.info_nce_loss, (r(3, 10, 12), r(3, 10, 12))),
+        "mask_info_nce_loss": (ct.mask_info_nce_loss, (r(8, 12), r(8, 12), torch.eye(8)[:6])),
+        "contrastive_yb_loss": (ct.yb_loss, (bags, torch.tensor([2, 0, 1, 5]),
+                                             torch.tensor([1, 3, 4, 5]), t28)),
+        "contrastive_yb_loss2_mix": (lambda *a: ct.yb_loss2(*a, aug_type="mix"),
+                                     (u(13, 28), u(13, 28), torch.tensor([4, 0, 2]),
+                                      torch.tensor([1, 1, 5]), t28)),
+    }
+    for name, (fn, args) in losses.items():
+        ref, got = fn(*args), fn(*_to_card(args))
+        d = abs(float(got) - float(ref))
+        check(got.is_cuda and d <= 1e-4 * abs(float(ref)) + 1e-6, f"{name}: card {float(got)} "
+              f"vs CPU {float(ref)}")
+        worst[name] = d
+    log(f"[avs baseline tiny] fp32 card vs CPU (rtol 1e-3, atol 1e-4; losses rtol 1e-4): "
+        f"max |d| {json.dumps({k: float(f'{v:.3e}') for k, v in worst.items()})}; the S4 "
+        f"train forward's loss and running statistics of both baselines within their bounds, "
+        f"gradient cosines (whole, lowest leaf) {cosines} (>= 0.9999)")
+
+
+def phase_vggish_full():
+    """The VGGish front end at full width: waves (4, 5 * 16000) through
+    `waveform_to_examples` on the card (float64 arithmetic) against the
+    same on the CPU, |d| <= 1e-6 (1 + |ref|); then VGGish (seeded, float32)
+    on the 20 examples: (4, 5, 128) embeddings, finite and >= 0. Times (CUDA
+    events) of the front end and of VGGish. Returns (embeddings, numbers)."""
+    from avmoe_tpu_torch.backbones.vggish import VGGish, waveform_to_examples
+    from avmoe_tpu_torch.models.ave import init_parameters
+
+    rng = np.random.RandomState(51)
+    t = np.arange(BASELINE_WAVE) / 16_000.0
+    waves = (0.3 * np.sin(2 * np.pi * rng.uniform(200, 3000, (BATCH, 1)) * t)
+             + 0.05 * rng.randn(BATCH, BASELINE_WAVE)).astype(np.float32)
+    cpu_ex = waveform_to_examples(torch.from_numpy(waves))
+    w = torch.from_numpy(waves).cuda()
+    ex = waveform_to_examples(w)
+    torch.cuda.synchronize()
+    check(tuple(ex.shape) == (BATCH, BASELINE_T, 96, 64) and ex.is_cuda,
+          f"vggish examples shape {tuple(ex.shape)}")
+    d = (ex.cpu().double() - cpu_ex.double()).abs()
+    err = d.max().item()
+    check(bool((d <= 1e-6 * (1 + cpu_ex.double().abs())).all()),
+          f"vggish examples card vs CPU max |d| {err:.3e}")
+    fe_ms = time_ms(lambda: waveform_to_examples(w), iters=10, warmup=2)
+    model = VGGish().cuda()
+    init_parameters(model, torch.Generator(device="cuda").manual_seed(52))
+    x = ex.reshape(-1, 96, 64, 1)
+    with torch.no_grad():
+        emb = model(x).reshape(BATCH, BASELINE_T, -1)
+        vgg_ms = time_ms(lambda: model(x), iters=10, warmup=2)
+    check(tuple(emb.shape) == (BATCH, BASELINE_T, 128) and bool(torch.isfinite(emb).all())
+          and bool((emb >= 0).all()), "vggish embeddings: shape, finite, >= 0")
+    card = _card_line()
+    log(f"[avs baseline] VGGish front end: waves ({BATCH}, {BASELINE_WAVE}) -> examples "
+        f"{tuple(ex.shape)} on the card, float64, max |d| {err:.3e} against the CPU's; "
+        f"{fe_ms:.3f} ms (CUDA events); VGGish float32 on {x.shape[0]} examples: "
+        f"{vgg_ms:.3f} ms -> embeddings {tuple(emb.shape)}; {card}")
+    del model
+    torch.cuda.empty_cache()
+    return emb, {"examples_max_abs_err": err, "frontend_ms": fe_ms, "vggish_ms": vgg_ms,
+                 "examples": list(ex.shape), "card": card}
+
+
+def _baseline_masks(seed: int, device):
+    """(BATCH, 224, 224) first-frame masks: one random rectangle each."""
+    rng = np.random.RandomState(seed)
+    M = BASELINE_FRAME
+    mask = np.zeros((BATCH, M, M), np.float32)
+    for b in range(BATCH):
+        h0, w0 = rng.randint(0, M // 2, 2)
+        mask[b, h0:h0 + rng.randint(M // 8, M // 2), w0:w0 + rng.randint(M // 8, M // 2)] = 1
+    return torch.from_numpy(mask).to(device)
+
+
+def _events_and_wall(run, n: int):
+    """Wall ms (host clock, synced) and device ms (CUDA events bracketing
+    the work) of each of n calls of run: (median wall, median device)."""
+    walls, dev = [], []
+    for _ in range(n):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        a.record()
+        run()
+        b.record()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        dev.append(a.elapsed_time(b))
+    return float(np.median(walls)), float(np.median(dev))
+
+
+def phase_avs_baseline(backbone: str, audio_feature: torch.Tensor) -> dict:
+    """AVSBaselineModel(backbone) at full width (PVT-v2-b5 or ResNet-50,
+    channel 256, TPAVI at the four stages) in float32 on the card, seeded,
+    frames (4, 5, 224, 224, 3) and VGGish embeddings (4, 5, 128): the eval
+    forward (the encoder's pyramid at 56 / 28 / 14 / 7, mask logits (20,
+    224, 224), feature maps and aligned audio, all finite); the S4 step's
+    gradients at the seeded init (every one finite, exactly the
+    `baseline_seed_init_stalls` set zero); one S4 train step (Adam over
+    every parameter; DropPath on for PVT): a finite loss, every parameter
+    moved but that set, every running variance moved; no kernel of the
+    port launched. Wall and CUDA-event ms of the eval forward and the step,
+    peak memory."""
+    from avmoe_tpu_torch.config import TrainConfig
+    from avmoe_tpu_torch.models.avs_baseline import AVSBaselineModel, make_avs_baseline_loss_fn
+    from avmoe_tpu_torch.train.state import create_train_state
+    from avmoe_tpu_torch.train.steps import make_train_step
+
+    label = f"avs baseline {backbone}"
+    counters = {**_counters(), **_train_counters()}
+    for c in counters.values():
+        c.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    model = AVSBaselineModel(backbone, num_segments=BASELINE_T, device="cuda", seed=0)
+    n_params = sum(p.numel() for p in model.parameters())
+    gen = torch.Generator(device="cuda").manual_seed(61)
+    imgs = torch.rand((BATCH, BASELINE_T, BASELINE_FRAME, BASELINE_FRAME, 3), generator=gen,
+                      device="cuda")
+    frames = BATCH * BASELINE_T
+    with torch.no_grad():
+        pyramid = model.encoder_backbone(imgs.reshape(frames, BASELINE_FRAME, BASELINE_FRAME, 3))
+    sizes = [p.shape[1] for p in pyramid]
+    check(sizes == [BASELINE_FRAME // 2 ** (i + 2) for i in range(4)] and [p.shape[-1] for p in pyramid] == list(model.encoder_backbone.widths),
+          f"{label}: pyramid {[tuple(p.shape) for p in pyramid]}")
+    del pyramid
+    out = model(imgs, audio_feature)
+    check(tuple(out["mask_logits"].shape) == (frames, BASELINE_FRAME, BASELINE_FRAME)
+          and bool(torch.isfinite(out["mask_logits"]).all()), f"{label}: mask_logits")
+    for i, (f, a) in enumerate(zip(out["feature_map_list"], out["a_fea_list"])):
+        check(tuple(f.shape) == (frames, sizes[i], sizes[i], model.channel)
+              and tuple(a.shape) == (BATCH, BASELINE_T, model.channel)
+              and bool(torch.isfinite(f).all() and torch.isfinite(a).all()),
+              f"{label}: stage {i} map / audio")
+    del out
+    eval_ms, eval_dev = _events_and_wall(lambda: model(imgs, audio_feature), 3)
+
+    lr = TrainConfig().lr
+    state = create_train_state(model, TrainConfig(accum_steps=1, lr=lr, lr_mlp=lr),
+                               steps_per_epoch=100, frozen_scopes=())
+    check(len(state.trainable) == len(list(model.parameters())),
+          f"{label}: not every parameter trains")
+    loss_fn = make_avs_baseline_loss_fn(model)
+    batch = dict(images=imgs, audio_feature=audio_feature, mask=_baseline_masks(62, "cuda"))
+    names = list(state.trainable)
+    loss, _ = loss_fn(model, batch, gen)
+    grads = torch.autograd.grad(loss, list(state.trainable.values()), allow_unused=True)
+    stalls = baseline_seed_init_stalls(names)
+    zero = {n for n, g in zip(names, grads) if g is None or not bool(g.any())}
+    finite = all(g is None or bool(torch.isfinite(g).all()) for g in grads)
+    check(finite and math.isfinite(loss.item()), f"{label}: a gradient or the loss not finite")
+    check(zero == stalls, f"{label}: zero gradients beyond the W_z set "
+          f"{sorted(zero - stalls)[:5]}, W_z set with a gradient {sorted(stalls - zero)[:5]}")
+    del grads, loss
+    start = {n: p.detach().clone() for n, p in state.trainable.items()}
+    var0 = {n: b.clone() for n, b in model.named_buffers() if n.endswith("running_var")}
+    step = make_train_step(loss_fn)
+    state, met = step(state, batch, gen)
+    torch.cuda.synchronize()
+    step_loss = float(met["loss"])
+    check(math.isfinite(step_loss), f"{label}: step loss {step_loss}")
+    unchanged = {n for n, p in state.trainable.items() if torch.equal(p, start[n])}
+    check(unchanged == stalls, f"{label}: unmoved beyond the W_z set "
+          f"{sorted(unchanged - stalls)[:5]}; W_z set moved {sorted(stalls - unchanged)[:5]}")
+    bufs = dict(model.named_buffers())
+    check(var0 and all(not torch.equal(bufs[n], v) for n, v in var0.items()),
+          f"{label}: a running variance did not move")
+    del start
+    step_ms, step_dev = _events_and_wall(lambda: step(state, batch, gen), 3)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    launches = {k: c.launches for k, c in counters.items()}
+    check(not any(launches.values()), f"{label}: kernels launched {launches}")
+    card = _card_line()
+    log(f"[avs baseline] {label}: {n_params / 1e6:.2f} M parameters, float32, frames "
+        f"({BATCH}, {BASELINE_T}, {BASELINE_FRAME}, {BASELINE_FRAME}, 3); pyramid {sizes}; "
+        f"eval {eval_ms:.2f} ms wall, {eval_dev:.2f} ms between CUDA events "
+        f"({BATCH / eval_ms * 1e3:.3f} clips/s); S4 step loss {step_loss:.5f}, "
+        f"{len(names) - len(stalls)} of {len(names)} tensors moved, the {len(stalls)} of the "
+        f"W_z set (and the aligned audio's projection) not; step {step_ms:.2f} ms wall, "
+        f"{step_dev:.2f} ms between CUDA events ({BATCH / step_ms * 1e3:.3f} clips/s); peak "
+        f"memory {peak:.2f} GiB; launches {launches}; {card}")
+    del model, state, batch, imgs
+    torch.cuda.empty_cache()
+    return {"params_m": n_params / 1e6, "eval_ms": eval_ms, "eval_device_ms": eval_dev,
+            "eval_clips_per_s": BATCH / eval_ms * 1e3, "train_step_ms": step_ms,
+            "train_step_device_ms": step_dev, "train_clips_per_s": BATCH / step_ms * 1e3,
+            "peak_gib": peak, "step_loss": step_loss, "moved_tensors": len(names) - len(stalls),
+            "seed_init_stalled_tensors": len(stalls), "launches": launches, "card": card}
+
+
+# ---------------------------------------------------------------------------
 # The AVVP, AVQA and AVS drivers (cli/train_{avvp,avqa,avs}.py) in-process at
 # full width in bf16: train by epoch, evaluate, keep the best checkpoint,
 # test and resume
@@ -3930,7 +4384,7 @@ def _cli_resume(label: str, mod, argv, counters, directory: str, steps_per_epoch
 
     manager = CheckpointManager(directory)
     latest = manager.latest_step()
-    saved = manager.load(map_location="cuda")
+    saved = _saved_payload(manager)
     _, r, _, _ = _cli_run(mod, argv, counters, resume_from=saved)
     del saved
     check(r.resume_diff == [], f"{label} resume: restored state differs from step {latest}'s "
@@ -3953,10 +4407,10 @@ def _cli_resume(label: str, mod, argv, counters, directory: str, steps_per_epoch
 
 def phase_avvp_cli(train_step_ms: float):
     """`avmoe_tpu_torch.cli.train_avvp.main` in-process on the full
-    AVVPConfig() in bf16: train (2 epochs of 32 synthetic clips, batch 4,
-    accum 2: 8 micro-steps an epoch, the F1 suite over 2 eval batches),
-    --mode test on its checkpoints (the F1 suite of the best step's
-    evaluation, exactly), --resume to a third epoch."""
+    AVVPConfig() in bf16: train (1 epoch of 32 synthetic clips, batch 4,
+    accum 2: 8 micro-steps, the F1 suite over 2 eval batches), --mode test
+    on its checkpoints (the F1 suite of the best step's evaluation,
+    exactly), --resume to a second epoch."""
     import shutil
     import tempfile
 
@@ -3977,10 +4431,10 @@ def phase_avvp_cli(train_step_ms: float):
         torch.cuda.synchronize()
         base_mem = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
-        best, p, got, train_s = _cli_run(train_avvp, argv + ["--epochs", "2"], counters)
+        best, p, got, train_s = _cli_run(train_avvp, argv + ["--epochs", "1"], counters)
         peak = torch.cuda.max_memory_allocated() / 2**30
         steps, evals = len(p.losses), p.eval_batches
-        check(steps == 2 * spe and evals == 4 and len(p.results) == 2,
+        check(steps == spe and evals == 2 and len(p.results) == 1,
               f"avvp cli: {steps} train steps, {evals} eval batches, {len(p.results)} evaluations")
         want = _run_plan(per_step, per_eval, steps, evals)
         res, _ = _cli_train_report("avvp cli", p, got, want, spe, base_mem,
@@ -4006,8 +4460,8 @@ def phase_avvp_cli(train_step_ms: float):
             f"evaluation in the train run, all 10 numbers ({summary}), in {test_s:.1f} s; "
             f"launches {got_t}")
         losses3, restore_ms, _ = _cli_resume("avvp cli", train_avvp,
-                                             argv + ["--resume", "--epochs", "3"], counters,
-                                             tmp, spe, 3)
+                                             argv + ["--resume", "--epochs", "2"], counters,
+                                             tmp, spe, 2)
         log(f"[time] avvp cli: median loop step wall {res['loop_step_wall_ms']:.2f} ms "
             f"(phase_avvp_train's step {train_step_ms:.2f} ms); loader wait "
             f"{res['loader_wait_ms_per_step']:.3f} ms a step; checkpoint "
@@ -4173,10 +4627,10 @@ def _param_grad_launches():
 
 def phase_avs_cli(train_step_ms: float):
     """`avmoe_tpu_torch.cli.train_avs.main` in-process: S4 on the full
-    AVSConfig() in bf16 (2 epochs of 16 synthetic clips, batch 4, accum 2:
-    4 micro-steps an epoch in which HTS-AT trains, 2 eval batches), --mode
-    test --save_pred_mask (a PNG a mask evaluated, the best step's mIoU and
-    F-measure exactly), --resume to a third epoch; then MS3 at the tiny
+    AVSConfig() in bf16 (1 epoch of 16 synthetic clips, batch 4, accum 2: 4
+    micro-steps in which HTS-AT trains, 2 eval batches), --mode test
+    --save_pred_mask (a PNG a mask evaluated, the best step's mIoU and
+    F-measure exactly), --resume to a second epoch; then MS3 at the tiny
     config on the card (its full-width step is phase_avs_train's)."""
     import shutil
     import tempfile
@@ -4200,10 +4654,10 @@ def phase_avs_cli(train_step_ms: float):
         base_mem = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
         with _param_grad_launches() as grads:
-            best, p, got, train_s = _cli_run(train_avs, argv + ["--max_epoches", "2"], counters)
+            best, p, got, train_s = _cli_run(train_avs, argv + ["--max_epoches", "1"], counters)
         peak = torch.cuda.max_memory_allocated() / 2**30
         steps, evals = len(p.losses), p.eval_batches
-        check(steps == 2 * spe and evals == 4 and len(p.results) == 2,
+        check(steps == spe and evals == 2 and len(p.results) == 1,
               f"avs cli: {steps} train steps, {evals} eval batches")
         want_grads = {"K1b dbias": steps * htsat_blocks, "K2b weights": steps * htsat_blocks}
         check(grads == want_grads, f"avs cli: parameter-gradient launches {grads}, want "
@@ -4212,7 +4666,7 @@ def phase_avs_cli(train_step_ms: float):
         check(len(htsat) > 0 and all(not torch.equal(p.state.trainable[n], p.initial[n])
                                      for n in htsat), "avs cli: an HTS-AT weight did not move")
         n_htsat = len(htsat)
-        # 4 Adam updates leave tensors behind zero-initialized gates unmoved:
+        # 2 Adam updates leave tensors behind zero-initialized gates unmoved:
         # moved is held over the train and resumed runs
         res, start = _cli_train_report("avs cli", p, got,
                                        _run_plan(per_step, per_eval, steps, evals), spe,
@@ -4250,8 +4704,8 @@ def phase_avs_cli(train_step_ms: float):
         # gradient: HTS-AT's moving is held, and the tensors that cannot move
         still = avs_seed_init_stalls(cfg, start)
         losses3, restore_ms, res["moved_tensors"] = _cli_resume(
-            "avs cli", train_avs, argv + ["--resume", "--max_epoches", "3"], counters, tmp, spe,
-            3, start=start, still=still, every=False)
+            "avs cli", train_avs, argv + ["--resume", "--max_epoches", "2"], counters, tmp, spe,
+            2, start=start, still=still, every=False)
 
         # MS3 at the tiny config, float32, on the card: 8 clips, 4 micro-steps
         # and Adam updates
@@ -4392,6 +4846,14 @@ def main():
     done("AVS train")
     del avs_s4, avs_ms3
     torch.cuda.empty_cache()
+    phase_avs_baseline_tiny()
+    emb, baseline = phase_vggish_full()
+    baseline = {"clips": BATCH, "frames_per_clip": BASELINE_T, "frame_px": BASELINE_FRAME,
+                "dtype": "float32", "vggish": baseline}
+    for backbone in ("pvt", "resnet"):
+        baseline[backbone] = phase_avs_baseline(backbone, emb)
+        done(f"AVS baseline {backbone}")
+    del emb
     avvp_cli = phase_avvp_cli(avvp_step_ms)
     done("AVVP CLI")
     avqa_cli = phase_avqa_cli(avqa_step_ms)
@@ -4456,6 +4918,7 @@ def main():
         "s4_train_idle_share_profiled": s4_train["prof"][2],
         "s4_launches_per_step": s4_train["launches"]}}))
     log(json.dumps({"ave_legacy": legacy}))
+    log(json.dumps({"avs_baseline": baseline}))
     log(json.dumps({"ave_cli": ave_cli, "ave_scv2_base": flavor, "avvp_cli": avvp_cli,
                     "avqa_cli": avqa_cli, "avs_cli": avs_cli, "convert": convert,
                     "audio_stats": audio_stats}))

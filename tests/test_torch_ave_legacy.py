@@ -1,8 +1,9 @@
 """The port's legacy AVE models (avmoe_tpu_torch/models/ave_legacy.py,
 moe/dgsct_adapter.py) against the JAX package's, on the CPU.
 
-At `replace(tiny_ave_config(), d_model=32)` in float32, with the same seeded
-numpy inputs and the JAX tree (seeded noise: non-zero gates, gate_av and
+At `replace(tiny_ave_config(), d_model=32)` with Swin cut to depths 1-1-3-1
+and HTS-AT to 1-1-1-1 (`_cfgs`), in float32, with the same seeded numpy
+inputs and the JAX tree (seeded noise: non-zero gates, gate_av and
 latent tokens) loaded into the port with `load_jax_variables`:
 
   * DGSCTAdapter (output and s_maps) and LAVisHAdapter, eval and train
@@ -21,6 +22,8 @@ tests/test_torch_ave_legacy_train.py.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -45,11 +48,19 @@ V2_OUT = ("event_probs", "event_logits")
 
 
 def _cfgs():
+    """The JAX and port configs, Swin at depths 1-1-3-1 and HTS-AT at
+    1-1-1-1: V1 keeps an adapter site in every stage (4 of the tiny
+    depths' 12) and each stage its dtype pattern, and the JAX package's
+    trace and compile of the tiny depths (Swin 2-2-18-2) took ~20 s a model
+    for each."""
     from avmoe_tpu.config import replace as jreplace, tiny_ave_config as jtiny
 
     from avmoe_tpu_torch.config import replace, tiny_ave_config
 
-    return jreplace(jtiny(), d_model=32), replace(tiny_ave_config(), d_model=32)
+    cfgs = jreplace(jtiny(), d_model=32), replace(tiny_ave_config(), d_model=32)
+    return tuple(dataclasses.replace(
+        c, swin=dataclasses.replace(c.swin, depths=(1, 1, 3, 1)),
+        htsat=dataclasses.replace(c.htsat, depths=(1, 1, 1, 1))) for c in cfgs)
 
 
 def _inputs(cfg, seed: int = 0):

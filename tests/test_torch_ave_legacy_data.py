@@ -8,13 +8,16 @@ legacy models, on the CPU.
   * `LAVisHView`'s keys and shapes;
   * `cli/train_ave.main` with `--model v1` and `--model lavish` at `--tiny
     --synthetic --device cpu`: two epochs, `--mode test` (its accuracy is
-    best.json's, the best evaluation's), `--resume` for a third epoch.
+    best.json's, the best evaluation's), `--resume` for a third epoch. The
+    command line's tiny config is cut to Swin 1-1-3-1 / HTS-AT 1-1-1-1 for
+    these runs (`_cut_depths`): nothing they check depends on the depth.
 
 No JAX but in the spectrogram comparison.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 
@@ -64,6 +67,21 @@ def test_lavish_view_replaces_the_wave_by_the_fbank_image():
                                   wave_to_lavish_spec(raw["wave"], sample_rate=32_000, size=64))
     np.testing.assert_array_equal(item["images"], raw["images"])
     np.testing.assert_array_equal(item["labels"], raw["labels"])
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _cut_depths():
+    """`--tiny` as Swin 1-1-3-1 / HTS-AT 1-1-1-1 (the tiny depths, Swin
+    2-2-18-2, made the four command-line runs of this file ~60 s)."""
+    def cut():
+        cfg = tiny_ave_config()
+        return dataclasses.replace(
+            cfg, swin=dataclasses.replace(cfg.swin, depths=(1, 1, 3, 1)),
+            htsat=dataclasses.replace(cfg.htsat, depths=(1, 1, 1, 1)))
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(train_ave, "tiny_ave_config", cut)
+        yield
 
 
 @pytest.fixture(scope="module", params=["v1", "lavish"])

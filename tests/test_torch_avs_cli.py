@@ -2,8 +2,10 @@
 the CPU at the tiny and mini sizes: S4 trains for two epochs (HTS-AT
 training), `--mode test --save_pred_mask` evaluates the best checkpoint and
 writes its masks, `--resume` runs the epoch after the latest checkpoint's;
-MS3 trains and tests; the mini configs through the on-disk S4 and MS3
-readers; `build_config` field by field and the flags against the JAX CLI's.
+MS3 trains and tests (these runs at `--tiny` with both backbones cut to
+depths 1-1-1-1, `_main`: nothing they check depends on the depth); the mini
+configs through the on-disk S4 and MS3 readers; `build_config` field by
+field and the flags against the JAX CLI's.
 
 No JAX computation: the JAX CLI's flow is what these runs follow, its parts
 are held against the JAX package in tests/test_torch_avs*.py and
@@ -25,12 +27,27 @@ import torch
 
 from avmoe_tpu_torch.checkpoint.manager import CheckpointManager
 from avmoe_tpu_torch.cli import train_avs
+from avmoe_tpu_torch.config import tiny_avs_config
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 torch.set_num_threads(2)
 
 TINY = ["--tiny", "--synthetic", "--device", "cpu", "--no-bf16", "--train_batch_size", "1",
         "--accum_itr", "2", "--num_workers", "2"]
+
+
+def _main(argv):
+    """`train_avs.main(argv)` with `--tiny` as both backbones at depths
+    1-1-1-1 (the tiny depths, Swin 2-2-18-2, made this file's runs ~40 s)."""
+    def cut():
+        cfg = tiny_avs_config()
+        return dataclasses.replace(
+            cfg, swin=dataclasses.replace(cfg.swin, depths=(1, 1, 1, 1)),
+            htsat=dataclasses.replace(cfg.htsat, depths=(1, 1, 1, 1)))
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(train_avs, "tiny_avs_config", cut)
+        return train_avs.main(argv)
 
 
 def _steps(directory) -> list:
@@ -40,7 +57,7 @@ def _steps(directory) -> list:
 @pytest.fixture(scope="module")
 def s4(tmp_path_factory):
     ck = str(tmp_path_factory.mktemp("avs_s4"))
-    best = train_avs.main(TINY + ["--setting", "s4", "--max_epoches", "2",
+    best = _main(TINY + ["--setting", "s4", "--max_epoches", "2",
                                   "--model_save_dir", ck])
     return dict(ck=ck, best=best)
 
@@ -70,7 +87,7 @@ def test_s4_test_mode_saves_every_mask_and_reproduces_the_best(s4):
     ck = s4["ck"]
     with open(os.path.join(ck, "best.json")) as f:
         best = json.load(f)
-    miou = train_avs.main(TINY + ["--setting", "s4", "--mode", "test", "--save_pred_mask",
+    miou = _main(TINY + ["--setting", "s4", "--mode", "test", "--save_pred_mask",
                                   "--model_save_dir", ck])
     assert miou == best["metric"]
     masks = sorted(os.listdir(os.path.join(ck, "pred_masks")))
@@ -82,7 +99,7 @@ def test_s4_resume_runs_the_next_epoch(s4, capsys):
     latest = max(_steps(ck))
     epoch = latest // 4 + 1           # the one after the latest checkpoint's
     capsys.readouterr()
-    train_avs.main(TINY + ["--setting", "s4", "--resume", "--max_epoches", str(epoch),
+    _main(TINY + ["--setting", "s4", "--resume", "--max_epoches", str(epoch),
                            "--model_save_dir", ck])
     text = capsys.readouterr().err     # main's logging.basicConfig writes to stderr
     assert f"resumed from step {latest}" in text
@@ -91,11 +108,11 @@ def test_s4_resume_runs_the_next_epoch(s4, capsys):
 
 def test_ms3_trains_and_tests(tmp_path):
     ck = str(tmp_path)
-    best = train_avs.main(TINY + ["--setting", "ms3", "--max_epoches", "1",
+    best = _main(TINY + ["--setting", "ms3", "--max_epoches", "1",
                                   "--model_save_dir", ck])
     trainable = [n for n, _ in CheckpointManager(ck).load()["trainable"]]
     assert not any(n.startswith("encoder.htsat.block_") for n in trainable)
-    assert train_avs.main(TINY + ["--setting", "ms3", "--mode", "test",
+    assert _main(TINY + ["--setting", "ms3", "--mode", "test",
                                   "--model_save_dir", ck]) == best
     assert not os.path.exists(os.path.join(ck, "pred_masks"))
 

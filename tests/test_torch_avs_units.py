@@ -458,7 +458,8 @@ def test_mask_iou_and_fmeasure_match_jax_with_an_empty_ground_truth():
 @pytest.fixture(scope="module")
 def tiny_trees():
     """The JAX tiny AVS parameter tree (zeros shaped by eval_shape) and the
-    port's tiny AVSModel, both backbones at depths 2-2-2-2."""
+    port's tiny AVSModel, both backbones at depths 1-1-1-1 (the counts hold
+    at any depth; the JAX trace is the fixture's cost)."""
     from avmoe_tpu import config as jc
     from avmoe_tpu.models.avs import AVSModel as JAVS
 
@@ -467,8 +468,8 @@ def tiny_trees():
 
     def cut(cfg):
         return dataclasses.replace(
-            cfg, swin=dataclasses.replace(cfg.swin, depths=(2, 2, 2, 2)),
-            htsat=dataclasses.replace(cfg.htsat, depths=(2, 2, 2, 2)))
+            cfg, swin=dataclasses.replace(cfg.swin, depths=(1, 1, 1, 1)),
+            htsat=dataclasses.replace(cfg.htsat, depths=(1, 1, 1, 1)))
 
     shapes = jax.eval_shape(lambda: JAVS(cut(jc.tiny_avs_config())).init(
         jax.random.PRNGKey(0), jnp.zeros((1, 2, 64, 64, 3)), jnp.zeros((1, 2, 4000))))

@@ -98,5 +98,34 @@ def attn_inputs(nW, B, H, N, D, seed):
     return q, k, v, bias
 
 
+def seeded_array(seed: int, *shape) -> np.ndarray:
+    """Standard-normal float32 noise of `shape` from numpy seed `seed`."""
+    return np.random.RandomState(seed).randn(*shape).astype(np.float32)
+
+
+def check_module(jmod, pmod, *args, seed: int = 0, **kwargs) -> None:
+    """Seeded variables (`jax_variables`) loaded into both the flax module
+    and the port's; the port's outputs (a tensor or a tuple) against the
+    jitted JAX apply's on the same numpy inputs (None allowed) at FWD_TOL."""
+    import jax
+    import torch
+
+    from avmoe_tpu_torch.convert import load_jax_variables
+
+    variables = jax_variables(jmod, *args, seed=seed, **kwargs)
+    load_jax_variables(pmod, variables)
+    want = jax.jit(lambda v, *a: jmod.apply(v, *a, **kwargs))(variables, *args)
+    with torch.no_grad():
+        got = pmod(*(None if a is None else torch.from_numpy(np.asarray(a)) for a in args),
+                   **kwargs)
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    assert len(got) == len(want)
+    for a, b in zip(got, want):
+        b = np.asarray(b)
+        assert tuple(a.shape) == b.shape
+        np.testing.assert_allclose(a.detach().numpy(), b, **FWD_TOL)
+
+
 def max_err(a, b) -> float:
     return float(np.max(np.abs(np.asarray(a, np.float64) - np.asarray(b, np.float64))))

@@ -584,3 +584,87 @@ def pred_endecoder_state_dict(variables: Mapping, dropped: bool = False) -> SD:
     for i, name in enumerate(("out_conv1", "out_conv2", "out_conv3")):
         _conv(sd, f"output_conv.{2 * i}", p[name])
     return sd
+
+
+# ---------------------------------------------------- AVSBench baseline backbones
+
+
+def pvt_v2_state_dict(params: Mapping) -> SD:
+    """PVTv2 params -> a reference PVT-v2 state dict (depths and the
+    spatial-reduction stages read from the tree)."""
+    sd: SD = {}
+    for s in range(4):
+        pe = f"patch_embed{s + 1}"
+        _conv(sd, f"{pe}.proj", params[pe]["proj"])
+        _ln(sd, f"{pe}.norm", params[pe]["norm"])
+        i = 0
+        while f"block{s + 1}_{i}" in params:
+            src, blk = f"block{s + 1}.{i}", params[f"block{s + 1}_{i}"]
+            _ln(sd, f"{src}.norm1", blk["norm1"])
+            _ln(sd, f"{src}.norm2", blk["norm2"])
+            for name in ("q", "kv", "proj"):
+                _dense(sd, f"{src}.attn.{name}", blk["attn"][name])
+            if "sr" in blk["attn"]:
+                _conv(sd, f"{src}.attn.sr", blk["attn"]["sr"])
+                _ln(sd, f"{src}.attn.norm", blk["attn"]["norm"])
+            _dense(sd, f"{src}.mlp.fc1", blk["mlp"]["fc1"])
+            _dense(sd, f"{src}.mlp.fc2", blk["mlp"]["fc2"])
+            _conv(sd, f"{src}.mlp.dwconv.dwconv", blk["mlp"]["dwconv"]["dwconv"])
+            i += 1
+        _ln(sd, f"norm{s + 1}", params[f"norm{s + 1}"])
+    return sd
+
+
+def _resnet_blocks(sd: SD, src: str, params: Mapping, stats: Mapping, convs: int) -> None:
+    for c in range(1, convs + 1):
+        _conv(sd, f"{src}.conv{c}", params[f"conv{c}"])
+        _bn(sd, f"{src}.bn{c}", params[f"bn{c}"], stats[f"bn{c}"])
+    if "downsample_conv" in params:
+        _conv(sd, f"{src}.downsample.0", params["downsample_conv"])
+        _bn(sd, f"{src}.downsample.1", params["downsample_bn"], stats["downsample_bn"])
+
+
+def b2_resnet_state_dict(params: Mapping, stats: Mapping) -> SD:
+    """B2ResNet variables -> a reference B2_ResNet state dict (each branch
+    the tree holds)."""
+    sd: SD = {}
+    _conv(sd, "conv1", params["conv1"])
+    _bn(sd, "bn1", params["bn1"], stats["bn1"])
+    for name in ("layer1", "layer2", "layer3_1", "layer4_1", "layer3_2", "layer4_2"):
+        for blk in sorted(params.get(name, {}), key=lambda k: int(k.split("_")[1])):
+            _resnet_blocks(sd, f"{name}.{blk.split('_')[1]}", params[name][blk],
+                           stats[name][blk], 3)
+    return sd
+
+
+def resnet18_state_dict(params: Mapping, stats: Mapping) -> SD:
+    """legacy ResNet18 variables -> a torchvision-style ResNet-18 state dict."""
+    sd: SD = {}
+    _conv(sd, "conv1", params["conv1"])
+    _bn(sd, "bn1", params["bn1"], stats["bn1"])
+    for key in sorted(k for k in params if re.fullmatch(r"layer\d_\d+", k)):
+        s, i = key[len("layer"):].split("_")
+        _resnet_blocks(sd, f"layer{s}.{i}", params[key], stats[key], 2)
+    if "fc" in params:
+        _dense(sd, "fc", params["fc"])
+    return sd
+
+
+def vggish_state_dict(params: Mapping) -> SD:
+    """VGGish params -> a torchvggish VGG state dict (features.* /
+    embeddings.* at its nn.Sequential indices)."""
+    sd: SD = {}
+    for idx, name in ((0, "conv1"), (3, "conv2"), (6, "conv3_1"), (8, "conv3_2"),
+                      (11, "conv4_1"), (13, "conv4_2")):
+        _conv(sd, f"features.{idx}", params[name])
+    for idx, name in ((0, "fc1_1"), (2, "fc1_2"), (4, "fc2")):
+        _dense(sd, f"embeddings.{idx}", params[name])
+    return sd
+
+
+def vggish_pca_params(seed: int) -> SD:
+    """A seeded VGGish PCA params file: an orthogonal (128, 128)
+    eigenvector matrix and (128,) means."""
+    rng = np.random.default_rng(seed)
+    q = np.linalg.qr(rng.standard_normal((128, 128)))[0]
+    return {"pca_eigen_vectors": _f32(q), "pca_means": _f32(0.1 * rng.standard_normal(128))}
