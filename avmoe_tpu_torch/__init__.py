@@ -22,7 +22,10 @@ grounding stage, `models/avqa_grounding.py`). Beside them, the original
 AVSBench model (`models/avs_baseline.py`: a PVT-v2 or ResNet-50 encoder,
 ASPP, TPAVI and the FPN decoder, fed by the VGGish embeddings of
 `backbones/vggish.py`), the legacy backbones, the attention zoo and the
-loss library of the reference's surface.
+loss library of the reference's surface. The adapters' expert mixture can
+be contracted at bottleneck rank (`moe/adapter.py`, the fused combine);
+`parallel/` runs the drivers data-parallel over torch.distributed, one
+process a card; `utils/` has t-SNE, the figures and a profiler scope.
 """
 
 from __future__ import annotations

@@ -14,6 +14,8 @@ builders); the transforms are GEMMs against them:
 
 `mel_filterbank_htk` (`avmoe_tpu/audio/frontend.py:75-100`) is VGGish's
 HTK-scale filterbank (`backbones/vggish.py` `waveform_to_examples`).
+`LogMelFrontend` bundles `log_mel_spectrogram` and `reshape_wav2img` as the
+JAX module's class does.
 """
 
 from __future__ import annotations
@@ -26,6 +28,8 @@ import torch
 import torch.nn.functional as F
 
 from avmoe_tpu_torch.config import AudioFrontendConfig
+from avmoe_tpu_torch.parallel.mesh import (broadcast_from_main, gather_batch, local_slice,
+                                          world_size)
 
 
 @functools.lru_cache(maxsize=None)
@@ -222,17 +226,43 @@ def spec_augment(generator: torch.Generator, spec: torch.Tensor,
 
 
 def mixup(x: torch.Tensor, lam: torch.Tensor) -> torch.Tensor:
-    """Batch mixup against the flipped batch: x λ + flip(x) (1 − λ), λ (B,)."""
+    """Batch mixup against the flipped batch: x λ + flip(x) (1 − λ), λ (B,).
+    Under a process group the flip is the global batch's, as the JAX
+    package's sharded flip is: a rank's partners are the mirrored rank's
+    rows, reversed (gathered differentiably)."""
     lam = lam.reshape((-1,) + (1,) * (x.dim() - 1)).to(x.dtype)
-    return x * lam + torch.flip(x, dims=(0,)) * (1.0 - lam)
+    partner = local_slice(torch.flip(gather_batch(x), dims=(0,)), x.shape[0])
+    return x * lam + partner * (1.0 - lam)
 
 
 def get_mix_lambda(generator: torch.Generator, alpha: float, batch: int,
                    device: Optional[torch.device] = None) -> torch.Tensor:
     """(batch,) float32 Beta(alpha, alpha) mixing weights. torch's Beta
     sampler takes no generator, so the draw is numpy's, seeded from
-    `generator`."""
-    seed = int(torch.randint(0, 2**31 - 1, (1,), generator=generator,
-                             device=generator.device).item())
-    lam = np.random.default_rng(seed).beta(alpha, alpha, batch).astype(np.float32)
-    return torch.from_numpy(lam).to(device if device is not None else generator.device)
+    `generator`. Under a process group `batch` is this rank's rows: every
+    rank takes rank 0's seed, draws the global batch's weights and keeps
+    its own slice, so that λ is one draw over the global batch, as the JAX
+    package's is."""
+    seed = broadcast_from_main(
+        torch.randint(0, 2**31 - 1, (1,), generator=generator, device=generator.device))
+    lam = np.random.default_rng(int(seed.item())).beta(
+        alpha, alpha, batch * world_size()).astype(np.float32)
+    lam = torch.from_numpy(lam).to(device if device is not None else generator.device)
+    return local_slice(lam, batch)
+
+
+class LogMelFrontend:
+    """The wave -> folded-image pipeline of HTS-AT, bundled; counterpart of
+    the JAX `LogMelFrontend`. Stateless: the BatchNorm over mel bins
+    (`bn0`) has parameters and lives in the HTS-AT module."""
+
+    def __init__(self, cfg: AudioFrontendConfig, spec_size: int):
+        self.cfg = cfg
+        self.spec_size = spec_size
+        self.freq_ratio = spec_size // cfg.n_mels
+
+    def __call__(self, wave: torch.Tensor) -> torch.Tensor:
+        return log_mel_spectrogram(wave, self.cfg)
+
+    def fold(self, spec: torch.Tensor) -> torch.Tensor:
+        return reshape_wav2img(spec, self.spec_size, self.freq_ratio)

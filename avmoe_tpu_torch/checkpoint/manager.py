@@ -30,6 +30,7 @@ from typing import Dict, List, Mapping, Optional
 
 import torch
 
+from avmoe_tpu_torch.parallel.mesh import is_main
 from avmoe_tpu_torch.train.state import TrainState
 
 STATE_FILE = "state.pt"
@@ -114,6 +115,11 @@ class CheckpointManager:
     # -- best-metric tracking ------------------------------------------------
 
     def save_if_best(self, step: int, state: TrainState, metric: float) -> bool:
+        """Save `state` and record it in best.json if `metric` is at least
+        the best so far; True if it saved. Under a process group only rank
+        0 saves (the others return False)."""
+        if not is_main():
+            return False
         best = self.best_metric()
         if best is None or metric >= best:
             self.save(step, state, metrics={"metric": float(metric)})

@@ -30,9 +30,8 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from avmoe_tpu_torch import resolve_device
 from avmoe_tpu_torch.checkpoint.manager import CheckpointManager
-from avmoe_tpu_torch.cli import add_port_flags
+from avmoe_tpu_torch.cli import add_port_flags, fused_switches
 from avmoe_tpu_torch.config import ave_train_preset, mini_ave_config, replace, tiny_ave_config
 from avmoe_tpu_torch.data.ave import AVEDataset, LAVisHView, SyntheticAVEDataset
 from avmoe_tpu_torch.data.loader import BatchLoader
@@ -40,12 +39,12 @@ from avmoe_tpu_torch.models.ave import AVEModel, make_ave_eval_fn, make_ave_loss
 from avmoe_tpu_torch.models.ave_legacy import (MMILNetV1, MMILNetV2, make_mmil_v1_eval_fn,
                                                make_mmil_v1_loss_fn, make_mmil_v2_eval_fn,
                                                make_mmil_v2_loss_fn)
+from avmoe_tpu_torch.parallel.mesh import launch, loader_kw, replicate
 from avmoe_tpu_torch.telemetry.experts import ExpertUsageTracker
 from avmoe_tpu_torch.train.freeze import param_report
-from avmoe_tpu_torch.train.loop import resume_latest, train_and_evaluate
+from avmoe_tpu_torch.train.loop import evaluate_batches, resume_latest, train_and_evaluate
 from avmoe_tpu_torch.train.state import create_train_state
 from avmoe_tpu_torch.train.steps import make_eval_step, make_train_step
-from avmoe_tpu_torch.utils.runtime import pipelined
 
 log = logging.getLogger("avmoe_tpu_torch")
 
@@ -95,7 +94,11 @@ def main(argv: Optional[Sequence[str]] = None) -> float:
     test accuracy (--mode test)."""
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(message)s", force=True)
     args = parse_args(argv)
-    dev = resolve_device(args.device)
+    with launch(args.device) as (mesh, dev):
+        return _run(args, dev, mesh)
+
+
+def _run(args: argparse.Namespace, dev: torch.device, mesh) -> float:
     if args.precise:
         log.info("--precise: the port always runs float32 attention logits and the erf GELU")
     cfg, tcfg = ave_train_preset()
@@ -119,12 +122,17 @@ def main(argv: Optional[Sequence[str]] = None) -> float:
         train_ds, val_ds = LAVisHView(train_ds, **view), LAVisHView(val_ds, **view)
 
     train_loader = BatchLoader(train_ds, tcfg.batch_size, shuffle=True,
-                               num_workers=args.num_workers, seed=tcfg.seed, device=dev)
+                               num_workers=args.num_workers, seed=tcfg.seed, device=dev,
+                               **loader_kw(mesh))
     val_loader = BatchLoader(val_ds, tcfg.batch_size, shuffle=False, drop_last=False,
-                             num_workers=args.num_workers, device=dev)
+                             num_workers=args.num_workers, device=dev,
+                             **loader_kw(mesh, "batches"))
 
     Model, make_loss_fn, make_eval_fn = _model_kit(args.model)
-    model = Model(cfg, dtype=getattr(torch, tcfg.dtype), device=dev, seed=tcfg.seed)
+    # the legacy models have no MoEAdapter and no fused route
+    fused = fused_switches() if args.model == "v3" else {}
+    model = Model(cfg, dtype=getattr(torch, tcfg.dtype), device=dev, seed=tcfg.seed, **fused)
+    replicate(model)
     report = param_report(model)
     log.info("params: trainable %.4f%% additional %.4f%% total %.1fM",
              report["trainable_pct"], report["additional_pct"], report["total"] / 1e6)
@@ -143,9 +151,9 @@ def main(argv: Optional[Sequence[str]] = None) -> float:
         state = ckpts.restore(state, params_only=True)
         accs = []
         # deferred readback: batch i is read while batches i+1, i+2 run
-        for _, metrics in pipelined(lambda b: eval_step(state, b), val_loader):
-            tracker.update(metrics.pop("telemetry", {}))
-            accs.append(float(metrics["accuracy"]))
+        for scalars, stacks in evaluate_batches(eval_step, state, val_loader):
+            tracker.add(stacks)
+            accs.append(scalars["accuracy"])
         tracker.save(args.model_save_dir)
         acc = float(np.mean(accs))
         log.info("test accuracy: %.2f over %d batches", acc, len(accs))

@@ -36,15 +36,15 @@ from typing import Dict, Optional, Sequence
 
 import torch
 
-from avmoe_tpu_torch import resolve_device
 from avmoe_tpu_torch.checkpoint.manager import STATE_FILE, CheckpointManager
-from avmoe_tpu_torch.cli import add_port_flags
+from avmoe_tpu_torch.cli import add_port_flags, fused_switches
 from avmoe_tpu_torch.config import AVQAConfig, TrainConfig, mini_avqa_config, tiny_avqa_config
 from avmoe_tpu_torch.data.avqa import AVQADataset, SyntheticAVQADataset
 from avmoe_tpu_torch.data.loader import BatchLoader
 from avmoe_tpu_torch.metrics.avqa import AVQAAccuracy
 from avmoe_tpu_torch.models.avqa import AVQAFusionModel, make_avqa_loss_fn
 from avmoe_tpu_torch.models.avqa_grounding import AVQAGroundingModel, make_grounding_loss_fn
+from avmoe_tpu_torch.parallel.mesh import gather_ordered, launch, loader_kw, replicate
 from avmoe_tpu_torch.telemetry.experts import ExpertUsageTracker
 from avmoe_tpu_torch.train.freeze import param_report
 from avmoe_tpu_torch.train.loop import resume_latest, step_generator, train_epoch
@@ -142,20 +142,24 @@ def load_grounding_heads(model: AVQAFusionModel, path: str) -> None:
 def evaluate(model: AVQAFusionModel, loader, tracker: Optional[ExpertUsageTracker] = None
              ) -> Dict[str, float]:
     """Overall and per-question-type accuracy (percent) over a loader's
-    questions; the host's bookkeeping of batch i overlaps the device's work
-    on the batches after it."""
+    questions; batch i's readback overlaps the device's work on the batches
+    after it. Under a process group each rank runs its own batches and the
+    bookkeeping replays every rank's in batch order (`gather_ordered`)."""
     answer_vocab = model.cfg.answer_vocab
 
     def predict(b):
         out = model(b["wave"], b["visual_posi"], b["visual_nega"], b["question"])
         return out["qa_logits"][:, :answer_vocab].argmax(dim=-1), out["telemetry"]
 
-    acc = AVQAAccuracy()
+    records = []
     for b, (pred, telemetry) in pipelined(predict, loader):
+        records.append((pred.cpu().numpy(), b["answer"].cpu().numpy(),
+                        [str(t) for t in b["qtype_str"]], ExpertUsageTracker.to_host(telemetry)))
+    acc = AVQAAccuracy()
+    for pred, answer, qtypes, stacks in gather_ordered(records):
         if tracker is not None:
-            tracker.update(telemetry)
-        acc.update(pred.cpu().numpy(), b["answer"].cpu().numpy(),
-                   [str(t) for t in b["qtype_str"]])
+            tracker.add(stacks)
+        acc.update(pred, answer, qtypes)
     return acc.summary()
 
 
@@ -164,7 +168,11 @@ def main(argv: Optional[Sequence[str]] = None) -> float:
     negated mean train loss; avst: the overall validation accuracy)."""
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(message)s", force=True)
     args = parse_args(argv)
-    dev = resolve_device(args.device)
+    with launch(args.device) as (mesh, dev):
+        return _run(args, dev, mesh)
+
+
+def _run(args: argparse.Namespace, dev: torch.device, mesh) -> float:
     if args.precise:
         log.info("--precise: the port always runs float32 attention logits and the erf GELU")
     cfg = mini_avqa_config() if args.mini else tiny_avqa_config() if args.tiny else AVQAConfig()
@@ -173,9 +181,11 @@ def main(argv: Optional[Sequence[str]] = None) -> float:
                        dtype="bfloat16" if args.bf16 else "float32")
     train_ds, val_ds = build_datasets(args, cfg)
     train_loader = BatchLoader(train_ds, tcfg.batch_size, shuffle=True,
-                               num_workers=args.num_workers, seed=tcfg.seed, device=dev)
+                               num_workers=args.num_workers, seed=tcfg.seed, device=dev,
+                               **loader_kw(mesh))
     val_loader = BatchLoader(val_ds, tcfg.batch_size, shuffle=False, drop_last=False,
-                             num_workers=args.num_workers, device=dev)
+                             num_workers=args.num_workers, device=dev,
+                             **loader_kw(mesh, "batches"))
 
     dtype = getattr(torch, tcfg.dtype)
     grounding = args.stage == "grounding"
@@ -183,10 +193,12 @@ def main(argv: Optional[Sequence[str]] = None) -> float:
         model = AVQAGroundingModel(cfg, dtype=dtype, device=dev, seed=tcfg.seed)
         loss_fn = make_grounding_loss_fn(model)
     else:
-        model = AVQAFusionModel(cfg, dtype=dtype, device=dev, seed=tcfg.seed)
+        model = AVQAFusionModel(cfg, dtype=dtype, device=dev, seed=tcfg.seed,
+                                **fused_switches())
         if args.grounding_ckpt:
             load_grounding_heads(model, args.grounding_ckpt)
         loss_fn = make_avqa_loss_fn(model)
+    replicate(model)
     report = param_report(model)
     log.info("params: trainable %.4f%% total %.1fM", report["trainable_pct"],
              report["total"] / 1e6)

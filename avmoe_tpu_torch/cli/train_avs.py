@@ -36,15 +36,16 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from avmoe_tpu_torch import resolve_device
 from avmoe_tpu_torch.checkpoint.manager import CheckpointManager
-from avmoe_tpu_torch.cli import add_port_flags
+from avmoe_tpu_torch.cli import add_port_flags, fused_switches
 from avmoe_tpu_torch.config import (
     AVSConfig, TrainConfig, mini_avs_config, replace, tiny_avs_config)
 from avmoe_tpu_torch.data.avs import MS3Dataset, S4Dataset, SyntheticAVSDataset
 from avmoe_tpu_torch.data.loader import BatchLoader
 from avmoe_tpu_torch.metrics.avs import eval_fmeasure, mask_iou, save_mask
 from avmoe_tpu_torch.models.avs import AVSModel, avs_frozen_scopes, make_avs_loss_fn
+from avmoe_tpu_torch.parallel.mesh import (data_parallel, gather_ordered, launch,
+                                          loader_kw, replicate)
 from avmoe_tpu_torch.telemetry.experts import ExpertUsageTracker
 from avmoe_tpu_torch.train.freeze import param_report
 from avmoe_tpu_torch.train.loop import resume_latest, step_generator, train_epoch
@@ -136,20 +137,29 @@ def evaluate(model: AVSModel, loader, tracker: Optional[ExpertUsageTracker] = No
     is the mean of the batches' mean IoUs, the F-measure one over all the
     frames. With `mask_dir`, each predicted mask is saved there as
     `batch<i>_<j>.png`. The host's readback of batch i overlaps the
-    device's work on the batches after it."""
+    device's work on the batches after it. Under a process group each rank
+    runs its own batches, and every rank's IoUs, masks and telemetry are
+    taken in batch order (`gather_ordered`)."""
 
-    def predict(item):
-        out = model(item[1]["images"], item[1]["wave"])
+    def predict(b):
+        out = model(b["images"], b["wave"])
         return out["mask_logits"].float(), out["telemetry"]
 
-    ious, preds, gts = [], [], []
-    for (bi, batch), (logits, telemetry) in pipelined(predict, enumerate(loader)):
-        if tracker is not None:
-            tracker.update(telemetry)
+    records = []
+    for batch, (logits, telemetry) in pipelined(predict, loader):
         mask = batch["mask"].reshape((-1,) + tuple(batch["mask"].shape[-2:])).float()
-        ious.append(float(mask_iou(logits, mask)))
-        preds.append(logits)
-        gts.append(mask)
+        iou = float(mask_iou(logits, mask))
+        if data_parallel():   # every rank's masks come to every rank
+            logits, mask = logits.cpu(), mask.cpu()
+        records.append((iou, logits, mask, ExpertUsageTracker.to_host(telemetry)))
+    ious, preds, gts = [], [], []
+    dev = next(model.parameters()).device
+    for bi, (iou, logits, mask, stacks) in enumerate(gather_ordered(records)):
+        if tracker is not None:
+            tracker.add(stacks)
+        ious.append(iou)
+        preds.append(logits.to(dev))
+        gts.append(mask.to(dev))
         if mask_dir is not None:
             save_mask(logits.cpu().numpy(), mask_dir,
                       [f"batch{bi}_{j}" for j in range(logits.shape[0])])
@@ -162,7 +172,11 @@ def main(argv: Optional[Sequence[str]] = None) -> float:
     mIoU (--mode test)."""
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(message)s", force=True)
     args = parse_args(argv)
-    dev = resolve_device(args.device)
+    with launch(args.device) as (mesh, dev):
+        return _run(args, dev, mesh)
+
+
+def _run(args: argparse.Namespace, dev: torch.device, mesh) -> float:
     if args.precise:
         log.info("--precise: the port always runs float32 attention logits and the erf GELU")
     cfg = build_config(args)
@@ -184,11 +198,15 @@ def main(argv: Optional[Sequence[str]] = None) -> float:
         val_ds = ds_cls(args.data_root, "val", cfg.img_size, cfg.mask_size)
 
     train_loader = BatchLoader(train_ds, tcfg.batch_size, shuffle=True,
-                               num_workers=args.num_workers, seed=tcfg.seed, device=dev)
+                               num_workers=args.num_workers, seed=tcfg.seed, device=dev,
+                               **loader_kw(mesh))
     val_loader = BatchLoader(val_ds, tcfg.batch_size, shuffle=False, drop_last=False,
-                             num_workers=args.num_workers, device=dev)
+                             num_workers=args.num_workers, device=dev,
+                             **loader_kw(mesh, "batches"))
 
-    model = AVSModel(cfg, dtype=getattr(torch, tcfg.dtype), device=dev, seed=tcfg.seed)
+    model = AVSModel(cfg, dtype=getattr(torch, tcfg.dtype), device=dev, seed=tcfg.seed,
+                     **fused_switches())
+    replicate(model)
     # S4's recipe trains HTS-AT; MS3's freezes both backbones
     frozen_scopes = avs_frozen_scopes(cfg)
     report = param_report(model, frozen_scopes)

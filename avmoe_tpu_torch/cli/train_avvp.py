@@ -30,15 +30,15 @@ from typing import Dict, Mapping, Optional, Sequence
 import numpy as np
 import torch
 
-from avmoe_tpu_torch import resolve_device
 from avmoe_tpu_torch.checkpoint.manager import CheckpointManager
-from avmoe_tpu_torch.cli import add_port_flags
+from avmoe_tpu_torch.cli import add_port_flags, fused_switches
 from avmoe_tpu_torch.config import (
     AVVPConfig, TrainConfig, mini_avvp_config, replace, tiny_avvp_config)
 from avmoe_tpu_torch.data.avvp import LLPDataset, SyntheticAVVPDataset, parse_eval_annotations
 from avmoe_tpu_torch.data.loader import BatchLoader
 from avmoe_tpu_torch.metrics.avvp import AVVPEvaluator
 from avmoe_tpu_torch.models.avvp import MGNModel, make_avvp_loss_fn
+from avmoe_tpu_torch.parallel.mesh import gather_ordered, launch, loader_kw, replicate
 from avmoe_tpu_torch.telemetry.experts import ExpertUsageTracker
 from avmoe_tpu_torch.train.freeze import param_report
 from avmoe_tpu_torch.train.loop import resume_latest, step_generator, train_epoch
@@ -82,20 +82,26 @@ def evaluate(model: MGNModel, loader, gt_audio: Mapping[int, np.ndarray],
              gt_visual: Mapping[int, np.ndarray], num_segments: int = 10,
              tracker: Optional[ExpertUsageTracker] = None) -> Dict[str, float]:
     """The F1 suite over a loader's clips; gt_* map clip_index -> (25, T)
-    grids (all zeros where a clip has none). The host's F1 bookkeeping of
-    batch i overlaps the device's work on the batches after it."""
+    grids (all zeros where a clip has none). Batch i's readback overlaps
+    the device's work on the batches after it; under a process group each
+    rank runs its own batches and the F1 bookkeeping replays every rank's
+    in batch order (`gather_ordered`)."""
 
     def fwd(b):
         out = model(b["wave"], b["images"], b["video_st"])
         return out["global_prob"], out["a_frame_prob"], out["v_frame_prob"], out["telemetry"]
 
-    evaluator = AVVPEvaluator()
+    records = []
     for batch, (gp, ap, vp, telemetry) in pipelined(fwd, loader):
+        probs = tuple(t.float().cpu().numpy() for t in (gp, ap, vp))
+        records.append((probs, batch["clip_index"].tolist(),
+                        ExpertUsageTracker.to_host(telemetry)))
+    evaluator = AVVPEvaluator()
+    blank = np.zeros((25, num_segments), np.int64)
+    for (gp, ap, vp), clips, stacks in gather_ordered(records):
         if tracker is not None:
-            tracker.update(telemetry)
-        gp, ap, vp = (t.float().cpu().numpy() for t in (gp, ap, vp))
-        blank = np.zeros((25, num_segments), np.int64)
-        for i, clip in enumerate(batch["clip_index"].tolist()):
+            tracker.add(stacks)
+        for i, clip in enumerate(clips):
             evaluator.add_clip(gp[i], ap[i], vp[i], gt_audio.get(int(clip), blank),
                                gt_visual.get(int(clip), blank))
     return evaluator.summary()
@@ -106,7 +112,11 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, float]:
     test one (--mode test)."""
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(message)s", force=True)
     args = parse_args(argv)
-    dev = resolve_device(args.device)
+    with launch(args.device) as (mesh, dev):
+        return _run(args, dev, mesh)
+
+
+def _run(args: argparse.Namespace, dev: torch.device, mesh) -> Dict[str, float]:
     if args.precise:
         log.info("--precise: the port always runs float32 attention logits and the erf GELU")
     cfg = mini_avvp_config() if args.mini else tiny_avvp_config() if args.tiny else AVVPConfig()
@@ -136,11 +146,15 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, float]:
         gt_visual = {i: v_by_name.get(n, blank) for i, n in enumerate(val_ds.filenames)}
 
     train_loader = BatchLoader(train_ds, tcfg.batch_size, shuffle=True,
-                               num_workers=args.num_workers, seed=tcfg.seed, device=dev)
+                               num_workers=args.num_workers, seed=tcfg.seed, device=dev,
+                               **loader_kw(mesh))
     val_loader = BatchLoader(val_ds, tcfg.batch_size, shuffle=False, drop_last=False,
-                             num_workers=args.num_workers, device=dev)
+                             num_workers=args.num_workers, device=dev,
+                             **loader_kw(mesh, "batches"))
 
-    model = MGNModel(cfg, dtype=getattr(torch, tcfg.dtype), device=dev, seed=tcfg.seed)
+    model = MGNModel(cfg, dtype=getattr(torch, tcfg.dtype), device=dev, seed=tcfg.seed,
+                     **fused_switches())
+    replicate(model)
     report = param_report(model)
     log.info("params: trainable %.4f%% total %.1fM", report["trainable_pct"],
              report["total"] / 1e6)

@@ -28,15 +28,23 @@ class BatchLoader:
     def __init__(self, dataset, batch_size: int, *, shuffle: bool = False,
                  drop_last: bool = True, num_workers: int = 4, prefetch: int = 2,
                  seed: int = 0, device=None, process_index: int = 0,
-                 process_count: int = 1):
+                 process_count: int = 1, split: str = "rows"):
         """batch_size is the global batch. With process_count > 1 every
-        process builds the same seeded permutation and collates only its
-        contiguous 1/process_count slice of each batch (drop_last required).
-        `device`: where batches go (None or a CPU device: left on the CPU)."""
-        if batch_size % process_count:
+        process builds the same seeded permutation and, with split="rows",
+        collates only its contiguous 1/process_count slice of each batch
+        (drop_last required: the train loaders); with split="batches" it
+        collates whole batches, process_index, process_index +
+        process_count, ... (the eval loaders: every batch is the one a
+        single process would see; `parallel/mesh.py` `gather_ordered`
+        restores their order). `device`: where batches go (None or a CPU
+        device: left on the CPU)."""
+        if split not in ("rows", "batches"):
+            raise ValueError(f"split={split!r}, want 'rows' or 'batches'")
+        self.split = split
+        if split == "rows" and batch_size % process_count:
             raise ValueError(f"batch_size {batch_size} is not a multiple of "
                              f"process_count {process_count}")
-        if process_count > 1 and not drop_last:
+        if split == "rows" and process_count > 1 and not drop_last:
             raise ValueError("drop_last=False is unsupported with process_count > 1: the "
                              "final partial batch cannot be evenly sliced across processes")
         self.dataset = dataset
@@ -51,16 +59,26 @@ class BatchLoader:
         self.process_count = process_count
         self.epoch = 0
 
-    def __len__(self) -> int:
+    def num_batches(self) -> int:
+        """The global batches of an epoch."""
         n = len(self.dataset)
         return n // self.batch_size if self.drop_last else -(-n // self.batch_size)
+
+    def __len__(self) -> int:
+        """The batches this process collates in an epoch."""
+        n = self.num_batches()
+        if self.split == "batches":
+            return len(range(self.process_index, n, self.process_count))
+        return n
 
     def _index_batches(self):
         idx = np.arange(len(self.dataset))
         if self.shuffle:
             np.random.RandomState(self.seed + self.epoch).shuffle(idx)
         batches = [idx[i * self.batch_size: (i + 1) * self.batch_size]
-                   for i in range(len(self))]
+                   for i in range(self.num_batches())]
+        if self.split == "batches":
+            return batches[self.process_index::self.process_count]
         if self.process_count > 1:
             local = self.batch_size // self.process_count
             lo = self.process_index * local

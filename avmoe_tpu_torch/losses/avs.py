@@ -14,6 +14,8 @@ from typing import Dict, Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
+from avmoe_tpu_torch.parallel.mesh import world_size
+
 
 def _bce(probs: torch.Tensor, targets: torch.Tensor, eps: float = 1e-7) -> torch.Tensor:
     p = probs.clamp(eps, 1 - eps)
@@ -67,6 +69,9 @@ def masked_av_loss(pred_logits: torch.Tensor, a_fea_list: Sequence[Optional[torc
     KL(softmax(target) || softmax(v)). With `closer` the audio only picks
     each row's nearest other audio row, and v is held against that row's
     visual feature (always the soft-mask mean)."""
+    if closer and world_size() > 1:
+        raise ValueError("masked_av_loss: closer=True pairs rows across the batch; it is not "
+                         "ported to more than one process")
     total = pred_logits.new_zeros(())
     for stage in count_stages:
         a = a_fea_list[stage].reshape(-1, a_fea_list[stage].shape[-1])
@@ -86,7 +91,10 @@ def masked_av_loss(pred_logits: torch.Tensor, a_fea_list: Sequence[Optional[torc
             total = total + torch.linalg.vector_norm(target - v, dim=-1).mean()
         elif kind == "kl":
             p, q = torch.softmax(v, dim=-1), torch.softmax(target, dim=-1)
-            total = total + (q * (torch.log(q + 1e-12) - torch.log(p + 1e-12))).sum()
+            # a sum over the batch's rows: scaled by the ranks, so that their
+            # mean over the ranks (the gradients') is the global batch's sum
+            kl = (q * (torch.log(q + 1e-12) - torch.log(p + 1e-12))).sum()
+            total = total + kl * world_size()
         else:
             raise ValueError(f"masked_av_loss kind {kind!r}")
     return total / max(len(count_stages), 1)

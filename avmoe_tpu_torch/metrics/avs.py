@@ -15,6 +15,8 @@ from typing import Iterable
 import numpy as np
 import torch
 
+from avmoe_tpu_torch.parallel.mesh import is_main
+
 
 def mask_iou(pred_logits: torch.Tensor, target: torch.Tensor, eps: float = 1e-7
              ) -> torch.Tensor:
@@ -72,7 +74,10 @@ def encode_gray_png(img: np.ndarray) -> bytes:
 
 def save_mask(pred_logits: np.ndarray, save_dir: str, names: Iterable[str]) -> None:
     """Binarize the logits of N (H, W) masks at sigmoid > 0.5 and write each
-    as `<save_dir>/<name>.png`, 0 or 255 a pixel."""
+    as `<save_dir>/<name>.png`, 0 or 255 a pixel; on rank 0 only, under a
+    process group."""
+    if not is_main():
+        return
     os.makedirs(save_dir, exist_ok=True)
     masks = (1 / (1 + np.exp(-np.asarray(pred_logits))) > 0.5).astype(np.uint8) * 255
     for m, name in zip(masks, names):

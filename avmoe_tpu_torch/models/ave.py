@@ -52,18 +52,21 @@ from avmoe_tpu_torch.ops.swin import WindowAttentionV1, WindowAttentionV2
 
 class AVEModel(nn.Module):
     def __init__(self, cfg: AVEConfig, dtype: torch.dtype = torch.float32,
-                 device="cuda", seed: Optional[int] = 0, block_chains: bool = False):
+                 device="cuda", seed: Optional[int] = 0, block_chains: bool = False,
+                 fused_moe: bool = False, fused_moe_train: bool = False):
         """Build on `device` (default the card; raises if it is absent) and,
         unless seed is None, initialize the parameters from `seed`.
         `block_chains` runs the backbones' blocks through K3 chains
-        (`moe/injection.py`)."""
+        (`moe/injection.py`). `fused_moe` / `fused_moe_train`
+        take the adapters' fused combine in eval / train (`moe/adapter.py`)."""
         super().__init__()
         dev = resolve_device(device)
         self.cfg = cfg
         c_v, c_a = cfg.swin.num_features, cfg.htsat.num_features
         with torch.device(dev):
             self.encoder = LockstepEncoder(cfg.swin, cfg.htsat, cfg.moe, cfg.injection,
-                                           dtype=dtype, block_chains=block_chains)
+                                           dtype=dtype, block_chains=block_chains,
+                                           fused_moe=fused_moe, fused_moe_train=fused_moe_train)
             if not cfg.is_cmbs:
                 self.mlp_class = nn.Linear(c_v + c_a, 512)
                 self.mlp_class_2 = nn.Linear(512, cfg.num_classes + 1)

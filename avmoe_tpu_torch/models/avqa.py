@@ -101,11 +101,13 @@ def _unit_rows(t: torch.Tensor) -> torch.Tensor:
 
 class AVQAFusionModel(nn.Module):
     def __init__(self, cfg: AVQAConfig, dtype: torch.dtype = torch.float32,
-                 device="cuda", seed: Optional[int] = 0, block_chains: bool = False):
+                 device="cuda", seed: Optional[int] = 0, block_chains: bool = False,
+                 fused_moe: bool = False, fused_moe_train: bool = False):
         """Build on `device` (default the card; raises if it is absent) and,
         unless seed is None, initialize the parameters from `seed`.
         `block_chains` runs the backbones' blocks, the frozen negative pass's
-        too, through K3 chains (eval only, `moe/injection.py`)."""
+        too, through K3 chains (eval only, `moe/injection.py`). `fused_moe` / `fused_moe_train`
+        take the adapters' fused combine in eval / train (`moe/adapter.py`)."""
         super().__init__()
         dev = resolve_device(device)
         self.cfg = cfg
@@ -115,7 +117,8 @@ class AVQAFusionModel(nn.Module):
                              f"{c.swin.num_features}")
         with torch.device(dev):
             self.encoder = LockstepEncoder(c.swin, c.htsat, c.moe, c.injection, dtype=dtype,
-                                           block_chains=block_chains)
+                                           block_chains=block_chains,
+                                           fused_moe=fused_moe, fused_moe_train=fused_moe_train)
             self.fc_a1 = nn.Linear(c.htsat.num_features, d)
             self.fc_a2 = nn.Linear(d, d)
             self.fc_gl = nn.Linear(2 * d, d)

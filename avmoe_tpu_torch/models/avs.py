@@ -48,17 +48,20 @@ Gen = Optional[torch.Generator]
 
 class AVSModel(nn.Module):
     def __init__(self, cfg: AVSConfig, dtype: torch.dtype = torch.float32, device="cuda",
-                 seed: Optional[int] = 0, block_chains: bool = False):
+                 seed: Optional[int] = 0, block_chains: bool = False,
+                 fused_moe: bool = False, fused_moe_train: bool = False):
         """Build on `device` (default the card; raises if it is absent) and,
         unless seed is None, initialize the parameters from `seed`.
         `block_chains` runs the backbones' blocks through K3 chains (eval
-        only, `moe/injection.py`)."""
+        only, `moe/injection.py`). `fused_moe` / `fused_moe_train`
+        take the adapters' fused combine in eval / train (`moe/adapter.py`)."""
         super().__init__()
         dev = resolve_device(device)
         self.cfg = c = cfg
         with torch.device(dev):
             self.encoder = LockstepEncoder(c.swin, c.htsat, c.moe, c.injection, dtype=dtype,
-                                           block_chains=block_chains)
+                                           block_chains=block_chains,
+                                           fused_moe=fused_moe, fused_moe_train=fused_moe_train)
             self.stage_proj = []
             for i in range(len(c.swin.depths)):
                 m = nn.Linear(c.swin.embed_dim * 2 ** i, c.channel)

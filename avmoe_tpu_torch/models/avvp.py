@@ -46,18 +46,21 @@ from avmoe_tpu_torch.moe.injection import LockstepEncoder
 
 class MGNModel(nn.Module):
     def __init__(self, cfg: AVVPConfig, dtype: torch.dtype = torch.float32,
-                 device="cuda", seed: Optional[int] = 0, block_chains: bool = False):
+                 device="cuda", seed: Optional[int] = 0, block_chains: bool = False,
+                 fused_moe: bool = False, fused_moe_train: bool = False):
         """Build on `device` (default the card; raises if it is absent) and,
         unless seed is None, initialize the parameters from `seed`.
         `block_chains` runs the backbones' blocks through K3 chains (eval only,
-        `moe/injection.py`)."""
+        `moe/injection.py`). `fused_moe` / `fused_moe_train`
+        take the adapters' fused combine in eval / train (`moe/adapter.py`)."""
         super().__init__()
         dev = resolve_device(device)
         self.cfg = cfg
         c, d = cfg, cfg.dim
         with torch.device(dev):
             self.encoder = LockstepEncoder(c.swin, c.htsat, c.moe, c.injection, dtype=dtype,
-                                           block_chains=block_chains)
+                                           block_chains=block_chains,
+                                           fused_moe=fused_moe, fused_moe_train=fused_moe_train)
             self.fc_a = nn.Linear(c.htsat.num_features, d)
             self.fc_v = nn.Linear(c.swin.num_features, d)
             self.fc_st = nn.Linear(c.st_dim, d)

@@ -250,12 +250,14 @@ class LockstepEncoder(nn.Module):
     forward(wave (B', L), images (B', H, W, 3), *, train, mixup_lambda,
     generator) -> (f_v (B', C_v), f_a (B', C_a), telemetry); B' = clips *
     segments. `block_chains` runs the blocks through K3 chains (see the
-    module docstring; eval only).
+    module docstring; eval only). `fused_moe` / `fused_moe_train` put every
+    `MoEAdapter` on the fused combine in eval / train (`moe/adapter.py`).
     """
 
     def __init__(self, swin_cfg: SwinV2Config, htsat_cfg: HTSATConfig, moe_cfg: MoEConfig,
                  injection_cfg: InjectionConfig, dtype: torch.dtype = torch.float32,
-                 block_chains: bool = False):
+                 block_chains: bool = False, fused_moe: bool = False,
+                 fused_moe_train: bool = False):
         super().__init__()
         self.swin_cfg, self.htsat_cfg = swin_cfg, htsat_cfg
         self.moe_cfg, self.injection_cfg = moe_cfg, injection_cfg
@@ -284,7 +286,7 @@ class LockstepEncoder(nn.Module):
                     other_dim=s.vis_dim if audio_side else s.aud_dim,
                     num_tokens=s.aud_tokens if audio_side else s.vis_tokens,
                     other_num_tokens=s.vis_tokens if audio_side else s.aud_tokens,
-                    cfg=cfg)
+                    cfg=cfg, fused_moe=fused_moe, fused_moe_train=fused_moe_train)
                 self.add_module(f"{prefix}_{s.site_index}", m)
                 mods.append(m)
             self.adapters[prefix] = mods

@@ -12,10 +12,12 @@ axis, e.g. (E, B, N, C).
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 from torch import nn
+
+from avmoe_tpu_torch.parallel.mesh import data_parallel, global_sum
 
 
 def upcast(x: torch.Tensor) -> torch.Tensor:
@@ -96,7 +98,9 @@ class BatchNorm(nn.Module):
     squares minus squared mean, the biased variance), and updates the running
     stats in place as flax does with momentum 0.9: r = 0.9 r + 0.1 batch.
     (torch.nn.BatchNorm would update with momentum 0.1 on the unbiased
-    variance.) Gradients flow through the batch statistics.
+    variance.) Gradients flow through the batch statistics. Under a process
+    group (`parallel/mesh.py`) the batch statistics are the global batch's:
+    the ranks' sums of x and x² and their row counts, all-reduced.
     """
 
     def __init__(self, dim: int, eps: float = 1e-5, stack: Tuple[int, ...] = ()):
@@ -112,14 +116,53 @@ class BatchNorm(nn.Module):
             lead = self.weight.dim() - 1
             axes = tuple(range(lead, x.dim() - 1))
             xf = upcast(x)
-            mean = xf.mean(dim=axes)
-            var = torch.clamp((xf * xf).mean(dim=axes) - mean * mean, min=0.0)
-            with torch.no_grad():
-                m = BN_MOMENTUM
-                self.running_mean.mul_(m).add_((1.0 - m) * mean.detach())
-                self.running_var.mul_(m).add_((1.0 - m) * var.detach())
+            rows = xf.numel() // self.weight.numel()
+            mean, sq = global_means(rows, xf.sum(dim=axes), (xf * xf).sum(dim=axes))
+            var = torch.clamp(sq - mean * mean, min=0.0)
+            self.update_running(mean, var)
         else:
             mean, var = self.running_mean, self.running_var
         w = torch.rsqrt(var + self.eps) * self.weight
         b = self.bias - mean * w
         return x * _expand(w, x).to(x.dtype) + _expand(b, x).to(x.dtype)
+
+    @torch.no_grad()
+    def update_running(self, mean: torch.Tensor, var: torch.Tensor) -> None:
+        """r = 0.9 r + 0.1 batch, flax's momentum, from the batch's mean and
+        biased variance."""
+        m = BN_MOMENTUM
+        self.running_mean.mul_(m).add_((1.0 - m) * mean.detach())
+        self.running_var.mul_(m).add_((1.0 - m) * var.detach())
+
+    def folded(self, stats: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The float32 per-channel (w, b) with BN(x) = x * w + b, without
+        applying it: the counterpart of the JAX BatchNorm's `affine_only`
+        (the fused combine folds it into the up kernel). Without `stats` it
+        folds the running statistics (eval); with `stats` = (mean, var), the
+        batch statistics computed by the caller (train, `stats_override`),
+        it folds those and updates the running averages with them as a
+        train forward does."""
+        if stats is None:
+            mean, var = self.running_mean, self.running_var
+        else:
+            mean, var = stats
+            self.update_running(mean, var)
+        w = torch.rsqrt(var + self.eps) * self.weight
+        return w, self.bias - mean * w
+
+
+def global_means(rows: int, *sums: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """Each of this rank's sums over its `rows` rows divided by the global
+    batch's rows: the global batch's means, through one differentiable
+    all-reduce of the sums and the row count, so that uneven local batches
+    are weighted by their rows. In one process, each sum / rows."""
+    if not data_parallel():
+        return tuple(s / rows for s in sums)
+    flat = [s.reshape(-1) for s in sums]
+    tot = global_sum(torch.cat(flat + [sums[0].new_full((1,), float(rows))]))
+    n, out, off = tot[-1], [], 0
+    for s, f in zip(sums, flat):
+        out.append(tot[off:off + f.numel()].reshape(s.shape) / n)
+        off += f.numel()
+    return tuple(out)

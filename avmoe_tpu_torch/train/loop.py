@@ -6,7 +6,9 @@ deque of the last three steps' device tensors), so the host never waits on
 the step it has just enqueued; the eval loop defers its readback the same
 way. Every train step takes the same `torch.Generator` (on the model's
 device, seeded from `seed`), whose state advances with each draw, where the
-JAX loop splits a PRNG key per step.
+JAX loop splits a PRNG key per step. Under a process group only rank 0
+saves checkpoints and writes logs, and the eval metrics are those of every
+rank's batches in batch order (`evaluate_batches`).
 """
 
 from __future__ import annotations
@@ -14,11 +16,12 @@ from __future__ import annotations
 import logging
 import math
 from collections import deque
-from typing import Callable, Optional
+from typing import Callable, List, Optional, Tuple
 
 import numpy as np
 import torch
 
+from avmoe_tpu_torch.parallel.mesh import gather_ordered, is_main, step_seed
 from avmoe_tpu_torch.telemetry.experts import ExpertUsageTracker
 from avmoe_tpu_torch.telemetry.meters import AverageMeter, Timer
 
@@ -33,9 +36,10 @@ def _scalars(metrics) -> dict:
 
 
 def step_generator(seed: int, device) -> torch.Generator:
-    """The train steps' generator: on `device`, seeded from `seed`."""
+    """The train steps' generator: on `device`, seeded from `seed` (on rank
+    r of a process group from seed + r, `parallel/mesh.py` `step_seed`)."""
     generator = torch.Generator(device=device)
-    generator.manual_seed(seed)
+    generator.manual_seed(step_seed(seed))
     return generator
 
 
@@ -75,6 +79,26 @@ def train_epoch(state, train_step: Callable, train_loader, generator: torch.Gene
     return state, meter
 
 
+def evaluate_batches(eval_step: Callable, state, eval_loader) -> List[Tuple[dict, dict]]:
+    """(scalar metrics, host routing stacks) of every eval batch, in batch
+    order, each read back READBACK_DEPTH batches after its dispatch. Under
+    a process group each rank runs its own batches (`split="batches"`) and
+    every rank gets all of them (`gather_ordered`)."""
+    records, pending = [], deque()
+
+    def drain(m):
+        telemetry = m.pop("telemetry", None)
+        records.append((_scalars(m), ExpertUsageTracker.to_host(telemetry or {})))
+
+    for batch in eval_loader:
+        pending.append(eval_step(state, batch))
+        if len(pending) > READBACK_DEPTH:
+            drain(pending.popleft())
+    for m in pending:
+        drain(m)
+    return gather_ordered(records)
+
+
 def train_and_evaluate(*, state, train_step: Callable, eval_step: Callable, train_loader,
                        eval_loader, epochs: int, seed: int = 0, early_stop: int = 0,
                        metric_key: str = "accuracy", checkpoints=None,
@@ -99,26 +123,16 @@ def train_and_evaluate(*, state, train_step: Callable, eval_step: Callable, trai
         eval_meter = AverageMeter()
         if expert_tracker is not None:
             expert_tracker.reset()
-        pending = deque()
-
-        def _drain_eval(m):
-            telemetry = m.pop("telemetry", None)
-            eval_meter.add(**_scalars(m))
-            if expert_tracker is not None and telemetry is not None:
-                expert_tracker.update(telemetry)
-
-        for batch in eval_loader:
-            pending.append(eval_step(state, batch))
-            if len(pending) > READBACK_DEPTH:
-                _drain_eval(pending.popleft())
-        for m in pending:
-            _drain_eval(m)
+        for scalars, stacks in evaluate_batches(eval_step, state, eval_loader):
+            eval_meter.add(**scalars)
+            if expert_tracker is not None:
+                expert_tracker.add(stacks)
 
         val = eval_meter.get(metric_key)
         train_loss = meter.get("loss")
         log.info("epoch %d done in %.1fs: train_loss %.4f val_%s %.4f",
                  epoch, timer.lap(), train_loss, metric_key, val)
-        if writer is not None:
+        if writer is not None and is_main():
             writer.log({"epoch": epoch, "train_loss": train_loss, f"val_{metric_key}": val})
 
         stall += 1

@@ -2,12 +2,14 @@
 
 Counterpart of the device-neutral part of `avmoe_tpu/utils/runtime.py`:
 the dropout switch the train path reads (the same environment variable),
-`pipelined`, the deferred-readback iterator of the test loop, and
-`archive_sources`, the snapshot of the sources a run was made with.
+`pipelined`, the deferred-readback iterator of the test loop,
+`archive_sources`, the snapshot of the sources a run was made with, and
+`profiler_trace`, a torch.profiler trace scope.
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
 import shutil
 from collections import deque
@@ -46,7 +48,12 @@ def pipelined(fn, iterable, depth: int = 2):
 def archive_sources(dst_dir: str, root: Optional[str] = None) -> int:
     """Copy the package's sources (default: this package, `csrc/` included;
     not the kernels' build directory) to `<dst_dir>/sources/`, keeping their
-    paths under the package. Returns the number of files copied."""
+    paths under the package. Returns the number of files copied (none off
+    rank 0 of a process group, which alone writes)."""
+    from avmoe_tpu_torch.parallel.mesh import is_main
+
+    if not is_main():
+        return 0
     root = root or PACKAGE_ROOT
     count = 0
     for dirpath, dirnames, files in os.walk(root):
@@ -59,3 +66,19 @@ def archive_sources(dst_dir: str, root: Optional[str] = None) -> int:
                 shutil.copyfile(src, out)
                 count += 1
     return count
+
+
+@contextlib.contextmanager
+def profiler_trace(logdir: str):
+    """torch.profiler scope over the host and, where there is a card, the
+    device; on exit it writes a Chrome trace (`<worker>.<time>.pt.trace.json`)
+    under `logdir`, which TensorBoard's profiler plugin and Perfetto read.
+    Yields the profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities, on_trace_ready=tensorboard_trace_handler(logdir)) as prof:
+        yield prof

@@ -35,9 +35,9 @@ in-process to train, test and resume at full width.
 Phases (any failed check raises, and the
 script exits non-zero without printing the result line). Of the profiles
 the list below names, only the windows in `PROFILED` are traced (AVE's
-default-path eval and train step, the AVVP, AVQA, AVS S4 and MMIL_Net v1
-train steps, AVQA's negative pass and TPAVI); the others report "not
-profiled", to keep the script inside its time limit:
+default-path eval and train step, both again on the fused combine, the
+AVVP, AVQA and AVS S4 train steps, AVQA's negative pass and TPAVI); the
+others report "not profiled", to keep the script inside its time limit:
 
   1. card: nvidia-smi name and power limit, torch / CUDA versions;
   2. build: the four CUDA sources with nvcc (one process each, in parallel);
@@ -99,8 +99,7 @@ profiled", to keep the script inside its time limit:
      the injection plan gives them; then one deterministic step in bf16
      against the same step in float32 at the seeded init (adapter gates
      zero, where training starts): cosine >= 0.99 of the flattened
-     trainable gradients (the same after the steps, gates noised, is
-     reported: there the adapters' bf16 gradients are not reproducible);
+     trainable gradients;
      times (reported, not claimed): train step ms and
      clips/s, peak memory, and a torch.profiler split of one step's device
      time by kernel;
@@ -115,20 +114,24 @@ profiled", to keep the script inside its time limit:
      logits cosine >= 0.99, three train steps with K1b / K2b as planned,
      frozen weights bit-identical and every trainable one moved;
  16. the AVE driver, `avmoe_tpu_torch.cli.train_ave.main`, in-process on the
-     full AVEConfig() in bf16, three times: train (--synthetic --batch_size 4
-     --accum_itr 2 --epochs 2 --decay_epoch 1 --num_workers 4: 16
-     micro-steps, 8 Adam updates, 4 eval batches of 4), with finite losses,
-     the updates' learning rates lr then lr * decay read from the optimizer,
+     full AVEConfig() in bf16, three times, each under a process group of
+     world size 1 on NCCL (RANK / WORLD_SIZE set as torchrun sets them; the
+     gradient all-reduce counted at every step, the group ended after
+     main): train (--synthetic --batch_size 4 --accum_itr 2 --epochs 1
+     --decay_epoch 1 --num_workers 4: 8 micro-steps, 4 Adam updates, 2 eval
+     batches of 4), with finite losses,
+     the updates' learning rates lr read from the optimizer,
      frozen parameters bit-identical to the initial ones and every trainable
      one moved, best.json and at most 3 step directories, the 12
      expert_stats_*.npy files with each mean_gating_probs row summing to 1
-     within 1e-3, the K1 / K2 / K1b / K2b launches over the run equal to 16
-     steps' and 4 eval forwards' plans, no jax imported, and nothing of the
+     within 1e-3, the K1 / K2 / K1b / K2b launches over the run equal to 8
+     steps' and 2 eval forwards' plans, no jax imported, and nothing of the
      run left allocated on the card after main returns; --mode test, whose
-     accuracy equals best.json's metric; --resume --epochs 3, whose restored
+     accuracy equals best.json's metric; --resume --epochs 2, whose restored
      state equals the saved checkpoint bit for bit (weights, running stats,
-     Adam moments, acc_grads, step, updates) and whose third epoch ends with
-     finite losses. Reported (not claimed): the loop's median step wall
+     Adam moments, acc_grads, step, updates) and whose second epoch ends
+     with finite losses at the updates' learning rate lr * decay (the step
+     decay). Reported (not claimed): the loop's median step wall
      time beside phase 13's step time, the consumer's mean wait on the
      loader a step, one checkpoint's size and its save and restore times,
      and the peak memory;
@@ -151,8 +154,8 @@ profiled", to keep the script inside its time limit:
      one moved, bn0's running stats moved; one deterministic step's
      trainable gradients in float32 through the kernels against their plain
      versions at the seeded init, cosine >= 0.9999 overall and on every
-     leaf (bf16 vs fp32 there, and the same at the trained model's noised
-     gates, reported); step ms, clips/s, peak memory and a profile;
+     leaf (bf16 vs fp32 there reported); step ms, clips/s, peak memory and
+     a profile;
  20. K3 against its plain version at the AVQA chain geometries the AVE chain
      path does not run, as phase 5 holds them; stage 2's 18 blocks as one
      chain in bf16 within K3_BF16_TOL sqrt(K / 2) of the float32 plain
@@ -259,15 +262,15 @@ profiled", to keep the script inside its time limit:
  30. the AVS driver, `cli/train_avs.py`: S4 on the full AVSConfig() in bf16
      for 1 epoch (4 micro-steps, HTS-AT training: K1b with dbias and K2b
      with weight gradients 12 a step each, every HTS-AT weight moved; the
-     sources archived), --mode test --save_pred_mask (40 mask PNGs; the
-     best step's mIoU and F-measure exactly), --resume to a second epoch
-     (the 220 tensors that cannot move at the seeded init,
-     `avs_seed_init_stalls`, unchanged over the runs; the others moved are
-     counted: at the recipe's lr S4 collapses to a constant loss within a
-     few updates, tools/s4_train_curve.py); then MS3 at the tiny config in
-     float32 on the card (4 micro-steps and updates, launches as planned,
-     every trainable tensor moved but its 36 that cannot, test mode's mIoU
-     the best);
+     sources archived; 4 Adam updates: the 220 tensors that cannot move at
+     the seeded init, `avs_seed_init_stalls`, unchanged; the others moved
+     are counted: at the recipe's lr S4 collapses to a constant loss within
+     a few updates, tools/s4_train_curve.py), --mode test --save_pred_mask
+     (the 4.885-GB checkpoint restored; 40 mask PNGs; the best step's mIoU
+     and F-measure exactly); then MS3 at the tiny config in float32 on the
+     card (4 micro-steps and updates, launches as planned, every trainable
+     tensor moved but its 36 that cannot, test mode's mIoU the best,
+     --resume to a second epoch: the restored state bit-identical);
  31. (after 13, on its model) a full-width MMIL_Net-layout state dict from
      seeded noise (`tests/torch_reference_layout.py`: 24 Swin-V2-L blocks,
      12 HTS-AT blocks, 8 sites x 4 adapters, temporal_attn.*, CMBS.*, and
@@ -343,13 +346,39 @@ profiled", to keep the script inside its time limit:
      parameter moved but that set, every running variance moved; no kernel
      of the port launched (K1 to K2b counted over the phase); wall and
      CUDA-event ms of the eval forward and of the step, peak memory, each
-     beside the card's name and power limit.
+     beside the card's name and power limit;
+ 39. (after 13, on its model) the fused bottleneck-rank MoE combine
+     (`phase_fused_moe`, every MoEAdapter switched): the bf16 batch-4 eval
+     forward fused vs materialized (logits and gating cosines >= 0.999, K1
+     / K2 launches 36 / 36 on both routes, as planned); one float32 train
+     step's trainable gradients fused vs materialized at the seeded init
+     with the gates at 1e-2 scale (whole and every live leaf >= 0.9999,
+     float64 sums on the card) and its running statistics
+     (rtol 1e-3, atol 1e-4, every one moved); three bf16 fused train steps
+     with phase 13's checks; both routes' eval and train-step walls, device
+     busy (profiles "fused eval" and "fused train step"; the materialized
+     ones are phases 9 and 13's) and peak memory, with the card's name and
+     power limit;
+ 40. t-SNE (`utils/tsne.py`) of 200 pooled AVE features, card against CPU:
+     the KL gradient at a mid-descent embedding with and without the
+     exaggeration, and the default descent's first 3 iterations (each
+     within 1e-4; later the descent is chaotic), and the default run's
+     time;
+ 41. `parallel/dryrun.py` at world size 1 on NCCL: 3 tiny AVE train steps
+     under a group of one against the same steps without one
+     (the loss curve, and each step held from the one process's state: BN
+     statistics, every leaf's gradient, weights), then an eval pass with
+     telemetry;
+ 42. inside phases 17, 21 and 25, on their models, the fused combine on the
+     default path: the eval outputs and one train step's gradients, card vs
+     CPU (the curves run materialized).
 
-The lines seven to two before the last are JSON objects of the AVVP, AVQA
+The lines eight to two before the last are JSON objects of the AVVP, AVQA
 and AVS numbers (the AVS one with the S4 step's under `s4_*`), of the
 legacy models' and their drivers' (`ave_legacy`: `v1`, `lavish`, `v1_cli`,
 `lavish_cli`), of the AVSBench baseline's (`avs_baseline`: `vggish`, `pvt`,
-`resnet`, each with the card's name and power limit) and of the AVE
+`resnet`, each with the card's name and power limit), of the fused
+combine's and t-SNE's (`ave_fused_moe`, `tsne`) and of the AVE
 driver's, the scv2 / Swin-V2-B flavor's and
 the AVVP, AVQA and AVS drivers' (`ave_cli`, `ave_scv2_base`, `avvp_cli`,
 `avqa_cli`, `avs_cli`) with phases 31 and 32 (`convert`, `audio_stats`),
@@ -961,11 +990,11 @@ def phase_full():
     check(cos >= 0.99, f"bf16 chain path vs default path logits cosine {cos:.5f} < 0.99")
     log(f"[full] bf16 chain path vs default path logits cosine {cos:.6f} (>= 0.99)")
 
-    fwd_ms = {}
+    fwd_ms, profs = {}, {}
     for label, m in paths.items():
         fwd_ms[label] = _times(m, label, wave, imgs)
-        phase_profile(label, lambda m=m: m(wave, imgs), fwd_ms[label])
-    return launches, fwd_ms, model
+        profs[label] = phase_profile(label, lambda m=m: m(wave, imgs), fwd_ms[label])
+    return launches, fwd_ms, profs, model
 
 
 def _host_summary(label: str, prof, what: str) -> None:
@@ -1002,14 +1031,19 @@ def _device_ms_by_name(prof) -> dict:
     return by_name
 
 
-# The windows phase_profile traces: each costs 1 to 40 s of host time
-# (mostly the trace's read-back), and device busy repeats within 2.5% from
-# run to run. Kept: AVE's eval (default path) and train step, a
-# train step of each other model (AVS: S4's; LAVisH's is not profiled), and
-# the two small windows of AVQA's negative pass and TPAVI. The host's side
-# (`_host_summary`) is read in AVE's two windows.
-PROFILED = ("default path", "train step", "v1 train step", "AVVP train step",
-            "AVQA negative pass (default path)", "AVQA train step",
+# The windows phase_profile traces: each cost 1 to 40 s of host time with
+# the host's ops traced, most of it the profiler's processing of the trace
+# as it stops (a window of ~10,800 small kernels: 16.3 s with the host's
+# ops, 2.5 s without, device busy 27.9 / 27.6 ms; so the host's ops are
+# traced only in HOST_SUMMARY's windows), and device busy repeats within
+# 2.5% from run to run. Kept: AVE's eval (default path) and train step, both again
+# on the fused combine, a train step of AVVP, AVQA and AVS (S4's; the
+# legacy models' are not profiled: MMIL_Net v1's busy read 322.51 and
+# 321.73 ms in two runs), and the two small windows of AVQA's
+# negative pass and TPAVI. The host's side (`_host_summary`) is read in
+# AVE's two materialized windows.
+PROFILED = ("default path", "train step", "fused eval", "fused train step",
+            "AVVP train step", "AVQA negative pass (default path)", "AVQA train step",
             "AVS TPAVI alone (4 stages)", "AVS S4 train step")
 HOST_SUMMARY = ("default path", "train step")
 
@@ -1023,9 +1057,10 @@ def phase_profile(label: str, run, fwd_ms: Optional[float], what: str = "forward
     profiled window, whose wall time also holds the profiler's own host work.
     Only the windows in `PROFILED` are traced (the others return three
     Nones). One run is profiled, after a traced warm-up run whose events are
-    dropped: reading the trace back costs the host ~10 s for each ~10,000
-    kernel launches, device busy repeats within a few percent from run to
-    run, and without the warm-up the kernels just after the profiler starts
+    dropped: processing the trace costs the host ~15 s for each ~10,000
+    kernel launches where the host's ops are traced (HOST_SUMMARY's windows
+    only; ~2.5 s without them), device busy repeats within a few percent
+    from run to run, and without the warm-up the kernels just after the profiler starts
     can go unrecorded (TPAVI alone read 1.67 of ~11 ms busy).
     Returns (device-busy ms, idle share of fwd_ms or None, idle share of the
     profiled window), all None where the profiler saw no kernels. Logs what the host
@@ -1035,8 +1070,11 @@ def phase_profile(label: str, run, fwd_ms: Optional[float], what: str = "forward
     if label not in PROFILED:
         log(f"[profile] {label}: not profiled (chip_smoke.PROFILED)")
         return None, None, None
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 schedule=schedule(wait=0, warmup=1, active=1), acc_events=True) as prof:
+    # the host's ops are traced only where they are read (HOST_SUMMARY): their
+    # events, not the kernels', make most of the trace's read-back
+    acts = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if label in HOST_SUMMARY else [])
+    with profile(activities=acts, schedule=schedule(wait=0, warmup=1, active=1),
+                 acc_events=True) as prof:
         run()
         torch.cuda.synchronize()
         prof.step()
@@ -1513,11 +1551,12 @@ def _nudged(batch, keys=("images", "wave")):
 
 
 def _tiny_train_vs_cpu(label: str, cpu, gpu, make_loss_fn, batches, steps: int,
-                       frozen_scopes=("swin", "htsat"), nudge: bool = False):
+                       frozen_scopes=("swin", "htsat"), nudge: bool = False,
+                       fused: bool = False):
     """Train semantics on the card (kernels) against the CPU (plain versions),
     float32, from the same weights, the backbones in `frozen_scopes` frozen:
     one deterministic step's trainable gradients, per leaf (cosine >=
-    0.9999), then a `steps`-step curve at lr 1e-5
+    0.9999), then (unless `steps` is 0) a `steps`-step curve at lr 1e-5
     (AVMOE_DETERMINISTIC_TRAIN=1): losses rtol 1e-3, parameters and running
     stats rtol 1e-3, atol 1e-4. `batches(n, device)` gives n seeded batches.
     At that lr Adam moves a parameter by less than the states' atol, so the
@@ -1527,42 +1566,55 @@ def _tiny_train_vs_cpu(label: str, cpu, gpu, make_loss_fn, batches, steps: int,
     change of the frames and waves (a model whose 'mha' expert turns float32
     rounding into more; as `_close_to_cpu`'s `moved`, the CPU's own change
     is taken over the whole tree: which small leaves a rounding-sized
-    change moves depends on where it enters)."""
+    change moves depends on where it enters). With `fused`, the gradient
+    check runs again with the fused-combine train switch on in both models
+    (the same weights), before the curve, which runs materialized."""
     from avmoe_tpu_torch.config import TrainConfig
     from avmoe_tpu_torch.train.freeze import freeze
     from avmoe_tpu_torch.train.state import create_train_state
     from avmoe_tpu_torch.train.steps import make_train_step
 
     tcfg = TrainConfig(accum_steps=1, lr=1e-5, lr_mlp=1e-5, decay=0.5, decay_epoch=1)
-    grads, kept = {}, {k: v.clone() for k, v in cpu.state_dict().items()}
+    kept = {k: v.clone() for k, v in cpu.state_dict().items()}
     runs_of = [("cpu", cpu, "cpu", False), ("card", gpu, "cuda", False)]
     if nudge:
         runs_of.append(("cpu nudged", cpu, "cpu", True))
-    for name, model, dev, nudged in runs_of:
-        freeze(model, frozen_scopes)
-        batch = batches(1, dev)[0]
-        grads[name] = _trainable_grads(model, make_loss_fn(model),
-                                       _nudged(batch) if nudged else batch, 0)
-        model.load_state_dict(kept)             # the running stats as they were
-    whole, _, _ = _grad_cosines(grads["card"], grads["cpu"])
-    leaves = _leaf_cosines(grads["card"], grads["cpu"])
-    own = _leaf_cosines(grads["cpu nudged"], grads["cpu"]) if nudge else {}
-    own_leaf = min(own, key=own.get) if own else None
-    allowed = max(1e-4, 4.0 * (1.0 - own[own_leaf])) if own else 1e-4
-    bad = {n: c for n, c in leaves.items() if 1.0 - c > allowed}
-    leaf = min(leaves, key=leaves.get)
-    low = leaves[leaf]
-    by_own = sorted(n for n, c in leaves.items() if c < 0.9999 and n not in bad)
-    check(whole >= 0.9999 and not bad, f"{label} train gradients card vs CPU: cosine "
-          f"{whole:.7f}; leaves past their bound {sorted(bad.items(), key=lambda kv: kv[1])[:5]}"
-          f" (want >= 0.9999" + (f", or 1 - cosine <= {allowed:.3e}, 4x the CPU's own "
-                                 f"largest under a 1e-6 input change)" if nudge else ")"))
-    if nudge:
-        log(f"[{label}] the CPU's own gradients under a 1e-6 relative input change: lowest "
-            f"leaf cosine {own[own_leaf]:.7f} ({own_leaf}); a card leaf may then be as low as "
-            f"{1.0 - allowed:.7f}; " + (", ".join(
-                f"{n} {leaves[n]:.7f}" for n in sorted(by_own, key=leaves.get)[:8])
-                + f" ({len(by_own)} leaves below 0.9999)" if by_own else "no leaf below 0.9999"))
+    for route in (False, True) if fused else (False,):
+        tag = f"{label} fused" if route else label
+        grads = {}
+        for name, model, dev, nudged in runs_of:
+            _set_fused_(model, False, route)
+            freeze(model, frozen_scopes)
+            batch = batches(1, dev)[0]
+            grads[name] = _trainable_grads(model, make_loss_fn(model),
+                                           _nudged(batch) if nudged else batch, 0)
+            model.load_state_dict(kept)             # the running stats as they were
+            _set_fused_(model, False, False)
+        whole, _, _ = _grad_cosines(grads["card"], grads["cpu"])
+        leaves = _leaf_cosines(grads["card"], grads["cpu"])
+        own = _leaf_cosines(grads["cpu nudged"], grads["cpu"]) if nudge else {}
+        own_leaf = min(own, key=own.get) if own else None
+        allowed = max(1e-4, 4.0 * (1.0 - own[own_leaf])) if own else 1e-4
+        bad = {n: c for n, c in leaves.items() if 1.0 - c > allowed}
+        leaf = min(leaves, key=leaves.get)
+        low = leaves[leaf]
+        by_own = sorted(n for n, c in leaves.items() if c < 0.9999 and n not in bad)
+        check(whole >= 0.9999 and not bad, f"{tag} train gradients card vs CPU: cosine "
+              f"{whole:.7f}; leaves past their bound {sorted(bad.items(), key=lambda kv: kv[1])[:5]}"
+              f" (want >= 0.9999" + (f", or 1 - cosine <= {allowed:.3e}, 4x the CPU's own "
+                                     f"largest under a 1e-6 input change)" if nudge else ")"))
+        if nudge:
+            log(f"[{tag}] the CPU's own gradients under a 1e-6 relative input change: lowest "
+                f"leaf cosine {own[own_leaf]:.7f} ({own_leaf}); a card leaf may then be as low "
+                f"as {1.0 - allowed:.7f}; " + (", ".join(
+                    f"{n} {leaves[n]:.7f}" for n in sorted(by_own, key=leaves.get)[:8])
+                    + f" ({len(by_own)} leaves below 0.9999)" if by_own
+                    else "no leaf below 0.9999"))
+        log(f"[{tag}] fp32 trainable gradients of one deterministic step, card (kernels) vs "
+            f"CPU (plain): cosine {whole:.7f} (>= 0.9999), lowest per-leaf cosine {low:.7f} "
+            f"({leaf}) (>= {1.0 - allowed:.7f})")
+    if not steps:
+        return
     counters = _train_counters()
     runs = {}
     with _deterministic():
@@ -1589,9 +1641,7 @@ def _tiny_train_vs_cpu(label: str, cpu, gpu, make_loss_fn, batches, steps: int,
         worst = max(worst, (a - b).abs().max().item())
         check(torch.allclose(a, b, rtol=1e-3, atol=1e-4), f"{label} train {k}: card vs CPU max "
               f"|d| {(a - b).abs().max().item():.3e}")
-    log(f"[{label}] fp32 trainable gradients of one deterministic step, card (kernels) vs CPU "
-        f"(plain): cosine {whole:.7f} (>= 0.9999), lowest per-leaf cosine {low:.7f} ({leaf}) "
-        f"(>= {1.0 - allowed:.7f}); {steps} deterministic steps at lr 1e-5: losses "
+    log(f"[{label}] {steps} deterministic steps at lr 1e-5: losses "
         f"{[round(v, 6) for v in l_gpu]} "
         f"vs {[round(v, 6) for v in l_cpu]}; parameters and running stats max |d| {worst:.3e} "
         f"(rtol 1e-3, atol 1e-4); launches on the card {n_gpu}")
@@ -1685,7 +1735,7 @@ def _grad_cosines(a, b):
     return _cos(*sums.sum(dim=0).tolist()), leaves[worst], worst
 
 
-def phase_train_grads(model, loss_fn, batch):
+def phase_train_grads(loss_fn, batch):
     """One deterministic step's trainable gradients at full width (PERF.md
     section 6). float32 through the kernels (K1b, K2b) against float32
     through their plain versions, checked where the float32 gradient is well
@@ -1694,9 +1744,9 @@ def phase_train_grads(model, loss_fn, batch):
     later block), and as a whole with noised gates at depths 2-2-2-2 (the
     bottlenecks', routers' and latent tokens' gradients too; some small
     leaves, such as a router's bias, sit at the rounding there and flip
-    sign). bf16 against float32, checked at the seeded init. Reported, not
-    checked: both after the train steps (`model`, gates noised), where the
-    adapters' float32 gradient itself moves with the rounding."""
+    sign). bf16 against float32, checked at the seeded init. (After the
+    train steps, with the gates noised, the adapters' float32 gradient
+    itself moves with the rounding, so nothing is read there.)"""
     import dataclasses
 
     from avmoe_tpu_torch.config import AVEConfig
@@ -1710,12 +1760,10 @@ def phase_train_grads(model, loss_fn, batch):
                                                 device="cuda"))
     plain = _plain_cores()
     read = {}
-    for label, c, m16 in (("seeded init", cfg, None), ("depths 2-2-2-2, gates noised", cut, None),
-                          ("after the steps, gates noised", cfg, model)):
-        if m16 is None:
-            m16 = AVEModel(c, dtype=torch.bfloat16, device="cuda", seed=0)
-            if c is cut:
-                _nonzero_gates_(m16, 1)
+    for label, c in (("seeded init", cfg), ("depths 2-2-2-2, gates noised", cut)):
+        m16 = AVEModel(c, dtype=torch.bfloat16, device="cuda", seed=0)
+        if c is cut:
+            _nonzero_gates_(m16, 1)
         f32 = AVEModel(c, dtype=torch.float32, device="cuda", seed=None)
         f32.load_state_dict(m16.state_dict())
         freeze(m16)
@@ -1824,9 +1872,238 @@ def phase_train(model):
         f"bit-identical, {n_moved} trainable tensors moved, bn0 and adapter running stats "
         f"moved; launches per step {got} (plan {want})")
 
-    phase_train_grads(model, loss_fn, batch)
-    step_ms, _, _ = _step_times("train step", step, state, batch, gen)
-    return got, step_ms
+    phase_train_grads(loss_fn, batch)
+    step_ms, _, prof = _step_times("train step", step, state, batch, gen)
+    return got, step_ms, prof
+
+
+# ---------------------------------------------------------------------------
+# The fused bottleneck-rank MoE combine (moe/adapter.py), t-SNE and the
+# data-parallel dry run at world size 1 on NCCL
+# ---------------------------------------------------------------------------
+
+
+def _set_fused_(model, eval_on: bool, train_on: bool) -> int:
+    """Both fused-combine switches of every MoEAdapter of `model`, in place;
+    returns the adapters set."""
+    from avmoe_tpu_torch.moe.adapter import MoEAdapter
+
+    adapters = [m for m in model.modules() if isinstance(m, MoEAdapter)]
+    for m in adapters:
+        m.fused_moe, m.fused_moe_train = eval_on, train_on
+    return len(adapters)
+
+
+def _peak_gib(run) -> float:
+    """Peak memory of one synced run(), GiB."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    run()
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated() / 2**30
+
+
+def phase_fused_moe(model, mat_fwd_prof, mat_step_prof) -> dict:
+    """The fused combine on the full AVEConfig() (every adapter switched on
+    `model`, the bf16 model of phase_full and phase_train, gates noised):
+    the bf16 batch-4 eval forward fused against materialized (logits and
+    gating cosines >= 0.999, K1 / K2 launches equal to the materialized
+    route's and to the plan); one float32 train step's trainable gradients
+    fused against materialized at the seeded init with the gates at 1e-2
+    scale (every expert live, the gradient as well conditioned as at the
+    seeded init), on the card in float64 (whole and every live leaf >=
+    0.9999) and the BN running statistics after it (rtol 1e-3, atol 1e-4,
+    the card-vs-CPU bound of the tiny train phases: the fused trunk's
+    closed-form LayerNorm variance cancels where a row's mean is large);
+    three bf16 fused train steps with phase_train's checks (launches as
+    planned, frozen bit-identical, every trainable moved, bn0 and adapter
+    statistics moved); the two routes' eval and train-step walls and peaks,
+    timed here one after the other, and device busy (the materialized
+    route's from phase_full's and phase_train's profiles)."""
+    from avmoe_tpu_torch.config import AVEConfig, TrainConfig
+    from avmoe_tpu_torch.models.ave import AVEModel, make_ave_loss_fn
+    from avmoe_tpu_torch.moe.injection import backward_launches, kernel_launches
+    from avmoe_tpu_torch.train.freeze import freeze
+    from avmoe_tpu_torch.train.state import create_train_state
+    from avmoe_tpu_torch.train.steps import make_train_step
+
+    cfg = AVEConfig()
+    wave, imgs = _inputs(cfg, BATCH, 3, "cuda")
+    counters = _counters()
+    want = kernel_launches(cfg.swin, cfg.htsat, cfg.injection, block_chains=False)
+    outs, got, peaks = {}, {}, {}
+    for route, on in (("materialized", False), ("fused", True)):
+        n_adapters = _set_fused_(model, on, False)
+        for c in counters.values():
+            c.launches = 0
+        outs[route] = model(wave, imgs)
+        torch.cuda.synchronize()
+        got[route] = {k: c.launches for k, c in counters.items()}
+        peaks[route] = _peak_gib(lambda: model(wave, imgs))
+    check(n_adapters == 32, f"fused: {n_adapters} adapters, want 32")
+    check(got["fused"] == got["materialized"] == want,
+          f"fused eval: launches fused {got['fused']}, materialized {got['materialized']}, "
+          f"plan {want}")
+    cos = F.cosine_similarity(_logits(outs["fused"]), _logits(outs["materialized"]),
+                              dim=0).item()
+    gating = min(F.cosine_similarity(outs["fused"]["telemetry"][k].float().flatten(),
+                                     outs["materialized"]["telemetry"][k].float().flatten(),
+                                     dim=0).item() for k in GATING)
+    check(cos >= 0.999 and gating >= 0.999, f"fused eval bf16: logits cosine {cos:.6f}, "
+          f"lowest gating cosine {gating:.6f} against the materialized combine (>= 0.999)")
+    log(f"[fused] AVEConfig() bf16 batch {BATCH} eval, fused vs materialized combine: logits "
+        f"cosine {cos:.6f}, lowest gating cosine {gating:.6f} (>= 0.999); launches {got['fused']}"
+        f" both (plan {want}); peak memory {peaks['fused']:.2f} / {peaks['materialized']:.2f} "
+        f"GiB")
+    del outs
+    _set_fused_(model, False, False)
+    mat_fwd_ms = _times(model, "materialized combine", wave, imgs, batch1=False)
+    _set_fused_(model, True, False)
+    fwd_ms = _times(model, "fused combine", wave, imgs, batch1=False)
+    fwd_prof = phase_profile("fused eval", lambda: model(wave, imgs), fwd_ms)
+
+    # float32 train step, fused vs materialized, from the same state: the
+    # seeded init with its adapter gates at 1e-2 scale, so that every
+    # expert's gradient is live while the float32 gradient stays as well
+    # conditioned as at the seeded init (with gates at 0.5 +- 0.2 a 1e-6
+    # relative input change moves it to cosine 0.64: phase_train_grads)
+    loss_fn = make_ave_loss_fn(model, mixup_alpha=0.5)
+    batch = _train_batches(cfg, BATCH, 1, 11, "cuda")[0]
+    f32 = AVEModel(cfg, dtype=torch.float32, device="cuda", seed=0)
+    g = torch.Generator(device="cpu").manual_seed(2)
+    with torch.no_grad():
+        for n, p in f32.named_parameters():
+            if n.rsplit(".", 1)[-1] in ("gate", "gate_av"):
+                p.copy_(1e-2 * torch.randn(p.shape, generator=g))
+    freeze(f32)
+    kept = {k: v.clone() for k, v in f32.state_dict().items()}
+    grads, stats = {}, {}
+    for route, on in (("materialized", False), ("fused", True)):
+        _set_fused_(f32, False, on)
+        f32.load_state_dict(kept)
+        grads[route] = _trainable_grads(f32, loss_fn, batch, 13)
+        stats[route] = {n: b.clone() for n, b in f32.named_buffers()
+                        if n.endswith(("running_mean", "running_var"))}
+    whole = _grad_cosines(grads["fused"], grads["materialized"])[0]
+    leaves = _leaf_cosines(grads["fused"], grads["materialized"])
+    leaf = min(leaves, key=leaves.get)
+    low = leaves[leaf]
+    check(whole >= 0.9999 and low >= 0.9999, f"fused train fp32: trainable gradients against "
+          f"the materialized combine: cosine {whole:.7f}, lowest leaf {low:.7f} ({leaf})")
+    worst = 0.0
+    for n, b in stats["materialized"].items():
+        a = stats["fused"][n]
+        worst = max(worst, (a - b).abs().max().item())
+        check(torch.allclose(a, b, rtol=1e-3, atol=1e-4), f"fused train fp32 {n}: running stats "
+              f"max |d| {(a - b).abs().max().item():.3e}")
+    moved = sum(not torch.equal(stats["fused"][n], kept[n]) for n in stats["fused"])
+    check(moved == len(stats["fused"]), f"fused train fp32: {len(stats['fused']) - moved} "
+          f"running stats did not move")
+    log(f"[fused] AVEConfig() fp32 batch {BATCH} train step (seeded init, gates at 1e-2 scale, "
+        f"deterministic, λ given), fused vs materialized: trainable gradients cosine "
+        f"{whole:.7f}, lowest of {len(leaves)} live leaves {low:.7f} ({leaf}) (>= 0.9999, "
+        f"float64 sums on the card); {len(stats['fused'])} running stats moved, max |d| "
+        f"{worst:.3e} (rtol 1e-3, atol 1e-4)")
+    del f32, kept, grads, stats
+    torch.cuda.empty_cache()
+
+    _set_fused_(model, True, True)
+    state = create_train_state(model, TrainConfig(accum_steps=1), steps_per_epoch=100)
+    step = make_train_step(loss_fn)
+    batch.pop("mixup_lambda")
+    plan = {"K1": want["K1"], "K2": want["K2"],
+            **backward_launches(cfg.swin, cfg.htsat, cfg.injection)}
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    got_step, losses, n_frozen, n_moved = _checked_steps("fused train", model, state, step,
+                                                         batch, gen, plan, ("bn0", "moe"))
+    log(f"[fused] AVEConfig() bf16 batch {BATCH} train steps, fused combine: losses "
+        f"{[round(v, 5) for v in losses]}; {n_frozen} frozen tensors bit-identical, {n_moved} "
+        f"trainable tensors moved; launches per step {got_step} (plan {plan})")
+    step_ms, step_peak, step_prof = _step_times("fused train step", step, state, batch, gen)
+    _set_fused_(model, False, False)
+    mat_step_ms, mat_step_peak, _ = _step_times("materialized train step", step, state, batch,
+                                                gen)
+    routes = {
+        "materialized": {"eval_ms": mat_fwd_ms, "eval_device_busy_ms": mat_fwd_prof[0],
+                         "eval_peak_gib": peaks["materialized"], "train_step_ms": mat_step_ms,
+                         "train_device_busy_ms": mat_step_prof[0],
+                         "train_peak_gib": mat_step_peak},
+        "fused": {"eval_ms": fwd_ms, "eval_device_busy_ms": fwd_prof[0],
+                  "eval_peak_gib": peaks["fused"], "train_step_ms": step_ms,
+                  "train_device_busy_ms": step_prof[0], "train_peak_gib": step_peak}}
+    busy = lambda prof: "not profiled" if prof[0] is None else f"{prof[0]:.2f}"
+    log(f"[time] {_card_line()}: AVE bf16 batch {BATCH}, fused / materialized combine: eval "
+        f"{fwd_ms:.2f} / {mat_fwd_ms:.2f} ms wall, {busy(fwd_prof)} / {busy(mat_fwd_prof)} ms "
+        f"device busy, {peaks['fused']:.2f} / {peaks['materialized']:.2f} GiB peak; train step "
+        f"{step_ms:.2f} / {mat_step_ms:.2f} ms wall, {busy(step_prof)} / {busy(mat_step_prof)} "
+        f"ms device busy, {step_peak:.2f} / {mat_step_peak:.2f} GiB peak")
+    return {"clips": BATCH, "eval_logits_cosine": cos, "eval_gating_cosine": gating,
+            "train_grad_cosine": whole, "train_lowest_leaf_cosine": low,
+            "launches_per_forward": got["fused"], "launches_per_step": got_step,
+            "routes": routes}
+
+
+def phase_tsne(model) -> dict:
+    """t-SNE (`utils/tsne.py`) of 200 pooled visual features of the AVE eval
+    (5 batches of 4 clips, 10 frames each, through `model`'s encoder) on the
+    card against the CPU: the KL gradient at a mid-descent embedding (50
+    CPU iterations), with and without the exaggeration, within 1e-4 of its
+    largest entry; the default descent's first 3 iterations within 1e-4 of
+    the embedding's extent (later the descent is chaotic: float32 rounding
+    grows into another local minimum); then the default 500 iterations on
+    the card, finite, timed."""
+    from avmoe_tpu_torch.config import AVEConfig
+    from avmoe_tpu_torch.utils.tsne import _kl_grad, joint_probs, tsne
+
+    cfg = AVEConfig()
+    feats = []
+    with torch.no_grad():
+        for seed in range(5):
+            wave, imgs = _inputs(cfg, BATCH, 40 + seed, "cuda")
+            f_v, _, _ = model.encoder(wave.reshape(BATCH * 10, -1),
+                                      imgs.reshape((BATCH * 10,) + tuple(imgs.shape[2:])))
+            feats.append(f_v.float().cpu())
+    x = torch.cat(feats).numpy()
+    P = torch.from_numpy(joint_probs(x)).float()
+    y = torch.from_numpy(tsne(x, n_iter=50, device="cpu"))
+    worst = {}
+    for exag in (12.0, 1.0):
+        card = _kl_grad(y.cuda(), P.cuda(), exag).cpu()
+        cpu = _kl_grad(y, P, exag)
+        worst[f"kl_grad_exaggeration_{exag:g}"] = float((card - cpu).abs().max()
+                                                        / cpu.abs().max())
+    card = tsne(x, n_iter=3, device="cuda")
+    cpu = tsne(x, n_iter=3, device="cpu")
+    worst["3_iterations"] = float(np.abs(card - cpu).max() / np.abs(cpu).max())
+    check(all(v <= 1e-4 for v in worst.values()), f"t-SNE card vs CPU: {worst} (<= 1e-4)")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    emb = tsne(x, device="cuda")
+    ms = (time.perf_counter() - t0) * 1e3
+    check(emb.shape == (x.shape[0], 2) and np.isfinite(emb).all(), "t-SNE: default run")
+    log(f"[tsne] {x.shape[0]} AVE features ({x.shape[1]}-d): card vs CPU, max |d| over the "
+        f"largest: " + ", ".join(f"{k} {v:.3e}" for k, v in worst.items())
+        + f" (<= 1e-4); the default 500 iterations on the card in {ms:.1f} ms")
+    return {"points": int(x.shape[0]), "card_vs_cpu": worst, "default_run_ms": ms}
+
+
+def phase_dryrun() -> None:
+    """`parallel/dryrun.py` at world size 1 on NCCL: 3 tiny AVE train steps
+    under a process group of one (every batch reduction and the gradient
+    all-reduce through NCCL) against the same steps without one, both in
+    this process, then the eval pass with telemetry."""
+    from avmoe_tpu_torch.parallel import dryrun
+
+    t0 = time.perf_counter()
+    out = dryrun.dryrun(1, ("ave",), steps=3, device="cuda")["ave"]
+    rank = out["ranks"][0]
+    check(rank["world_size"] == 1 and rank["grad_allreduces"] == 6,
+          f"dryrun: world size {rank['world_size']}, {rank['grad_allreduces']} all-reduces")
+    log(f"[dryrun] tiny AVE, 3 steps at world size 1 on NCCL against one process: losses "
+        f"{[round(v, 6) for v in rank['curve']]} vs "
+        f"{[round(v, 6) for v in out['reference']['curve']]}; largest differences "
+        f"{out['worst']}; {rank['grad_allreduces']} gradient all-reduces; "
+        f"{time.perf_counter() - t0:.1f} s")
 
 
 # ---------------------------------------------------------------------------
@@ -2424,9 +2701,11 @@ def _best_json(directory: str):
 
 def phase_ave_cli(train_step_ms: float):
     """`avmoe_tpu_torch.cli.train_ave.main` in-process on the full AVEConfig()
-    in bf16, three times: train (2 epochs of 32 synthetic clips, batch 4,
-    accum 2: 8 micro-steps and 4 Adam updates an epoch, 2 eval batches),
-    --mode test on its checkpoints, --resume for a third epoch."""
+    in bf16, three times, each under a process group of world size 1 on
+    NCCL (the gradient all-reduce runs at every step): train (1 epoch of
+    32 synthetic clips, batch 4, accum 2: 8 micro-steps and 4 Adam updates,
+    2 eval batches), --mode test on its checkpoint, --resume for a second
+    epoch (which holds the step decay's learning rate)."""
     import shutil
     import tempfile
 
@@ -2434,6 +2713,8 @@ def phase_ave_cli(train_step_ms: float):
     from avmoe_tpu_torch.cli import train_ave
     from avmoe_tpu_torch.config import AVEConfig
     from avmoe_tpu_torch.moe.injection import backward_launches, kernel_launches
+    from avmoe_tpu_torch.parallel import mesh
+    from avmoe_tpu_torch.parallel.dryrun import single_rank_env
 
     cfg = AVEConfig()
     lr, decay = 5e-4, 0.35
@@ -2450,20 +2731,24 @@ def phase_ave_cli(train_step_ms: float):
         torch.cuda.synchronize()
         base_mem = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
-        best, p, got, train_s = _cli_run(train_ave, argv + ["--epochs", "2"], counters)
+        reduces = mesh.GRAD_ALLREDUCES
+        with single_rank_env():
+            best, p, got, train_s = _cli_run(train_ave, argv + ["--epochs", "1"], counters)
+        check(not mesh.data_parallel(), "ave cli: the process group outlived main")
         peak = torch.cuda.max_memory_allocated() / 2**30
         steps, evals = len(p.losses), len(p.evals)
         train_evals = [{k: v.cpu() for k, v in e.items()} for e in p.evals]
-        check(steps == 16 and evals == 4, f"ave cli: {steps} train steps, {evals} eval batches")
+        check(steps == 8 and evals == 2, f"ave cli: {steps} train steps, {evals} eval batches")
+        check(mesh.GRAD_ALLREDUCES - reduces == steps, f"ave cli: "
+              f"{mesh.GRAD_ALLREDUCES - reduces} gradient all-reduces over {steps} steps")
         want = _run_plan(per_step, per_eval, steps, evals)
         check(got == want, f"ave cli: launches over the run {got}, want {want}")
         losses = [float(v) for v in p.losses]
         check(all(math.isfinite(v) for v in losses), f"ave cli: losses {losses}")
-        check([len(x) for x in p.update_lrs] == [1] * 8, f"ave cli: lr groups {p.update_lrs}")
+        check([len(x) for x in p.update_lrs] == [1] * 4, f"ave cli: lr groups {p.update_lrs}")
         lrs = [x[0] for x in p.update_lrs]
-        check(all(math.isclose(v, lr, rel_tol=1e-12) for v in lrs[:4])
-              and all(math.isclose(v, lr * decay, rel_tol=1e-12) for v in lrs[4:]),
-              f"ave cli: learning rates of the updates {lrs}, want 4 x {lr} then 4 x {lr * decay}")
+        check(all(math.isclose(v, lr, rel_tol=1e-12) for v in lrs),
+              f"ave cli: learning rates of the updates {lrs}, want 4 x {lr}")
         n_frozen = _frozen_unchanged("ave cli", p.state, p.initial)
         n_moved, stalled = _moved("ave cli", p.state, p.initial, AVE_CLI_STALLS)
         n_stalled = len(p.state.trainable) - n_moved
@@ -2487,7 +2772,8 @@ def phase_ave_cli(train_step_ms: float):
             f"{got} (plan {want}); {left:.1f} MiB left after main returned")
         train_got = got
 
-        acc, q, got, test_s = _cli_run(train_ave, argv + ["--mode", "test"], counters)
+        with single_rank_env():
+            acc, q, got, test_s = _cli_run(train_ave, argv + ["--mode", "test"], counters)
         check(len(q.evals) == 2 and got == _run_plan(per_step, per_eval, 0, 2),
               f"ave cli test: {len(q.evals)} eval batches, launches {got}")
         check(acc == best_json["metric"], f"ave cli test: accuracy {acc} vs best.json "
@@ -2498,7 +2784,7 @@ def phase_ave_cli(train_step_ms: float):
         # train run, bit for bit
         check(kept[-1] == best_json["step"], f"ave cli test: latest step {kept[-1]} is not "
                                              f"best.json's {best_json['step']}")
-        epoch = best_json["step"] // (steps // 2)
+        epoch = best_json["step"] // steps
         ref = train_evals[2 * (epoch - 1): 2 * epoch]
         differ = [f"batch {i} {k}" for i, (a, b) in enumerate(zip(ref, q.evals))
                   for k in a.keys() | b.keys()
@@ -2513,18 +2799,27 @@ def phase_ave_cli(train_step_ms: float):
             f"launches {got}")
 
         saved = _saved_payload(CheckpointManager(tmp))
-        _, r, _, _ = _cli_run(train_ave, argv + ["--resume", "--epochs", "3"], counters,
-                              resume_from=saved)
+        reduces = mesh.GRAD_ALLREDUCES
+        with single_rank_env():
+            _, r, _, _ = _cli_run(train_ave, argv + ["--resume", "--epochs", "2"], counters,
+                                  resume_from=saved)
         del saved
         restore_s = r.restores[-1]
         check(r.resume_diff == [], f"ave cli resume: restored state differs from the saved "
                                    f"one: {r.resume_diff}")
-        losses3 = [float(v) for v in r.losses]
-        check(len(losses3) == 8 and all(math.isfinite(v) for v in losses3),
-              f"ave cli resume: third epoch's losses {losses3}")
+        losses2 = [float(v) for v in r.losses]
+        check(len(losses2) == 8 and all(math.isfinite(v) for v in losses2)
+              and mesh.GRAD_ALLREDUCES - reduces == 8,
+              f"ave cli resume: second epoch's losses {losses2}, "
+              f"{mesh.GRAD_ALLREDUCES - reduces} gradient all-reduces")
+        lrs2 = [x[0] for x in r.update_lrs]
+        check(len(lrs2) == 4 and all(math.isclose(v, lr * decay, rel_tol=1e-12) for v in lrs2),
+              f"ave cli resume: learning rates of the updates {lrs2}, want 4 x {lr * decay}")
+        lrs += lrs2
         log(f"[ave cli] resume: state bit-identical to step {kept[-1]}'s checkpoint (weights, "
-            f"BN stats, Adam moments, acc_grads, step, updates); epoch 3 losses "
-            f"{[round(v, 4) for v in losses3]}")
+            f"BN stats, Adam moments, acc_grads, step, updates); epoch 2 losses "
+            f"{[round(v, 4) for v in losses2]}, update lrs {lrs2} (the step decay); each run "
+            f"under an NCCL process group of world size 1, the gradient all-reduced every step")
         log(f"[time] ave cli: median loop step wall {step_wall_ms:.2f} ms (phase_train's step "
             f"{train_step_ms:.2f} ms); loader wait {wait_ms:.3f} ms a step; checkpoint "
             f"{size / 1e9:.3f} GB saved in {save_s * 1e3:.1f} ms, restored in "
@@ -2964,25 +3259,40 @@ def _close_to_cpu(out, ref, keys, label: str, moved=None) -> float:
     return worst
 
 
+# The (chain path, fused combine) routes of a tiny phase's eval forward: the
+# fused combine on the default path only (the switch acts on the adapters,
+# which both paths share)
+TINY_ROUTES = ((False, False), (False, True), (True, False))
+
+
+def _route_label(chains: bool, fused: bool) -> str:
+    return ("chain path" if chains else "default path") + (", fused combine" if fused else "")
+
+
 def phase_avvp_tiny() -> int:
-    """Tiny MGNModel in float32: the eval forward on both paths and a 2-step
-    train curve on the default path, card (kernels) vs CPU (plain
-    versions). Returns the K3 launches of the tiny chain-path forward."""
+    """Tiny MGNModel in float32: the eval forward on both paths and on the
+    default path with the fused combine, one train step's gradients on both
+    combines and a 2-step train curve on the default path, card (kernels)
+    vs CPU (plain versions). Returns the K3 launches of the tiny chain-path
+    forward."""
     from avmoe_tpu_torch.config import tiny_avvp_config
     from avmoe_tpu_torch.kernels.block_chain import block_chain
     from avmoe_tpu_torch.models.avvp import MGNModel, make_avvp_loss_fn
 
     cfg = tiny_avvp_config()
+    tag = "avvp tiny"
     cpu = MGNModel(cfg, device="cpu", seed=0)
     _nonzero_gates_(cpu, 1)
     ins = _avvp_inputs(cfg, 2, 2, "cpu")
     chain_launches = 0
-    for chains in (False, True):
-        label = "chain path" if chains else "default path"
+    for chains, fused in TINY_ROUTES:
+        label = _route_label(chains, fused)
         cpu.encoder.block_chains = chains
+        _set_fused_(cpu, fused, False)
         ref = cpu(*ins)
         gpu = MGNModel(cfg, device="cuda", seed=None, block_chains=chains)
         gpu.load_state_dict(cpu.state_dict())
+        _set_fused_(gpu, fused, False)
         block_chain.launches = 0
         out = gpu(*(t.cuda() for t in ins))
         torch.cuda.synchronize()
@@ -2990,18 +3300,20 @@ def phase_avvp_tiny() -> int:
               f"{block_chain.launches}")
         if chains:
             chain_launches = block_chain.launches
-        worst = _close_to_cpu(out, ref, AVVP_OUT, f"tiny AVVP {label}")
-        log(f"[avvp tiny] fp32 {label}, card (kernels) vs CPU (plain): every output, gating "
+        worst = _close_to_cpu(out, ref, AVVP_OUT, f"{tag} {label}")
+        log(f"[{tag}] fp32 {label}, card (kernels) vs CPU (plain): every output, gating "
             f"probs and lb_loss within rtol 1e-3, atol 1e-4; outputs max |d| {worst:.3e}")
     cpu.encoder.block_chains = False
+    _set_fused_(cpu, False, False)
 
     gpu = MGNModel(cfg, device="cuda", seed=None)
     gpu.load_state_dict(cpu.state_dict())
     T = cfg.num_segments
     noise = torch.from_numpy(np.random.RandomState(3).gumbel(size=(2, T, T)).astype(np.float32))
     with _heads_without_draws((cpu, gpu), noise):
-        _tiny_train_vs_cpu("avvp tiny", cpu, gpu, make_avvp_loss_fn,
-                           lambda n, dev: _avvp_batches(cfg, 2, n, 7, dev), steps=2)
+        _tiny_train_vs_cpu(tag, cpu, gpu, make_avvp_loss_fn,
+                           lambda n, dev: _avvp_batches(cfg, 2, n, 7, dev), steps=2,
+                           fused=True)
     return chain_launches
 
 
@@ -3141,38 +3453,34 @@ def phase_avvp_full():
     return launches, fwd_ms, prof, model
 
 
-def _full_grad_gate(tag: str, make_model, model, loss_fn, batch,
+def _full_grad_gate(tag: str, make_model, loss_fn, batch,
                     frozen_scopes=("swin", "htsat")) -> None:
     """The gradient gate of a full-width train step: one deterministic
     step's trainable gradients in float32 through the kernels against float32
     through their plain versions, the same generator seed for both, at the
     seeded init (gates zero; checked: cosine >= 0.9999 overall and on every
-    leaf) and with the trained `model`'s noised gates (reported); bf16
-    against float32 at the seeded init (reported). `make_model(dtype, seed)`
+    leaf); bf16 against float32 there (reported). (With the trained model's
+    noised gates the float32 gradient moves with the rounding, so nothing
+    is read there.) `make_model(dtype, seed)`
     builds the model on the card; `frozen_scopes` the backbones that stay
     frozen."""
     from avmoe_tpu_torch.train.freeze import freeze
 
     plain = _plain_cores()
-    read = {}
-    for label in ("seeded init", "after the steps, gates noised"):
-        src = make_model(torch.bfloat16, 0) if label == "seeded init" else model
-        f32 = make_model(torch.float32, None)
-        f32.load_state_dict(src.state_dict())
-        freeze(f32, frozen_scopes)
-        ref = _trainable_grads(f32, loss_fn, batch, 13)
-        read[label] = {"f32 plain / f32": _grad_cosines(
-            _trainable_grads(f32, loss_fn, batch, 13, cores=plain), ref)}
-        if src is not model:
-            freeze(src, frozen_scopes)
-            read[label]["bf16 / f32"] = _grad_cosines(_trainable_grads(src, loss_fn, batch, 13),
-                                                      ref)
-        del src, f32, ref
-        torch.cuda.empty_cache()
-        log(f"[{tag}] trainable gradients of one deterministic step, {label}: " + "; ".join(
-            f"{k} cosine {w:.7f}, lowest leaf {lo:.7f} ({leaf})"
-            for k, (w, lo, leaf) in read[label].items()))
-    whole, low, leaf = read["seeded init"]["f32 plain / f32"]
+    src = make_model(torch.bfloat16, 0)
+    f32 = make_model(torch.float32, None)
+    f32.load_state_dict(src.state_dict())
+    freeze(f32, frozen_scopes)
+    freeze(src, frozen_scopes)
+    ref = _trainable_grads(f32, loss_fn, batch, 13)
+    read = {"f32 plain / f32": _grad_cosines(
+                _trainable_grads(f32, loss_fn, batch, 13, cores=plain), ref),
+            "bf16 / f32": _grad_cosines(_trainable_grads(src, loss_fn, batch, 13), ref)}
+    del src, f32, ref
+    torch.cuda.empty_cache()
+    log(f"[{tag}] trainable gradients of one deterministic step, seeded init: " + "; ".join(
+        f"{k} cosine {w:.7f}, lowest leaf {lo:.7f} ({leaf})" for k, (w, lo, leaf) in read.items()))
+    whole, low, leaf = read["f32 plain / f32"]
     check(whole >= 0.9999 and low >= 0.9999, f"{tag}: fp32 gradients through the kernels vs "
           f"their plain versions at the seeded init: cosine {whole:.7f}, leaf {leaf} {low:.7f}; "
           f"want >= 0.9999")
@@ -3211,7 +3519,7 @@ def phase_avvp_train(model):
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     _full_grad_gate("avvp train", lambda dtype, seed: MGNModel(cfg, dtype=dtype, device="cuda",
                                                                seed=seed),
-                    model, loss_fn, dict(batch, mixup_lambda=torch.full_like(lam, 0.6)))
+                    loss_fn, dict(batch, mixup_lambda=torch.full_like(lam, 0.6)))
     step_ms, _, prof = _step_times("AVVP train step", step, state, batch, gen)
     return got, step_ms, prof
 
@@ -3326,24 +3634,28 @@ def phase_avs_kernels(gen):
 
 def phase_avqa_tiny():
     """Tiny AVQAFusionModel in float32: the eval forward on both paths (the
-    negative pass through K1 + K2, or K3 chains) and a 2-step train curve on
-    the default path, card (kernels) vs CPU (plain versions); one step's
-    trainable gradients per leaf."""
+    negative pass through K1 + K2, or K3 chains) and on the default path
+    with the fused combine, one step's trainable gradients per leaf on both
+    combines and a 2-step train curve on the default path, card (kernels)
+    vs CPU (plain versions)."""
     from avmoe_tpu_torch.config import tiny_avqa_config
     from avmoe_tpu_torch.models.avqa import (
         AVQAFusionModel, avqa_kernel_launches, make_avqa_loss_fn)
 
     cfg = tiny_avqa_config()
+    tag = "avqa tiny"
     cpu = AVQAFusionModel(cfg, device="cpu", seed=0)
     _nonzero_gates_(cpu, 1)
     ins = _avqa_inputs(cfg, 2, 2, "cpu")
     counters = _counters()
-    for chains in (False, True):
-        label = "chain path" if chains else "default path"
+    for chains, fused in TINY_ROUTES:
+        label = _route_label(chains, fused)
         cpu.encoder.block_chains = chains
+        _set_fused_(cpu, fused, False)
         ref = cpu(*ins)
         gpu = AVQAFusionModel(cfg, device="cuda", seed=None, block_chains=chains)
         gpu.load_state_dict(cpu.state_dict())
+        _set_fused_(gpu, fused, False)
         for c in counters.values():
             c.launches = 0
         out = gpu(*(t.cuda() for t in ins))
@@ -3351,16 +3663,17 @@ def phase_avqa_tiny():
         got = {k: c.launches for k, c in counters.items()}
         want = avqa_kernel_launches(cfg, chains)
         check(got == want, f"tiny AVQA {label}: launches {got}, want {want}")
-        worst = _close_to_cpu(out, ref, AVQA_OUT, f"tiny AVQA {label}")
-        log(f"[avqa tiny] fp32 {label}, card (kernels) vs CPU (plain): every output, gating "
+        worst = _close_to_cpu(out, ref, AVQA_OUT, f"{tag} {label}")
+        log(f"[{tag}] fp32 {label}, card (kernels) vs CPU (plain): every output, gating "
             f"probs and lb_loss within rtol 1e-3, atol 1e-4; outputs max |d| {worst:.3e}; "
             f"launches {got}")
     cpu.encoder.block_chains = False
+    _set_fused_(cpu, False, False)
 
     gpu = AVQAFusionModel(cfg, device="cuda", seed=None)
     gpu.load_state_dict(cpu.state_dict())
-    _tiny_train_vs_cpu("avqa tiny", cpu, gpu, make_avqa_loss_fn,
-                       lambda n, dev: _avqa_batches(cfg, 2, n, 7, dev), steps=2)
+    _tiny_train_vs_cpu(tag, cpu, gpu, make_avqa_loss_fn,
+                       lambda n, dev: _avqa_batches(cfg, 2, n, 7, dev), steps=2, fused=True)
 
 
 def _avqa_pooled(model, ins):
@@ -3516,7 +3829,7 @@ def phase_avqa_train(model):
         f"per step {got} (plan {want}); peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     _full_grad_gate("avqa train", lambda dtype, seed: AVQAFusionModel(
-        cfg, dtype=dtype, device="cuda", seed=seed), model, loss_fn,
+        cfg, dtype=dtype, device="cuda", seed=seed), loss_fn,
         dict(batch, mixup_lambda=torch.full_like(lam, 0.6)))
     step_ms, peak, prof = _step_times("AVQA train step", step, state, batch, gen)
     return got, step_ms, peak, prof
@@ -3618,15 +3931,17 @@ def _given_router_noise(noise: torch.Tensor):
 
 
 def phase_avs_tiny():
-    """Tiny AVSModel in float32, S4 and MS3: the eval forward on both paths,
-    card (kernels) vs CPU (plain versions), every output, the gating probs
-    and lb_loss, and the launches; then the train semantics of MS3 and of S4
-    (HTS-AT trainable), a 2-step curve and one step's gradients per leaf,
-    with the router noise given."""
+    """Tiny AVSModel in float32, S4 and MS3: the eval forward on both paths
+    and on the default path with the fused combine, card (kernels) vs CPU
+    (plain versions), every output, the gating probs and lb_loss, and the
+    launches; then the train semantics of MS3 and of S4 (HTS-AT trainable),
+    one step's gradients per leaf on both combines and a 2-step curve, with
+    the router noise given."""
     from avmoe_tpu_torch.models.avs import (
         AVSModel, avs_frozen_scopes, avs_kernel_launches, make_avs_loss_fn)
 
     counters = _counters()
+    tag = "avs tiny"
     for setting in ("s4", "ms3"):
         cfg = _avs_tiny_cfg(setting)
         cpu = AVSModel(cfg, device="cpu", seed=0)
@@ -3635,9 +3950,10 @@ def phase_avs_tiny():
         r = np.random.RandomState(1)
         nudged = tuple(t * (1 + 1e-6 * torch.from_numpy(r.randn(*t.shape).astype(np.float32)))
                        for t in ins)
-        for chains in (False, True):
-            label = f"tiny AVS {setting} {'chain' if chains else 'default'} path"
+        for chains, fused in TINY_ROUTES:
+            label = f"{tag} {setting} {_route_label(chains, fused)}"
             cpu.encoder.block_chains = chains
+            _set_fused_(cpu, fused, False)
             ref = _avs_outputs(cpu(*ins))
             # S4's 'mha' expert attends across the 4 frames with sharp
             # softmaxes: a 1e-6 relative change of the inputs moves the CPU's
@@ -3645,6 +3961,7 @@ def phase_avs_tiny():
             moved = _avs_outputs(cpu(*nudged)) if setting == "s4" else None
             gpu = AVSModel(cfg, device="cuda", seed=None, block_chains=chains)
             gpu.load_state_dict(cpu.state_dict())
+            _set_fused_(gpu, fused, False)
             for c in counters.values():
                 c.launches = 0
             out = _avs_outputs(gpu(*(t.cuda() for t in ins)))
@@ -3657,17 +3974,19 @@ def phase_avs_tiny():
             own = "" if moved is None else (
                 "or 4x the CPU's own move under a 1e-6 input change (mask logits "
                 f"{(moved['mask_logits'] - ref['mask_logits']).abs().max().item():.3e})")
-            log(f"[avs tiny] fp32 {label}, card (kernels) vs CPU (plain): mask logits, the "
+            log(f"[{tag}] fp32 {label}, card (kernels) vs CPU (plain): mask logits, the "
                 f"4 feature maps, the aligned audio, gating probs and lb_loss within rtol "
                 f"1e-3, atol 1e-4 {own}; outputs max |d| {worst:.3e}; launches {got}")
         cpu.encoder.block_chains = False
+        _set_fused_(cpu, False, False)
     gpu = AVSModel(cfg, device="cuda", seed=None)
     gpu.load_state_dict(cpu.state_dict())
     noise = torch.from_numpy(np.random.RandomState(4).randn(2 * cfg.num_segments, 2)
                              .astype(np.float32))
     with _given_router_noise(noise):
-        _tiny_train_vs_cpu("avs tiny ms3", cpu, gpu, make_avs_loss_fn,
-                           lambda n, dev: _avs_batches(cfg, 2, n, 7, dev, frame=80), steps=2)
+        _tiny_train_vs_cpu(f"{tag} ms3", cpu, gpu, make_avs_loss_fn,
+                           lambda n, dev: _avs_batches(cfg, 2, n, 7, dev, frame=80),
+                           steps=2, fused=True)
     # S4 with HTS-AT trainable: its backward through K1b's dbias and K2b's
     # weight gradients on the card, the plain versions' on the CPU
     cfg = _avs_tiny_cfg("s4")
@@ -3676,8 +3995,9 @@ def phase_avs_tiny():
     gpu = AVSModel(cfg, device="cuda", seed=None)
     gpu.load_state_dict(cpu.state_dict())
     with _given_router_noise(noise):
-        _tiny_train_vs_cpu("avs tiny s4", cpu, gpu, make_avs_loss_fn,
-                           lambda n, dev: _avs_batches(cfg, 2, n, 7, dev, frame=80), steps=2,
+        _tiny_train_vs_cpu(f"{tag} s4", cpu, gpu, make_avs_loss_fn,
+                           lambda n, dev: _avs_batches(cfg, 2, n, 7, dev, frame=80),
+                           steps=2, fused=True,
                            frozen_scopes=avs_frozen_scopes(cfg), nudge=True)
 
 
@@ -3894,7 +4214,7 @@ def phase_avs_train(s4_model, model):
         f"running stats moved; launches per step {got} (plan {want}); peak memory {peak:.2f} "
         f"GiB")
     _full_grad_gate("avs train", lambda dtype, seed: AVSModel(
-        cfg, dtype=dtype, device="cuda", seed=seed), model, loss_fn,
+        cfg, dtype=dtype, device="cuda", seed=seed), loss_fn,
         dict(batch, mixup_lambda=torch.full_like(lam, 0.6)))
     step_ms, step_peak, prof = _step_times("AVS MS3 train step", step, state, batch, gen)
 
@@ -3928,7 +4248,7 @@ def phase_avs_train(s4_model, model):
         f"relative-position table, fc1, fc2, norm2 among them), bn0 and W_z_bn running stats "
         f"moved; launches per step {s4_got} (plan {s4_want}); peak memory {s4_peak:.2f} GiB")
     _full_grad_gate("avs s4 train", lambda dtype, seed: AVSModel(
-        s4, dtype=dtype, device="cuda", seed=seed), s4_model, s4_loss,
+        s4, dtype=dtype, device="cuda", seed=seed), s4_loss,
         dict(s4_batch, mixup_lambda=torch.full_like(s4_lam, 0.6)), frozen_scopes=scopes)
     s4_ms, s4_step_peak, s4_prof = _step_times("AVS S4 train step", s4_step, s4_state,
                                                s4_batch, gen)
@@ -4627,11 +4947,13 @@ def _param_grad_launches():
 
 def phase_avs_cli(train_step_ms: float):
     """`avmoe_tpu_torch.cli.train_avs.main` in-process: S4 on the full
-    AVSConfig() in bf16 (1 epoch of 16 synthetic clips, batch 4, accum 2: 4
-    micro-steps in which HTS-AT trains, 2 eval batches), --mode test
+    AVSConfig() in bf16 (1 epoch of 16 synthetic clips, batch 4, accum 1: 4
+    steps in which HTS-AT trains, 2 eval batches), --mode test
     --save_pred_mask (a PNG a mask evaluated, the best step's mIoU and
-    F-measure exactly), --resume to a second epoch; then MS3 at the tiny
-    config on the card (its full-width step is phase_avs_train's)."""
+    F-measure exactly); then MS3 at the tiny
+    config on the card (its full-width step is phase_avs_train's), with
+    --resume to a second epoch there (the other CLIs resume at full width;
+    S4's full-width checkpoint is restored by --mode test)."""
     import shutil
     import tempfile
 
@@ -4643,7 +4965,7 @@ def phase_avs_cli(train_step_ms: float):
     cfg, spe = AVSConfig(), 4
     tmp, tiny = tempfile.mkdtemp(prefix="avs_cli_"), tempfile.mkdtemp(prefix="avs_ms3_cli_")
     argv = ["--setting", "s4", "--synthetic", "--train_batch_size", str(BATCH), "--accum_itr",
-            "2", "--num_workers", "4", "--model_save_dir", tmp]
+            "1", "--num_workers", "4", "--model_save_dir", tmp]
     counters = _train_counters()
     fwd = avs_kernel_launches(cfg, block_chains=False)
     per_step = {"K1": fwd["K1"], "K2": fwd["K2"], **avs_backward_launches(cfg)}
@@ -4666,11 +4988,15 @@ def phase_avs_cli(train_step_ms: float):
         check(len(htsat) > 0 and all(not torch.equal(p.state.trainable[n], p.initial[n])
                                      for n in htsat), "avs cli: an HTS-AT weight did not move")
         n_htsat = len(htsat)
-        # 2 Adam updates leave tensors behind zero-initialized gates unmoved:
-        # moved is held over the train and resumed runs
-        res, start = _cli_train_report("avs cli", p, got,
-                                       _run_plan(per_step, per_eval, steps, evals), spe,
-                                       base_mem, moved=False)
+        # at the recipe's lr S4 collapses to a constant loss within a few
+        # updates (tools/s4_train_curve.py: float32 through the plain
+        # versions too), so tensors behind two zero gates may never get a
+        # gradient: HTS-AT's moving is held, and the tensors that cannot move
+        still = avs_seed_init_stalls(cfg, p.state.trainable)
+        n_moved = _moved("avs cli", p.state, p.initial, still=still, every=False)[0]
+        res, _ = _cli_train_report("avs cli", p, got, _run_plan(per_step, per_eval, steps, evals),
+                                   spe, base_mem, moved=False)
+        res["moved_tensors"] = n_moved
         best_json, kept = _best_json(tmp)
         check(best_json["metric"] == best and best_json["step"] in kept,
               f"avs cli: best.json {best_json}, best {best}, steps kept {kept}")
@@ -4680,11 +5006,12 @@ def phase_avs_cli(train_step_ms: float):
               "avs cli: the sources were not archived")
         _expert_dumps("avs cli", tmp, len(plan_injection(cfg.swin, cfg.htsat, cfg.injection)))
         log(f"[avs cli] train: S4 AVSConfig() bf16, HTS-AT trainable, {steps} micro-steps "
-            f"(accum 2), {evals} eval batches in {train_s:.1f} s; losses "
+            f"(accum 1), {evals} eval batches in {train_s:.1f} s; losses "
             f"{[round(v, 4) for v in res['losses']]}; (mIoU, F) by epoch {p.results}; best.json "
             f"{best_json}, steps kept {kept}; {n_sources} source files archived; "
             f"{res['frozen_tensors']} frozen tensors bit-identical, the {n_htsat} of HTS-AT "
-            f"all moved; launches {got}, with parameter gradients {grads}")
+            f"all moved, {res['moved_tensors']} trainable tensors moved, the {len(still)} that "
+            f"cannot move did not; launches {got}, with parameter gradients {grads}")
 
         miou, q, got_t, test_s = _cli_run(train_avs, argv + ["--mode", "test",
                                                              "--save_pred_mask"], counters)
@@ -4698,14 +5025,7 @@ def phase_avs_cli(train_step_ms: float):
         log(f"[avs cli] test: the restored step {kept[-1]}'s (mIoU, F) {q.results[0]} equal "
             f"epoch {epoch}'s evaluation in the train run; {len(masks)} mask PNGs saved (8 clips "
             f"x 5 frames) in {test_s:.1f} s; launches {got_t}")
-        # at the recipe's lr S4 collapses to a constant loss within a few
-        # updates (tools/s4_train_curve.py: float32 through the plain
-        # versions too), so tensors behind two zero gates may never get a
-        # gradient: HTS-AT's moving is held, and the tensors that cannot move
-        still = avs_seed_init_stalls(cfg, start)
-        losses3, restore_ms, res["moved_tensors"] = _cli_resume(
-            "avs cli", train_avs, argv + ["--resume", "--max_epoches", "2"], counters, tmp, spe,
-            2, start=start, still=still, every=False)
+        restore_ms = q.restores[-1] * 1e3
 
         # MS3 at the tiny config, float32, on the card: 8 clips, 4 micro-steps
         # and Adam updates
@@ -4722,6 +5042,9 @@ def phase_avs_cli(train_step_ms: float):
                                      _run_plan(m_step, m_eval, 4, 2), 4, base_mem, still=m_still)
         m_test, _, _, _ = _cli_run(train_avs, margv + ["--mode", "test"], counters)
         check(m_test == m_best, f"avs ms3 tiny cli: test mIoU {m_test} vs best {m_best}")
+        m_resume, _, _ = _cli_resume("avs ms3 tiny cli", train_avs,
+                                     margv + ["--resume", "--max_epoches", "2"], counters, tiny,
+                                     4, 2)
         log(f"[avs cli] MS3 tiny float32 on the card: 4 micro-steps, 2 eval batches in "
             f"{m_s:.1f} s, losses {[round(v, 4) for v in m_res['losses']]}; launches {got_m}; "
             f"{m_res['moved_tensors']} trainable tensors moved, the {len(m_still)} that cannot "
@@ -4736,8 +5059,8 @@ def phase_avs_cli(train_step_ms: float):
                 "checkpoint_restore_ms": restore_ms, "peak_gib": peak, "train_run_s": train_s,
                 "test_run_s": test_s, "miou_fmeasure_by_epoch": p.results,
                 "test_miou": miou, "masks_saved": len(masks), "launches": got,
-                "param_grad_launches": grads, "resume_losses": losses3,
-                "seed_init_stalled_tensors": len(still), "ms3_tiny_losses": m_res["losses"]}
+                "param_grad_launches": grads, "seed_init_stalled_tensors": len(still),
+                "ms3_tiny_losses": m_res["losses"], "ms3_tiny_resume_losses": m_resume}
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
         shutil.rmtree(tiny, ignore_errors=True)
@@ -4791,14 +5114,19 @@ def main():
     k3_err, k3_tot = phase_k3(gen)
     done("K1, K2, K3")
     phase_tiny()
-    launches, fwd_ms, model = phase_full()
+    launches, fwd_ms, fwd_profs, model = phase_full()
     done("AVE eval")
     k1b_err, k1b_tot = phase_k1b(gen)
     k2b_err, k2b_tot = phase_k2b(gen)
     done("K1b, K2b")
     phase_train_tiny()
-    train, step_ms = phase_train(model)
+    train, step_ms, step_prof = phase_train(model)
     done("AVE train")
+    fused = phase_fused_moe(model, fwd_profs["default path"], step_prof)
+    done("AVE fused combine")
+    tsne = phase_tsne(model)
+    phase_dryrun()
+    done("t-SNE, data-parallel dry run")
     convert = phase_convert(model)
     audio_stats = phase_audio_stats()
     done("AVE convert, audio stats")
@@ -4917,6 +5245,7 @@ def main():
         "s4_train_idle_share": s4_train["prof"][1],
         "s4_train_idle_share_profiled": s4_train["prof"][2],
         "s4_launches_per_step": s4_train["launches"]}}))
+    log(json.dumps({"ave_fused_moe": fused, "tsne": tsne}))
     log(json.dumps({"ave_legacy": legacy}))
     log(json.dumps({"avs_baseline": baseline}))
     log(json.dumps({"ave_cli": ave_cli, "ave_scv2_base": flavor, "avvp_cli": avvp_cli,

@@ -3,8 +3,10 @@
 head setting the JAX model supports, the config presets field by field, and
 the scv2 HTS-AT flavor's front end (16 kHz, hop 160) at full width.
 
-One JAX compile for the file: the tiny AVEModel with is_cmbs=False, whose
-forward also hands out the encoder's pooled features (f_v, f_a) through
+One JAX compile for the file: the tiny AVEModel with is_cmbs=False (both
+backbones cut to depths 2-2-2-2: the heads read the encoder's pooled
+features, whose shapes do not depend on the depth), whose forward also
+hands out the encoder's pooled features (f_v, f_a) through
 `capture_intermediates`. The other head settings are held against the JAX
 heads applied eagerly to those features, under the same encoder weights.
 The JAX AVEModel itself cannot be built with is_temporal_att=False: it
@@ -34,8 +36,16 @@ torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
 
+DEPTHS = (2, 2, 2, 2)
+
+
 def _t(a):
     return torch.from_numpy(np.array(a, copy=True))
+
+
+def _cut(cfg, **kw):
+    return dataclasses.replace(cfg, swin=dataclasses.replace(cfg.swin, depths=DEPTHS),
+                               htsat=dataclasses.replace(cfg.htsat, depths=DEPTHS), **kw)
 
 
 def _close(ours, ref):
@@ -109,14 +119,14 @@ def no_cmbs():
     from avmoe_tpu_torch.config import tiny_ave_config
     from avmoe_tpu_torch.models.ave import AVEModel
 
-    cfg = dataclasses.replace(tiny_ave_config(), is_cmbs=False)
+    cfg = _cut(tiny_ave_config(), is_cmbs=False)
     pm = AVEModel(cfg, device="cpu", seed=None)
     variables = port_variables(pm, seed=1)
     load_jax_variables(pm, variables)
     rng = np.random.RandomState(0)
     wave = rng.randn(2, cfg.num_segments, cfg.audio_len).astype(np.float32) * 0.1
     imgs = rng.rand(2, cfg.num_segments, 64, 64, 3).astype(np.float32)
-    jm = JAVE(dataclasses.replace(jax_tiny(), is_cmbs=False))
+    jm = JAVE(_cut(jax_tiny(), is_cmbs=False))
     ref, state = jax.jit(lambda v, w, i: jm.apply(
         v, w, i, capture_intermediates=lambda mdl, name: mdl.name == "encoder"))(
         to_jax(variables), jnp.asarray(wave), jnp.asarray(imgs))

@@ -8,11 +8,15 @@ the heads' gradients against `jax.grad`, the converter's round trip over
 the grounding tree, the launch plan at AVQAConfig(), and the stage-B graft
 of the heads against the JAX package's `load_partial`.
 
-One JAX compile for the file (a module-scoped fixture); tolerance rtol
-2e-3, atol 1e-4 (the JAX suite's activation tolerance).
+One JAX compile for the file (a module-scoped fixture), both backbones cut
+to depths 2-2-2-2: the grounding model has no adapters, so no check reads
+the depth (the feature shapes and the heads do not depend on it);
+tolerance rtol 2e-3, atol 1e-4 (the JAX suite's activation tolerance).
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -29,6 +33,7 @@ torch.set_num_threads(2)
 
 HEADS = ("fc_a1", "fc_a2", "fc_gl", "fc1", "fc2", "fc3", "fc4")
 B = 3                      # segments: one sample each
+DEPTHS = (2, 2, 2, 2)
 
 
 def _inputs(cfg, seed: int):
@@ -36,6 +41,11 @@ def _inputs(cfg, seed: int):
     S = cfg.swin.img_size
     return (rng.randn(B, cfg.audio_len).astype(np.float32) * 0.1,
             rng.rand(B, S, S, 3).astype(np.float32), rng.rand(B, S, S, 3).astype(np.float32))
+
+
+def _cut(cfg):
+    return dataclasses.replace(cfg, swin=dataclasses.replace(cfg.swin, depths=DEPTHS),
+                               htsat=dataclasses.replace(cfg.htsat, depths=DEPTHS))
 
 
 def _flat(tree, prefix=()):
@@ -51,7 +61,7 @@ def grd():
     from avmoe_tpu.models.avqa_grounding import AVQAGroundingModel as JGrd
     from avmoe_tpu.models.avqa_grounding import make_grounding_loss_fn as j_loss_fn
 
-    jcfg = jax_tiny()
+    jcfg = _cut(jax_tiny())
     ins = _inputs(jcfg, 0)
     jm = JGrd(jcfg)
     variables = jax_variables(jm, *map(jnp.asarray, ins), seed=5)
@@ -88,7 +98,7 @@ def _port(grd):
     from avmoe_tpu_torch.config import tiny_avqa_config
     from avmoe_tpu_torch.models.avqa_grounding import AVQAGroundingModel
 
-    pm = AVQAGroundingModel(tiny_avqa_config(), device="cpu", seed=None)
+    pm = AVQAGroundingModel(_cut(tiny_avqa_config()), device="cpu", seed=None)
     load_jax_variables(pm, grd["variables"])
     return pm
 

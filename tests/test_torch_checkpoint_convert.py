@@ -349,17 +349,30 @@ def test_graft_backbones_raises_on_a_stray_or_missing_leaf():
 # ------------------------------------------- the whole AVE forward, and JAX
 
 
+# both backbones cut to depths 2-2-2-2 for the forward: the converters map
+# blocks one by one whatever the depth, and the JAX trace of the tiny
+# model's 36 blocks cost most of this file's time
+CUT = (2, 2, 2, 2)
+
+
+def _cut(cfg):
+    return dataclasses.replace(cfg, swin=dataclasses.replace(cfg.swin, depths=CUT),
+                               htsat=dataclasses.replace(cfg.htsat, depths=CUT))
+
+
 @pytest.fixture(scope="module")
 def ave_forward():
     from avmoe_tpu.config import tiny_ave_config as jax_tiny
     from avmoe_tpu.models.ave import AVEModel as JAVE
 
-    model = _build("ave")
+    from avmoe_tpu_torch.models.ave import AVEModel
+
+    model = AVEModel(_cut(C.tiny_ave_config()), device="cpu", seed=None)
     tree = port_variables(model, seed=5)
     sd = ref.mmil_net_state_dict(tree, dropped=True)
     kw = dict(n_sites=ref.n_sites(tree["params"]["encoder"]), **_depths(model))
 
-    jcfg = jax_tiny()
+    jcfg = _cut(jax_tiny())
     rng = np.random.RandomState(6)
     wave = rng.randn(2, jcfg.num_segments, jcfg.audio_len).astype(np.float32) * 0.1
     imgs = rng.rand(2, jcfg.num_segments, jcfg.swin.img_size, jcfg.swin.img_size,
@@ -395,7 +408,7 @@ def test_jax_graft_backbones_raises_on_the_ave_tree(ave_forward):
     model = ave_forward["model"]
     swin_sd, htsat_sd = _backbone_dicts(model, 50)
     htsat_sd = jcv.strip_prefix(htsat_sd, "sed_model.")
-    depths = dict(swin_depths=C.tiny_swin().depths, htsat_depths=C.tiny_htsat().depths)
+    depths = _depths(model)
     with pytest.raises(AssertionError, match="missing.*'htsat', 'norm'"):
         jcv.graft_backbones(variables, htsat_sd=htsat_sd, **depths)
     grafted = jcv.graft_backbones(variables, swin_sd=swin_sd, **depths)   # the Swin half works

@@ -16,7 +16,7 @@ import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "avmoe_tpu", "pandas"}
-IMPORT_TIME_FORBIDDEN = {"PIL"}
+IMPORT_TIME_FORBIDDEN = {"PIL", "matplotlib"}
 SOURCES = sorted((ROOT / "avmoe_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "tools" / "k1b_variants.py",
     ROOT / "tools" / "k2_tile_variants.py", ROOT / "tools" / "k2b_bit_check.py",
